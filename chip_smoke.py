@@ -1,0 +1,484 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA H100 (or any sm_90a card).
+
+    python3 chip_smoke.py [--out DIR]
+
+It needs the checkout around it (``src/repro_torch``), PyTorch with CUDA,
+``nvcc`` and one card, and exits non-zero when any of them is missing or
+any phase fails.  Phases:
+
+1. the card (name and power limit) and the build of every kernel under
+   ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all at once;
+2. each kernel against its plain PyTorch version on the card, at the zoo's
+   shapes and the reference tolerances, with its time beside the plain
+   version's, one PyTorch library call's and the least time the card could
+   take (its bound);
+3. the main path at full width in bf16: a 3-worker ServingCluster on one
+   card serving 10 pipeline requests (prompts (2, 64)) over
+   mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
+   width, depth cut to fit beside NeMo), with kernel launch counts read
+   around the run; then NeMo's logits, kernel path against plain path;
+4. the reduced fp32 serve example, kernel path against plain path: equal
+   assignments and tokens.
+
+It prints, in order: the card line, per-phase results, one JSON line with
+every kernel's numbers, and last ``{"ok": true, "device": {...}}``.
+``--out DIR`` also writes every measurement and nvcc's ptxas report there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 tensor cores
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock: covers the host's enqueue
+# NeMo's bf16 logits, kernel path against the plain fp32 path, as a share of
+# the largest logit.  The two plain paths differ from each other by 6e-2 to
+# 9e-2 there: 40 bf16 layers of random weights amplify one-ulp differences
+# in an attention output that much (PERF.md), so 2e-2 cannot hold.
+LOGIT_BOUND = 0.1
+MAIN_SHAPE = dict(model="mistral-nemo-12b", b=2, h=32, kh=8, d=128, t=13, dtype="bfloat16")
+
+
+def die(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+class Phases:
+    """Runs each phase, keeps going after a failure, remembers it."""
+
+    def __init__(self) -> None:
+        self.failed = []
+        self.tracebacks = {}
+
+    def run(self, name, fn, *args):
+        print(f"\n== {name}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        except Exception:  # report, then go on to the next phase
+            self.tracebacks[name] = traceback.format_exc()
+            print(self.tracebacks[name], file=sys.stderr)
+            print(f"== {name}: FAILED", flush=True)
+            self.failed.append(name)
+            return None
+        print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# phase 1: card and build
+# ---------------------------------------------------------------------------
+def card_line() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if out.returncode == 0 and lines else "nvidia-smi failed"
+
+
+def build_kernels():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    wall = time.perf_counter() - t0
+    for name in libs:
+        print(f"built {name}: {_build.build_seconds[name]:.1f} s")
+    print(f"kernel build wall time: {wall:.1f} s")
+    return {"build_wall_s": wall, "build_s": dict(_build.build_seconds),
+            "ptxas": dict(_build.build_logs)}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernel against plain
+# ---------------------------------------------------------------------------
+def cuda_time_ms(fn, flush, reps=25, warmup=3):
+    """Median device time of ``fn`` over ``reps`` calls, between CUDA events.
+
+    Each call follows an L2 flush (the real caller finds the cache cold:
+    the layer's weights stream through L2 between two attention calls) and
+    a spin kernel that holds the card while the host enqueues the start
+    event, ``fn``'s launches and the end event, so that the time between
+    the events is device time and not the host's launch path."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def decode_bound(b, h, kh, d, lens, dtype, itemsize):
+    """Least time (ms) for the work these inputs need: q and lens read once,
+    the valid K/V rows read once, the output written once; 4·H·D flops per
+    valid row.  Returns (ms, bytes, flops, 'bytes' or 'operations')."""
+    rows = sum(lens)
+    nbytes = 2 * b * h * d * itemsize + 4 * b + 2 * rows * kh * d * itemsize
+    flops = 4 * h * d * rows
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_call(q, k, v, lens):
+    """One PyTorch call computing the same function (timed only)."""
+    import torch
+    import torch.nn.functional as F
+
+    t = k.shape[1]
+    qs = q[:, :, None, :]
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+
+def kernel_vs_plain():
+    import torch
+    from repro_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    models = {
+        "mistral-nemo-12b": (2, 32, 8, 128),
+        "granite-20b": (2, 48, 1, 128),
+    }
+    shapes = [(m, *s, t) for m, s in models.items() for t in (13, 300, 4096, 32768)]
+    # the zoo's other head dims: whisper 64, zamba2 112, MLA 192 (hd + rope)
+    shapes += [("whisper-medium", 2, 16, 16, 64, 300), ("zamba2-7b", 2, 32, 32, 112, 300),
+               ("deepseek-v2-236b", 2, 128, 128, 192, 300)]
+    rows = []
+    for model, b, h, kh, d, t in shapes:
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q = torch.randn(b, h, d, generator=gen, device=dev, dtype=tdt)
+            k = torch.randn(b, t, kh, d, generator=gen, device=dev, dtype=tdt)
+            v = torch.randn(b, t, kh, d, generator=gen, device=dev, dtype=tdt)
+            ragged = int(torch.randint(1, t + 1, (1,), generator=gen, device=dev))
+            errs = {}
+            for case, lens in (("full", [t, t]), ("0+ragged", [0, ragged]),
+                               ("1+ragged", [1, ragged])):
+                n = torch.tensor(lens[:b], dtype=torch.int32, device=dev)
+                got = da.decode_attention(q, k, v, n).float()
+                torch.cuda.synchronize()
+                want = da.decode_attention_plain(q, k, v, n).float()
+                errs[case] = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype]):
+                    raise AssertionError(f"{model} {dtype} T={t} lens={lens}: "
+                                         f"max err {errs[case]} outside {TOL[dtype]}")
+                if lens[0] == 0 and bool(got[0].ne(0).any()):
+                    raise AssertionError(f"{model} {dtype} T={t}: empty row is not 0")
+            n = torch.full((b,), t, dtype=torch.int32, device=dev)
+            kernel_ms = cuda_time_ms(lambda: da.decode_attention(q, k, v, n), flush)
+            plain_ms = cuda_time_ms(lambda: da.decode_attention_plain(q, k, v, n), flush)
+            lib = library_call(q, k, v, n)
+            library_ms = cuda_time_ms(lib, flush)
+            lib_err = float((lib()[:, :, 0].float() - da.decode_attention_plain(q, k, v, n).float()).abs().max())
+            bound_ms, nbytes, flops, bound_by = decode_bound(b, h, kh, d, [t] * b, dtype, q.element_size())
+            row = dict(model=model, b=b, h=h, kh=kh, d=d, t=t, dtype=dtype,
+                       max_abs_err=max(errs.values()), errs=errs, kernel_ms=kernel_ms,
+                       plain_ms=plain_ms, library_ms=library_ms, library_err=lib_err,
+                       bound_ms=bound_ms, bound_us_bytes=nbytes / HBM_BYTES_PER_S * 1e6,
+                       bytes=nbytes, flops=flops, bound_by=bound_by,
+                       ctas=b * kh * -(-(h // kh) // 32))
+            rows.append(row)
+            print(f"{model:18s} {dtype:8s} B={b} H={h:3d} KH={kh:3d} D={d:3d} T={t:5d} "
+                  f"err={row['max_abs_err']:.2e} kernel={kernel_ms:.4f} ms "
+                  f"plain={plain_ms:.4f} ms library={library_ms:.4f} ms "
+                  f"bound={bound_ms * 1e3:.2f} us ({bound_by}) ctas={row['ctas']}",
+                  flush=True)
+            del q, k, v
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width
+# ---------------------------------------------------------------------------
+def serve_full_width():
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import ClusterSpec, GB
+    from repro_torch.examples import serve_cluster as ex
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serving import HostedModel, ServingCluster
+
+    dev = torch.device("cuda")
+    granite_layers = 12
+    cfgs = {
+        ex.DRAFT: ARCHS["mamba2-780m"],
+        ex.VERIFY: ARCHS["mistral-nemo-12b"],
+        ex.REFINE: dataclasses.replace(ARCHS["granite-20b"], n_layers=granite_layers),
+    }
+    print(f"granite-20b depth cut: {ARCHS['granite-20b'].n_layers} -> {granite_layers} "
+          "layers (the whole model is 56 GB and does not fit beside NeMo on one card)")
+    t0 = time.perf_counter()
+    hosted = [HostedModel(mid, cfg,
+                          init_params(cfg, torch.Generator(device=dev).manual_seed(mid), dev),
+                          dev)
+              for mid, cfg in cfgs.items()]
+    torch.cuda.synchronize()
+    print(f"weights initialised in {time.perf_counter() - t0:.1f} s")
+    for h in hosted:
+        print(f"  model {h.model_id}: {h.cfg.name} ({h.cfg.n_layers} layers) "
+              f"{h.size_bytes / 1e9:.2f} GB")
+
+    # every hosted model's logits are finite after a short prefill
+    for h in hosted:
+        cache = init_cache(h.cfg, 2, 9, device=dev)
+        for tok in range(1, 9):
+            logits, cache = decode_step(h.params, cache, torch.full((2,), tok, device=dev), h.cfg)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{h.cfg.name}: non-finite logits")
+
+    decode_tokens, prompt_len = 6, 64
+    requests = ex.make_requests(n=10, prompt_len=prompt_len)
+    spec, summ = ex.build_pipelines()
+    sc = ServingCluster(ClusterSpec(n_workers=3, gpu_capacity_bytes=80 * GB), hosted,
+                        scheduler="navigator", decode_tokens=decode_tokens, device=dev)
+    sc.register_pipeline(spec)
+    sc.register_pipeline(summ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.launches = 0
+    t0 = time.perf_counter()
+    for i, (kind, prompt) in enumerate(requests):
+        dfg, entry = (spec, "draft") if kind == 0 else (summ, "perceive")
+        sc.submit(dfg, {entry: prompt}, origin=i % 3)
+    wall = time.perf_counter() - t0
+    launches = da.launches
+
+    # what the requests ran: prefill + decode steps of each task, times its layers
+    expected, tokens_out, steps = 0, 0, {}
+    for r in sc.results:
+        dfg = spec if r.dfg_name == spec.name else summ
+        for tid, task in dfg.tasks.items():
+            n_in = prompt_len if not dfg.preds[tid] else decode_tokens * len(dfg.preds[tid])
+            cfg = cfgs[task.model_id]
+            steps[cfg.name] = steps.get(cfg.name, 0) + n_in + decode_tokens
+            if cfg.arch_type == "dense":
+                expected += cfg.n_layers * (n_in + decode_tokens)
+            tokens_out += r.outputs[tid].size
+    for r in sc.results:
+        print(f"  job {r.job_id} {r.dfg_name:20s} assign={r.assignment} "
+              f"wall={r.latency_s:.3f} s")
+    peak = torch.cuda.max_memory_allocated()
+    summary = dict(
+        requests=len(sc.results), wall_s=wall, decoded_tokens=tokens_out,
+        decoded_tokens_per_s=tokens_out / wall, steps=steps,
+        cache_hit_rate=sc.cache_hit_rate(), workers_used=sc.workers_used(),
+        max_memory_allocated=peak, launches=launches, expected_launches=expected,
+        granite_layers=granite_layers,
+        latencies_s=[r.latency_s for r in sc.results],
+        assignments=[r.assignment for r in sc.results],
+    )
+    print(f"decoded tokens/s: {tokens_out / wall:.1f} ({tokens_out} tokens in {wall:.2f} s)")
+    print(f"cache hit rate: {sc.cache_hit_rate():.3f}; workers used: {sc.workers_used()}")
+    print(f"torch.cuda.max_memory_allocated: {peak / 1e9:.2f} GB")
+    print(f"decode_attention launches: {launches} (expected {expected})")
+    if launches != expected or launches == 0:
+        raise AssertionError(f"decode_attention launched {launches} times, expected {expected}")
+
+    # NeMo after a 64-token teacher-forced prefill: the kernel path against
+    # the plain paths.  "ref_grouped" does the kernel's arithmetic in PyTorch
+    # (fp32 scores, softmax and weighted sum); "ref" mirrors the JAX oracle,
+    # which rounds scores and probabilities to bf16 on the way.  The kernel
+    # path is held to the plain fp32 path within LOGIT_BOUND of the largest
+    # logit, with equal argmax tokens, after the prefill and for one step
+    # from one shared cache; the distance between the two plain paths is
+    # printed beside it as the yardstick.
+    nemo = next(h for h in hosted if h.model_id == ex.VERIFY)
+    prompt = torch.as_tensor(requests[0][1], device=dev)
+    paths = ("auto", "ref_grouped", "ref")
+    logits, caches, step_ms = {}, {}, {p: [] for p in paths}
+    for impl in paths + paths[::-1]:  # in turns, each path twice
+        cache = init_cache(nemo.cfg, 2, prompt_len + 2, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(prompt_len):
+            out, cache = decode_step(nemo.params, cache, prompt[:, i], nemo.cfg, impl=impl)
+        torch.cuda.synchronize()
+        step_ms[impl].append((time.perf_counter() - t1) / prompt_len * 1e3)
+        logits[impl], caches[impl] = out.float(), cache
+    nxt = logits["auto"].argmax(-1)
+    one_step = {
+        impl: decode_step(nemo.params, {k: v.clone() for k, v in caches["auto"].items()},
+                          nxt, nemo.cfg, impl=impl)[0].float()
+        for impl in paths
+    }
+    if not all(bool(torch.isfinite(x).all()) for x in [*logits.values(), *one_step.values()]):
+        raise AssertionError("non-finite NeMo logits")
+
+    def compare(what, a, b, x, y):
+        err, scale = float((x - y).abs().max()), float(y.abs().max())
+        same = bool(torch.equal(x.argmax(-1), y.argmax(-1)))
+        print(f"NeMo {what}, {a} vs {b}: max |diff| = {err:.4e}, max |logit| = {scale:.4e}, "
+              f"ratio {err / scale:.3e}; argmax equal: {same}")
+        return dict(max_abs_diff=err, max_abs_logit=scale, ratio=err / scale, argmax_equal=same)
+
+    pairs = (("auto", "ref_grouped"), ("auto", "ref"), ("ref_grouped", "ref"))
+    prefill = {f"{a}|{b}": compare(f"logits after {prompt_len}-token prefill", a, b,
+                                   logits[a], logits[b]) for a, b in pairs}
+    step = {f"{a}|{b}": compare("logits of one step from one cache", a, b,
+                                one_step[a], one_step[b]) for a, b in pairs}
+    for impl in paths:
+        print(f"NeMo decode step (B=2, bf16), {impl} path: {step_ms[impl]} ms")
+    summary.update(nemo_prefill=prefill, nemo_one_step=step, nemo_step_ms=step_ms,
+                   nemo_profile=profile_decode(nemo, prompt, dev))
+    for name, c in (("prefill", prefill["auto|ref_grouped"]),
+                    ("one step", step["auto|ref_grouped"])):
+        if c["ratio"] > LOGIT_BOUND or not c["argmax_equal"]:
+            raise AssertionError(f"NeMo logits ({name}): kernel path and plain path disagree")
+    return summary
+
+
+def profile_decode(hosted, prompt, dev, steps=4):
+    """Device time of a few decode steps by kernel, against their wall time
+    (the profiler's own overhead is inside the wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, init_cache
+
+    cache = init_cache(hosted.cfg, 2, steps + 2, device=dev)
+    decode_step(hosted.params, cache, prompt[:, 0], hosted.cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            decode_step(hosted.params, cache, prompt[:, i + 1], hosted.cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (the kernels): the operators' own rows carry
+    # their kernels' time again
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    attn_ms = sum(dev_us(e) for e in events if "decode_attention" in e.key) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    print(f"  decode_attention kernels: {attn_ms:.3f} ms")
+    print(f"profile of {steps} {hosted.cfg.name} decode steps: device busy {total_ms:.2f} ms "
+          f"of {wall_ms:.2f} ms wall ({100 * total_ms / wall_ms:.1f} %)")
+    rows = []
+    for e in top:
+        rows.append(dict(name=e.key, device_ms=dev_us(e) / 1e3, calls=e.count))
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    return dict(steps=steps, wall_ms=wall_ms, device_ms=total_ms, attention_ms=attn_ms, top=rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the reduced fp32 example, kernel path against plain path
+# ---------------------------------------------------------------------------
+def reduced_example():
+    from repro_torch.examples import serve_cluster as ex
+
+    requests = ex.make_requests()
+    out = {}
+    for sched in ("navigator", "hash"):
+        runs = {}
+        for impl in ("auto", "ref"):
+            sc, _, _ = ex.run(sched, requests, lambda: ex.reduced_hosted("cuda"),
+                              device="cuda", impl=impl)
+            runs[impl] = sc
+        k, p = runs["auto"], runs["ref"]
+        for rk, rp in zip(k.results, p.results):
+            if rk.assignment != rp.assignment:
+                raise AssertionError(f"{sched} job {rk.job_id}: assignments differ")
+            for tid in rp.outputs:
+                if not (rk.outputs[tid] == rp.outputs[tid]).all():
+                    raise AssertionError(f"{sched} job {rk.job_id} {tid}: tokens differ")
+        print(f"{sched}: 10 requests, equal assignments and tokens; cache hit rate "
+              f"{k.cache_hit_rate():.3f}, workers used {k.workers_used()}")
+        out[sched] = dict(cache_hit_rate=k.cache_hit_rate(), workers_used=k.workers_used())
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="directory for the full measurements (JSON) and nvcc's report")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        die("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        die("no CUDA device: this script measures the port on the card")
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        die(f"the port is not beside this script ({e})")
+    # fp32 matmuls and convolutions in full fp32, no TF32 (the reference's precision)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    phases = Phases()
+    built = phases.run("phase 1: build kernels", build_kernels)
+    rows = phases.run("phase 2: kernels against plain", kernel_vs_plain) if built else None
+    served = phases.run("phase 3: serving at full width (bf16)", serve_full_width) if built else None
+    reduced = phases.run("phase 4: reduced fp32 example, kernel against plain", reduced_example) \
+        if built else None
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(
+            dict(card=card, build=built, kernels=rows, serving=served, reduced=reduced,
+                 failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))
+    if phases.failed or not built:
+        die(f"failed phases: {phases.failed}")
+    main_row = next(r for r in rows if all(r[k] == MAIN_SHAPE[k] for k in MAIN_SHAPE))
+    kernels = [{
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:110",
+        "launches": served["launches"],
+        "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+    }]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

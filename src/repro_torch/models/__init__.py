@@ -1,0 +1,19 @@
+from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.model import (
+    ParamTree,
+    decode_step,
+    init_cache,
+    init_params,
+)
+
+__all__ = [
+    "INPUT_SHAPES",
+    "InputShape",
+    "ModelConfig",
+    "ParamTree",
+    "decode_step",
+    "init_cache",
+    "init_params",
+    "params_from_numpy",
+]

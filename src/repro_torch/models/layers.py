@@ -1,0 +1,118 @@
+"""Shared layer primitives, mirroring ``repro.models.layers``.
+
+Conventions:
+* activations (B, D) in decode; attention heads laid out (B, S, H, hd).
+* params are nested ParamTrees (or dicts) of tensors; layer stacks carry a
+  leading ``n_layers`` axis.
+* norms and softmax statistics in float32, matmuls in the config dtype;
+  casts sit where the JAX code has them, so bf16 rounds at the same places.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+
+def cache_write(
+    cache: torch.Tensor,
+    new: torch.Tensor,
+    write_index: torch.Tensor,
+    mode: str = "scatter",
+) -> torch.Tensor:
+    """Write one token into a (B, T, ...) cache at per-batch slots, in
+    place; returns ``cache``.
+
+    ``scatter``: an indexed write at ``[b, write_index[b]]``.
+    ``onehot``: a select against an iota mask over the whole cache (the
+    reference's partition-friendly form); the same values, more traffic.
+    """
+    if mode == "scatter":
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, write_index.long()] = new.to(cache.dtype)
+        return cache
+    if mode != "onehot":
+        raise ValueError(f"unknown cache_update mode {mode!r}")
+    t = cache.shape[1]
+    mask = torch.arange(t, device=cache.device)[None, :] == write_index[:, None]
+    mask = mask.reshape(mask.shape + (1,) * (cache.ndim - 2))
+    cache.copy_(torch.where(mask, new[:, None].to(cache.dtype), cache))
+    return cache
+
+
+# -- norms ---------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+# -- rotary embeddings -------------------------------------------------------------
+def rope_inv_freq(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (
+        theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
+    )
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    # x in its own dtype times fp32 cos/sin promotes to fp32, as in JAX,
+    # and is cast back once.
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) absolute positions."""
+    inv = rope_inv_freq(x.shape[-1], theta, device=x.device)
+    ang = positions.float()[..., None] * inv  # (B,S,D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+# -- feed-forward --------------------------------------------------------------------
+def swiglu(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    gate = F.silu(x @ p["wg"])
+    return (gate * (x @ p["wu"])) @ p["wd"]
+
+
+# -- attention ------------------------------------------------------------------------
+def gqa_decode_attention(
+    x: torch.Tensor,
+    p: Mapping[str, torch.Tensor],
+    position: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+    write_index: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    theta: float,
+    impl: str = "auto",
+    cache_update: str = "scatter",
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One-token decode.  x: (B, D); position: (B,) absolute positions;
+    caches (B, T, KH, hd), written in place at ``write_index`` (ring-buffer
+    slots for sliding windows; == position for full caches).
+    Returns (output (B, D), (k_cache, v_cache))."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(b, 1, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(b, 1, n_kv_heads, head_dim)
+    pos = position[:, None]
+    q = apply_rope(q, pos, theta)
+    k = apply_rope(k, pos, theta)
+    cache_write(k_cache, k[:, 0], write_index, cache_update)
+    cache_write(v_cache, v[:, 0], write_index, cache_update)
+    out = kops.decode_attention(
+        q[:, 0].contiguous(), k_cache, v_cache, cache_len, impl=impl
+    )
+    out = out.reshape(b, n_heads * head_dim) @ p["wo"]
+    return out, (k_cache, v_cache)
