@@ -12,12 +12,19 @@ any phase fails.  Phases:
 2. each kernel against its plain PyTorch version on the card, at the zoo's
    shapes and the reference tolerances, with its time beside the plain
    version's, one PyTorch library call's and the least time the card could
-   take (its bound);
-3. the main path at full width in bf16: a 3-worker ServingCluster on one
+   take (its bound): decode attention (2), flash attention (2b) and the
+   SSD scan (2c);
+3. the decode path at full width in bf16: a 3-worker ServingCluster on one
    card serving 10 pipeline requests (prompts (2, 64)) over
    mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
    width, depth cut to fit beside NeMo), with kernel launch counts read
    around the run; then NeMo's logits, kernel path against plain path;
+3b. the prefill path at full width in bf16, on phase 3's weights:
+   ``make_prefill_step`` over B = 2, S = 2048 seeded tokens for each model,
+   with the flash and SSD launch counts read around the runs, finite logits
+   and loss, and the last position's logits, kernel path against plain
+   path; then NeMo's forward over phase 3's prompt against its decode path,
+   within ``LOGIT_BOUND`` with equal argmax;
 4. the reduced fp32 serve example, kernel path against plain path: equal
    assignments and tokens.
 
@@ -44,6 +51,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+# SSD: tests/test_kernels.py's 5e-5 / 5e-4 in fp32 (y and the state); y is
+# rounded to bf16 in bf16
+SSD_TOL = {"float32": dict(atol=5e-5, rtol=5e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock: covers the host's enqueue
 # NeMo's bf16 logits, kernel path against the plain fp32 path, as a share of
 # the largest logit.  The two plain paths differ from each other by 6e-2 to
@@ -51,6 +61,12 @@ SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock: covers the host's enq
 # in an attention output that much (PERF.md), so 2e-2 cannot hold.
 LOGIT_BOUND = 0.1
 MAIN_SHAPE = dict(model="mistral-nemo-12b", b=2, h=32, kh=8, d=128, t=13, dtype="bfloat16")
+# the prefill phase's shapes: B = 2, S = 2048, bf16
+PREFILL_B, PREFILL_S = 2, 2048
+FLASH_MAIN = dict(model="mistral-nemo-12b", b=PREFILL_B, s=PREFILL_S, case="causal", dtype="bfloat16")
+SSD_MAIN = dict(b=PREFILL_B, t=PREFILL_S, dtype="bfloat16")
+# what phase 3 hands to phase 3b: the hosted models and NeMo's prompt and logits
+SHARED = {}
 
 
 def die(msg: str) -> None:
@@ -218,6 +234,176 @@ def kernel_vs_plain():
     return rows
 
 
+def visible_pairs(sq, sk, causal, window, q_offset):
+    """(query, key) pairs the mask lets through, for one (batch row, head)."""
+    import numpy as np
+
+    i = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(sk - 1, i) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound(b, sq, sk, h, kh, d, causal, window, q_offset, dtype, itemsize):
+    """Least time (ms): q, k, v read once and out written once, against
+    4·H·D flops per visible pair.  Returns (ms, bytes, flops, bound_by)."""
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * kh * d) * itemsize
+    flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window, q_offset)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_library_call(q, k, v, causal, window, q_offset):
+    """``scaled_dot_product_attention`` on the same inputs (timed only): the
+    causal flag where it means the same mask, an explicit mask otherwise."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import _visible
+
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = {"enable_gqa": True}
+    if q.dtype == torch.float32:
+        # no fused fp32 backend takes enable_gqa, and the unfused one holds
+        # the whole (Sq x Sk) matrix: hand it K/V already repeated to H heads
+        g = q.shape[2] // k.shape[2]
+        ks, vs = ks.repeat_interleave(g, dim=1), vs.repeat_interleave(g, dim=1)
+        gqa = {}
+    if causal and window is None and q_offset == 0 and q.shape[1] == k.shape[1]:
+        return lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, **gqa)
+    mask = _visible(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, **gqa)
+
+
+def flash_vs_plain():
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shapes = []  # (model, b, sq, sk, h, kh, d, case, causal, window, q_offset)
+    for model, h, kh in (("mistral-nemo-12b", 32, 8), ("granite-20b", 48, 1)):
+        for s in (512, 2048, 8192):
+            shapes.append((model, 2, s, s, h, kh, 128, "causal", True, None, 0))
+    shapes += [
+        ("mistral-nemo-12b", 2, 2048, 2048, 32, 8, 128, "window 512", True, 512, 0),
+        ("mistral-nemo-12b", 2, 256, 2048, 32, 8, 128, "q_offset 1792", True, None, 1792),
+        ("mistral-nemo-12b", 2, 512, 512, 32, 8, 128, "q_offset -64", True, None, -64),
+        # the zoo's other head dims: whisper 64, zamba2 112, MLA 192 (hd + rope)
+        ("whisper-medium", 2, 1024, 1024, 16, 16, 64, "causal", True, None, 0),
+        ("zamba2-7b", 2, 1024, 1024, 32, 32, 112, "causal", True, None, 0),
+        ("deepseek-v2-236b", 2, 1024, 1024, 128, 128, 192, "causal", True, None, 0),
+    ]
+    rows = []
+    for model, b, sq, sk, h, kh, d, case, causal, window, q_offset in shapes:
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q = torch.randn(b, sq, h, d, generator=gen, device=dev, dtype=tdt)
+            k = torch.randn(b, sk, kh, d, generator=gen, device=dev, dtype=tdt)
+            v = torch.randn(b, sk, kh, d, generator=gen, device=dev, dtype=tdt)
+            got = fa.flash_attention(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, **kw).float()
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype]):
+                raise AssertionError(f"flash {model} {dtype} S={sq}x{sk} {case}: "
+                                     f"max err {err} outside {TOL[dtype]}")
+            unseen = max(0, min(sq, -q_offset)) if causal else 0
+            if unseen and bool(got[:, :unseen].ne(0).any()):
+                raise AssertionError(f"flash {model} {dtype} {case}: rows that see no key are not 0")
+            del got, want
+            reps = 25 if sq * sk <= 2048 * 2048 else 7
+            kernel_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush, reps=reps)
+            plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush, reps=reps)
+            library_ms = lib_err = None
+            if not unseen:  # SDPA gives NaN for a row that sees no key
+                lib = flash_library_call(q, k, v, causal, window, q_offset)
+                library_ms = cuda_time_ms(lib, flush, reps=reps)
+                lib_err = float((lib().transpose(1, 2).float()
+                                 - fa.flash_attention_plain(q, k, v, **kw).float()).abs().max())
+                del lib
+            bound_ms, nbytes, flops, bound_by = flash_bound(b, sq, sk, h, kh, d, causal, window,
+                                                            q_offset, dtype, q.element_size())
+            row = dict(model=model, b=b, s=sq, sk=sk, h=h, kh=kh, d=d, case=case, dtype=dtype,
+                       max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_err=lib_err, bound_ms=bound_ms,
+                       bytes=nbytes, flops=flops, bound_by=bound_by,
+                       kernel_tflops=flops / kernel_ms / 1e9,
+                       ctas=-(-sq // 64) * h * b)
+            rows.append(row)
+            lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "-"
+            print(f"{model:18s} {dtype:8s} B={b} S={sq:5d}x{sk:5d} H={h:3d} KH={kh:3d} D={d:3d} "
+                  f"{case:14s} err={err:.2e} kernel={kernel_ms:.4f} ms plain={plain_ms:.4f} ms "
+                  f"library={lib_txt} bound={bound_ms:.4f} ms ({bound_by}) "
+                  f"{row['kernel_tflops']:.1f} TFLOP/s ctas={row['ctas']}", flush=True)
+            del q, k, v
+    return rows
+
+
+def ssd_bound(b, t, h, p, n, chunk, dtype, itemsize):
+    """Least time (ms): x, dt, b, c read once, y and the state written
+    once, against the flops the function needs per chunk of l steps and
+    head: l(l+1)(N + P) for the causal pairs j ≤ i of C Bᵀ and of its
+    product with X, and 4lPN for C S_inᵀ and the state update.  Returns
+    (ms, bytes, flops, bound_by)."""
+    nbytes = b * t * h * ((2 * p + 2 * n) * itemsize + 4) + 4 * h + 4 * b * h * p * n
+    lengths = [chunk] * (t // chunk) + ([t % chunk] if t % chunk else [])
+    flops = b * h * sum(l * (l + 1) * (n + p) + 4 * l * p * n for l in lengths)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_vs_plain():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cfg = ARCHS["mamba2-780m"]
+    h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    rows = []
+    for b, t in ((2, 2048), (2, 8192), (2, 2000)):
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            x = (torch.randn(b, t, h, p, generator=gen, device=dev) * 0.5).to(tdt)
+            dt = F.softplus(torch.randn(b, t, h, generator=gen, device=dev))
+            a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
+            bb = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(tdt)
+            cc = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(tdt)
+            y, fs = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+            torch.cuda.synchronize()
+            ye, fse = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk)
+            err = float((y.float() - ye.float()).abs().max())
+            state_err = float((fs - fse).abs().max())
+            if not (torch.allclose(y.float(), ye.float(), **SSD_TOL[dtype])
+                    and torch.allclose(fs, fse, **SSD_TOL["float32"])):
+                raise AssertionError(f"ssd {dtype} T={t}: max err y {err}, state {state_err} "
+                                     f"outside {SSD_TOL[dtype]}")
+            bound_ms, nbytes, flops, bound_by = ssd_bound(b, t, h, p, n, chunk, dtype,
+                                                          x.element_size())
+            row = dict(model="mamba2-780m", b=b, t=t, h=h, p=p, n=n, chunk=chunk, dtype=dtype,
+                       max_abs_err=err, state_err=state_err, bound_ms=bound_ms, bytes=nbytes,
+                       flops=flops, bound_by=bound_by, library_ms=None, ctas=b * h)
+            if t % chunk == 0:  # the ragged row checks the edge and is not timed
+                row["kernel_ms"] = cuda_time_ms(lambda: ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk),
+                                                flush, reps=10)
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk), flush, reps=10)
+                row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
+            rows.append(row)
+            times = (f"kernel={row['kernel_ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
+                     f"{row['kernel_tflops']:.2f} TFLOP/s" if "kernel_ms" in row else "not timed")
+            print(f"mamba2-780m        {dtype:8s} B={b} T={t:5d} H={h} P={p} N={n} L={chunk} "
+                  f"err y={err:.2e} state={state_err:.2e} {times} library=- "
+                  f"bound={bound_ms:.4f} ms ({bound_by}) ctas={b * h}", flush=True)
+            del x, dt, bb, cc, y, fs, ye, fse
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -316,6 +502,7 @@ def serve_full_width():
     # printed beside it as the yardstick.
     nemo = next(h for h in hosted if h.model_id == ex.VERIFY)
     prompt = torch.as_tensor(requests[0][1], device=dev)
+    SHARED.update(hosted=hosted, nemo_prompt=prompt)
     paths = ("auto", "ref_grouped", "ref")
     logits, caches, step_ms = {}, {}, {p: [] for p in paths}
     for impl in paths + paths[::-1]:  # in turns, each path twice
@@ -327,6 +514,7 @@ def serve_full_width():
         torch.cuda.synchronize()
         step_ms[impl].append((time.perf_counter() - t1) / prompt_len * 1e3)
         logits[impl], caches[impl] = out.float(), cache
+    SHARED["nemo_decode_logits"] = logits["auto"]
     nxt = logits["auto"].argmax(-1)
     one_step = {
         impl: decode_step(nemo.params, {k: v.clone() for k, v in caches["auto"].items()},
@@ -397,6 +585,107 @@ def profile_decode(hosted, prompt, dev, steps=4):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the prefill path at full width
+# ---------------------------------------------------------------------------
+def prefill_full_width():
+    import torch
+    from repro_torch.examples import serve_cluster as ex
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import forward, next_token_loss
+    from repro_torch.training import make_prefill_step
+
+    if "hosted" not in SHARED:
+        raise RuntimeError("phase 3 did not leave its weights")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    models = sorted(SHARED["hosted"], key=lambda h: h.cfg.name)
+    batches = {h.cfg.name: torch.randint(0, h.cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                                         device=dev) for h in models}
+    calls = 2  # the first call per model, then a second one
+    out = {}
+    last = {}
+    # the main path: counts set to 0 just before, read just after
+    da.launches = fa.launches = ssd.launches = 0
+    for h in models:
+        step = make_prefill_step(h.cfg, device=dev)
+        f0, s0 = fa.launches, ssd.launches
+        walls = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(h.params, {"tokens": batches[h.cfg.name]})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{h.cfg.name}: non-finite prefill logits")
+        last[h.cfg.name] = logits[:, -1].float()
+        del logits
+        dense = h.cfg.arch_type == "dense"
+        got = dict(flash=fa.launches - f0, ssd=ssd.launches - s0)
+        want = dict(flash=h.cfg.n_layers * calls if dense else 0,
+                    ssd=0 if dense else h.cfg.n_layers * calls)
+        tokens = PREFILL_B * PREFILL_S
+        out[h.cfg.name] = dict(layers=h.cfg.n_layers, wall_s=walls,
+                               tokens_per_s=[tokens / w for w in walls],
+                               launches=got, expected_launches=want)
+        print(f"{h.cfg.name} ({h.cfg.n_layers} layers) prefill B={PREFILL_B} S={PREFILL_S}: "
+              f"wall {', '.join(f'{w:.3f}' for w in walls)} s, "
+              f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; "
+              f"launches flash {got['flash']} (expected {want['flash']}), "
+              f"ssd {got['ssd']} (expected {want['ssd']})", flush=True)
+        if got != want:
+            raise AssertionError(f"{h.cfg.name}: launches {got}, expected {want}")
+    launches = dict(flash_attention=fa.launches, ssd_scan=ssd.launches,
+                    decode_attention=da.launches)
+    print(f"prefill launches: {launches}")
+
+    for h in models:
+        batch = {"tokens": batches[h.cfg.name]}
+        loss = float(next_token_loss(h.params, batch, h.cfg))
+        plain_step = make_prefill_step(h.cfg, impl="ref_chunked", device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = plain_step(h.params, batch)[:, -1].float()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        x = last[h.cfg.name]
+        err, scale = float((x - plain).abs().max()), float(plain.abs().max())
+        same = bool(torch.equal(x.argmax(-1), plain.argmax(-1)))
+        out[h.cfg.name].update(loss=loss, plain_wall_s=plain_wall, last_logits_max_abs_diff=err,
+                               max_abs_logit=scale, ratio=err / scale, argmax_equal=same)
+        print(f"{h.cfg.name}: next_token_loss {loss:.4f}; plain path wall {plain_wall:.3f} s; "
+              f"last-position logits, kernel vs plain: max |diff| {err:.4e} of {scale:.4e} "
+              f"(ratio {err / scale:.3e}), argmax equal: {same}", flush=True)
+        if not (loss == loss and abs(loss) < float("inf")):
+            raise AssertionError(f"{h.cfg.name}: non-finite loss {loss}")
+        if err / scale > LOGIT_BOUND or not same:
+            raise AssertionError(f"{h.cfg.name}: prefill logits, kernel path and plain path disagree")
+
+    # NeMo's forward over phase 3's prompt against its decode path: the two
+    # round at other places (batched against one-token matmuls, flash
+    # against decode kernel), so they are held to LOGIT_BOUND as the kernel
+    # and plain paths are
+    nemo = next(h for h in models if h.model_id == ex.VERIFY)
+    fwd = forward(nemo.params, {"tokens": SHARED["nemo_prompt"]}, nemo.cfg)[0][:, -1].float()
+    dec = SHARED["nemo_decode_logits"]
+    err, scale = float((fwd - dec).abs().max()), float(dec.abs().max())
+    same = bool(torch.equal(fwd.argmax(-1), dec.argmax(-1)))
+    if not bool(torch.isfinite(fwd).all()):
+        raise AssertionError("NeMo forward over the prompt: non-finite logits")
+    out["nemo_forward_vs_decode"] = dict(max_abs_diff=err, max_abs_logit=scale,
+                                         ratio=err / scale, argmax_equal=same)
+    print(f"NeMo last-position logits over the {SHARED['nemo_prompt'].shape[1]}-token prompt, "
+          f"forward (flash kernel) vs decode path (decode kernel): max |diff| {err:.4e} of "
+          f"{scale:.4e} (ratio {err / scale:.3e}), argmax equal: {same}", flush=True)
+    if err / scale > LOGIT_BOUND or not same:
+        raise AssertionError("NeMo over the prompt: forward and decode path disagree")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the reduced fp32 example, kernel path against plain path
 # ---------------------------------------------------------------------------
 def reduced_example():
@@ -448,18 +737,27 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phases = Phases()
     built = phases.run("phase 1: build kernels", build_kernels)
-    rows = phases.run("phase 2: kernels against plain", kernel_vs_plain) if built else None
+    rows = phases.run("phase 2: decode_attention against plain", kernel_vs_plain) if built else None
+    flash_rows = phases.run("phase 2b: flash_attention against plain", flash_vs_plain) \
+        if built else None
+    ssd_rows = phases.run("phase 2c: ssd_scan against plain", ssd_vs_plain) if built else None
     served = phases.run("phase 3: serving at full width (bf16)", serve_full_width) if built else None
+    prefill = phases.run("phase 3b: prefill at full width (bf16)", prefill_full_width) \
+        if built else None
+    SHARED.clear()
     reduced = phases.run("phase 4: reduced fp32 example, kernel against plain", reduced_example) \
         if built else None
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            dict(card=card, build=built, kernels=rows, serving=served, reduced=reduced,
+            dict(card=card, build=built, kernels=rows, flash=flash_rows, ssd=ssd_rows,
+                 serving=served, prefill=prefill, reduced=reduced,
                  failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))
     if phases.failed or not built:
         die(f"failed phases: {phases.failed}")
     main_row = next(r for r in rows if all(r[k] == MAIN_SHAPE[k] for k in MAIN_SHAPE))
+    flash_row = next(r for r in flash_rows if all(r[k] == FLASH_MAIN[k] for k in FLASH_MAIN))
+    ssd_row = next(r for r in ssd_rows if all(r[k] == SSD_MAIN[k] for k in SSD_MAIN))
     kernels = [{
         "name": "decode_attention",
         "route": "cuda",
@@ -472,6 +770,30 @@ def main() -> None:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:130",
+        "launches": prefill["launches"]["flash_attention"],
+        "max_abs_err": flash_row["max_abs_err"],
+        "ms": flash_row["kernel_ms"],
+        "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:130",
+        "launches": prefill["launches"]["ssd_scan"],
+        "max_abs_err": ssd_row["max_abs_err"],
+        "ms": ssd_row["kernel_ms"],
+        "plain_ms": ssd_row["plain_ms"],
+        "bound_ms": ssd_row["bound_ms"],
+        "bound_by": ssd_row["bound_by"],
+        "library_ms": None,
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

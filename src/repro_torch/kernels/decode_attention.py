@@ -93,10 +93,12 @@ def decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA or CPU, not {q.device}")
     _check(q, k_cache, v_cache, cache_len)
-    fn = _entry()
     b, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    if out.numel() == 0:  # nothing to compute: no launch
+        return out
+    fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -3,8 +3,10 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import (
     ParamTree,
     decode_step,
+    forward,
     init_cache,
     init_params,
+    next_token_loss,
 )
 
 __all__ = [
@@ -13,7 +15,9 @@ __all__ = [
     "ModelConfig",
     "ParamTree",
     "decode_step",
+    "forward",
     "init_cache",
     "init_params",
+    "next_token_loss",
     "params_from_numpy",
 ]

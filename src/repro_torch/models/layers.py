@@ -1,7 +1,8 @@
 """Shared layer primitives, mirroring ``repro.models.layers``.
 
 Conventions:
-* activations (B, D) in decode; attention heads laid out (B, S, H, hd).
+* activations (B, S, D) in the full-sequence forward and (B, D) in decode;
+  attention heads laid out (B, S, H, hd).
 * params are nested ParamTrees (or dicts) of tensors; layer stacks carry a
   leading ``n_layers`` axis.
 * norms and softmax statistics in float32, matmuls in the config dtype;
@@ -10,7 +11,7 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,6 +83,33 @@ def swiglu(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 # -- attention ------------------------------------------------------------------------
+def gqa_attention(
+    x: torch.Tensor,
+    p: Mapping[str, torch.Tensor],
+    positions: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    theta: float,
+    causal: bool = True,
+    window: Optional[int] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence GQA attention (prefill).  x: (B, S, D); positions:
+    (B, S) absolute positions.  Returns (output (B, S, D), (k, v)), k/v
+    (B, S, KH, hd) after RoPE, so a caller can seed a KV cache from them."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    out = kops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+    out = out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return out, (k, v)
+
+
 def gqa_decode_attention(
     x: torch.Tensor,
     p: Mapping[str, torch.Tensor],

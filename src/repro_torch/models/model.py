@@ -1,18 +1,21 @@
-"""Model assembly for the decode path: parameters, cache and the one-token
-decode step, mirroring ``repro.models.model`` for the ``dense`` and ``ssm``
-families.
+"""Model assembly: parameters, the full-sequence forward and loss, the
+cache and the one-token decode step, mirroring ``repro.models.model`` for
+the ``dense`` and ``ssm`` families.
 
 * ``init_params(cfg, generator, device)`` returns a :class:`ParamTree`, an
   ``nn.Module`` whose parameter names are the JAX param tree's paths
   (``layers.mlp.wg``) with the same shapes and dtypes; homogeneous layer
   stacks keep their leading ``n_layers`` axis.
+* ``forward`` runs the whole sequence (prefill) through a Python loop over
+  the layers, in place of the reference's ``lax.scan``; attention and the
+  SSD scan go through ``kops.flash_attention`` and ``kops.ssd_scan``.
 * ``decode_step`` carries an explicit cache dict (see ``init_cache``) and
   supports sliding-window ring buffers; it updates the cache in place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,18 +23,19 @@ from torch import nn
 from repro_torch.device import Device, resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import gqa_decode_attention, rms_norm, swiglu
+from repro_torch.models.layers import gqa_attention, gqa_decode_attention, rms_norm, swiglu
 
 Cache = Dict[str, torch.Tensor]
 
-#: Families whose decode this slice ports, and the ROADMAP item that brings
-#: each of the others.
+#: Families whose decode and forward are ported, and the ROADMAP items that
+#: bring each of the others.
 PORTED = ("dense", "ssm")
 LATER = {
-    "moe": "ROADMAP Queue 1 item 5 (MoE and MLA decode)",
-    "hybrid": "ROADMAP Queue 1 item 5 (zamba2's shared block)",
-    "vlm": "ROADMAP Queue 1 item 5 (M-RoPE decode)",
-    "audio": "ROADMAP Queue 1 item 5 (cross-attention decode)",
+    "moe": "ROADMAP Queue 1 items 5-6 (the MoE slice: MoE and MLA decode and "
+           "forward, with the moe_gmm kernel)",
+    "hybrid": "ROADMAP Queue 1 items 5-6 (zamba2's shared block)",
+    "vlm": "ROADMAP Queue 1 items 5-6 (M-RoPE)",
+    "audio": "ROADMAP Queue 1 items 5-6 (cross-attention and the audio encoder)",
 }
 
 
@@ -170,6 +174,86 @@ def init_params(
 
 
 # ===========================================================================
+# Forward (prefill) and loss
+# ===========================================================================
+def _attn_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
+    return dict(
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd,
+        theta=cfg.rope_theta,
+    )
+
+
+def _dense_block(h, layer, positions, cfg, *, window, impl):
+    attn_out, kv = gqa_attention(
+        rms_norm(h, layer["ln1"], cfg.norm_eps), layer, positions,
+        causal=True, window=window, impl=impl, **_attn_kwargs(cfg),
+    )
+    h = h + attn_out
+    h = h + swiglu(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
+    return h, kv
+
+
+def _ssm_block(h, layer, cfg, *, impl, initial_state=None):
+    y, state = ssm_mod.mamba2_block(
+        rms_norm(h, layer["ln"], cfg.norm_eps), layer, cfg,
+        initial_state=initial_state, impl=impl,
+    )
+    return h + y, state
+
+
+@torch.no_grad()
+def forward(
+    params: ParamTree,
+    batch: Mapping[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    impl: str = "auto",
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  ``batch["tokens"]``: (B, S) token ids.
+    Returns (logits (B, S, V), aux loss scalar: 0 for these families).
+    ``impl`` picks the attention and SSD-scan implementation ("auto": the
+    hand-written kernels for CUDA tensors, their plain twins for CPU
+    tensors)."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    bsz, s = tokens.shape
+    h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, S, D)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.arch_type == "dense":
+        positions = torch.arange(s, device=h.device)[None, :].expand(bsz, s)
+        for i in range(cfg.n_layers):
+            h, _ = _dense_block(h, params["layers"].layer(i), positions, cfg,
+                                window=window, impl=impl)
+    else:
+        for i in range(cfg.n_layers):
+            h, _ = _ssm_block(h, params["layers"].layer(i), cfg, impl=impl)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ head, aux
+
+
+@torch.no_grad()
+def next_token_loss(
+    params: ParamTree,
+    batch: Mapping[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    impl: str = "auto",
+    aux_weight: float = 0.01,
+) -> torch.Tensor:
+    """Mean next-token negative log-likelihood over ``batch["tokens"]``
+    (forward only: no gradient yet), plus ``aux_weight`` times the aux loss."""
+    logits, aux = forward(params, batch, cfg, impl=impl)
+    targets = batch["tokens"][:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return nll.mean() + aux_weight * aux
+
+
+# ===========================================================================
 # Decode cache + one-token decode step
 # ===========================================================================
 def init_cache(
@@ -218,15 +302,6 @@ def _token_rows(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
     vocabularies differ (NeMo's 131072 ids feed granite's 49152 rows)."""
     t = tokens.long()
     return torch.where(t < 0, t + vocab, t).clamp_(0, vocab - 1)
-
-
-def _attn_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
-    return dict(
-        n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd,
-        theta=cfg.rope_theta,
-    )
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""Mamba-2 decode (SSD — state-space duality, arXiv:2405.21060), mirroring
-``repro.models.ssm``.
+"""Mamba-2 block and decode (SSD — state-space duality, arXiv:2405.21060),
+mirroring ``repro.models.ssm``.
 
 A single input projection produces [z | x | B | C | dt]; a depthwise
 causal conv runs over [x | B | C]; the SSD recurrence advances one step per
@@ -8,12 +8,12 @@ head; gating with silu(z) and an output projection close the block.
 Decode keeps two pieces of per-layer state:
   conv_state : (B, conv_kernel-1, conv_channels)   — causal conv tail
   ssm_state  : (B, H, P, N) fp32                   — SSD recurrent state
-The full-sequence block waits for the ``ssd_scan`` kernel.
+The full-sequence block runs the SSD scan through ``kops.ssd_scan``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +40,47 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with JAX's promotion: mixed dtypes meet at the wider one."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal 1-D conv.  x: (B, S, C); w: (K, C)."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i: i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    return out + bias
+
+
+def _heads(bc: torch.Tensor, h: int) -> torch.Tensor:
+    """Group-shared B or C (B, S, G, N) repeated to the H SSD heads."""
+    return torch.repeat_interleave(bc, h // bc.shape[2], dim=2)
+
+
+def mamba2_block(
+    x: torch.Tensor,
+    p: Mapping[str, torch.Tensor],
+    cfg,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence Mamba-2 block.  x: (B, S, D).
+    Returns (y (B, S, D), final SSM state (B, H, P, N) fp32)."""
+    bsz, s, _ = x.shape
+    h, pdim, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    g = cfg.ssm_groups
+    z, xs, b, c, dt = _split_proj(x @ p["w_in"], cfg)
+    conv_out = F.silu(_causal_conv(_conv_input(xs, b, c), p["conv_w"], p["conv_b"]))
+    di = cfg.d_inner
+    xh = conv_out[..., :di].reshape(bsz, s, h, pdim).contiguous()
+    b = _heads(conv_out[..., di: di + g * n].reshape(bsz, s, g, n), h).contiguous()
+    c = _heads(conv_out[..., di + g * n:].reshape(bsz, s, g, n), h).contiguous()
+    dt = _softplus(dt.float() + p["dt_bias"]).contiguous()
+    a = -torch.exp(p["a_log"].float())  # (H,)
+    y, state = kops.ssd_scan(xh, dt, a, b, c, initial_state=initial_state,
+                             chunk=cfg.ssm_chunk, impl=impl)
+    y = y + xh * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, s, di) * F.silu(z)
+    return _matmul(y, p["w_out"]).to(x.dtype), state
 
 
 def mamba2_decode(

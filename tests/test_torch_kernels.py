@@ -1,8 +1,8 @@
-"""The port's decode-attention oracles and its kernel's plain twin against
-the JAX package's ``decode_attention_ref`` and its Pallas kernel (run in
-interpret mode), on the same numpy inputs; plus the wrapper's host-side
-checks and ``ssd_decode_ref`` parity.  The CUDA kernel itself runs only on
-the card: see ``test_torch_cuda.py``."""
+"""The port's attention and SSD oracles and its kernels' plain twins
+against the JAX package's oracles and its Pallas kernels (run in interpret
+mode), on the same numpy inputs; plus the wrappers' host-side checks and
+``ssd_decode_ref`` parity.  The CUDA kernels themselves run only on the
+card: see ``test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -14,8 +14,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -170,3 +175,289 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, err):
 def test_unknown_impl_rejected():
     with pytest.raises(ValueError):
         ops.decode_attention(*_good(), impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+def flash_inputs(seed, b, sq, sk, h, kh, d, dtype):
+    rs = np.random.default_rng(seed)
+    q, k, v = (rs.standard_normal(s).astype(np.float32)
+               for s in [(b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)])
+    return ([jnp.asarray(x, JDT[dtype]) for x in (q, k, v)],
+            [torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v)])
+
+
+FLASH_IMPLS = {
+    "plain": lambda q, k, v, **kw: fa.flash_attention(q, k, v, **kw),
+    "ref": lambda q, k, v, **kw: ops.flash_attention(q, k, v, impl="ref", **kw),
+    "ref_chunked": lambda q, k, v, **kw: tref.attention_chunked_ref(q, k, v, chunk_k=48, **kw),
+    "auto": lambda q, k, v, **kw: ops.flash_attention(q, k, v, impl="auto", **kw),
+}
+
+# The shapes of tests/test_kernels.py::test_flash_attention_matches_oracle.
+FLASH_SHAPES = [
+    (1, 128, 4, 4, 64, True, None),     # MHA, aligned
+    (2, 200, 8, 2, 64, True, None),     # GQA, ragged seq
+    (2, 96, 8, 1, 32, True, None),      # MQA
+    (1, 256, 4, 2, 128, False, None),   # bidirectional (encoder)
+    (2, 160, 4, 4, 64, True, 64),       # sliding window
+    (1, 64, 2, 2, 8, True, None),       # tiny head dim
+]
+
+
+@pytest.mark.parametrize("impl", sorted(FLASH_IMPLS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", FLASH_SHAPES)
+def test_flash_attention_matches_reference(b, s, h, kh, d, causal, window, dtype, impl):
+    (jq, jk, jv), (q, k, v) = flash_inputs(1, b, s, s, h, kh, d, dtype)
+    out = FLASH_IMPLS[impl](q, k, v, causal=causal, window=window)
+    assert out.dtype == TDT[dtype] and out.shape == (b, s, h, d)
+    want = jref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(f32(out), f32(want), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_interpret(b, s, h, kh, d, causal, window, dtype):
+    (jq, jk, jv), (q, k, v) = flash_inputs(2, b, s, s, h, kh, d, dtype)
+    want = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                        block_q=64, block_k=64, interpret=True)
+    got = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", sorted(FLASH_IMPLS))
+@pytest.mark.parametrize("sq,sk,q_offset", [(1, 96, 95), (40, 96, 56), (30, 50, 70)])
+def test_flash_attention_q_offset(sq, sk, q_offset, impl):
+    """A query block attending into a longer history, as in
+    tests/test_kernels.py::test_flash_attention_q_offset (Sq = 1), and
+    wider blocks; the Pallas kernel is held at the first."""
+    (jq, jk, jv), (q, k, v) = flash_inputs(3, 2, sq, sk, 4, 2, 32, "float32")
+    got = FLASH_IMPLS[impl](q, k, v, causal=True, q_offset=q_offset)
+    want = jref.attention_ref(jq, jk, jv, causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
+    if sq == 1:
+        kernel = pallas_flash(jq, jk, jv, causal=True, q_offset=q_offset, block_k=32,
+                              interpret=True)
+        np.testing.assert_allclose(f32(got), f32(kernel), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("impl", sorted(FLASH_IMPLS))
+def test_flash_attention_unseen_rows_give_zero(impl):
+    """With q_offset = -10 queries 0..9 see no key: the oracle gives 0 and
+    so does the port (the Pallas kernel's -1e30 mask would give a mean of
+    V there)."""
+    (jq, jk, jv), (q, k, v) = flash_inputs(4, 2, 40, 40, 4, 2, 16, "float32")
+    got = FLASH_IMPLS[impl](q, k, v, causal=True, q_offset=-10)
+    want = jref.attention_ref(jq, jk, jv, causal=True, q_offset=-10)
+    assert float(got[:, :10].abs().max()) == 0.0
+    np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
+
+
+def _flash_good(d=64, dtype=torch.float32):
+    return (torch.zeros(2, 8, 8, d, dtype=dtype), torch.zeros(2, 16, 2, d, dtype=dtype),
+            torch.zeros(2, 16, 2, d, dtype=dtype))
+
+
+@pytest.mark.parametrize(
+    "case,err",
+    [
+        ("q_rank", ValueError),
+        ("kv_shape", ValueError),
+        ("batch", ValueError),
+        ("fp16", TypeError),
+        ("mixed_dtype", TypeError),
+        ("d_too_big", ValueError),
+        ("d_ragged_vector", ValueError),
+        ("heads_not_grouped", ValueError),
+        ("not_contiguous", ValueError),
+    ],
+)
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case, err):
+    q, k, v = _flash_good()
+    if case == "q_rank":
+        q = q[:, 0]
+    elif case == "kv_shape":
+        v = v[:, :8]
+    elif case == "batch":
+        q = torch.zeros(3, 8, 8, 64)
+    elif case == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "mixed_dtype":
+        v = v.bfloat16()
+    elif case == "d_too_big":
+        q, k, v = _flash_good(d=264)
+    elif case == "d_ragged_vector":
+        q, k, v = _flash_good(d=36, dtype=torch.bfloat16)
+    elif case == "heads_not_grouped":
+        q = torch.zeros(2, 8, 7, 64)
+    elif case == "not_contiguous":
+        k = torch.zeros(2, 2, 16, 64).transpose(1, 2)
+    with pytest.raises(err):
+        fa._check(q, k, v)
+    fa._check(*_flash_good())  # the good case passes
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+SSD_TOL = dict(atol=5e-5, rtol=5e-4)  # tests/test_kernels.py
+
+
+def ssd_inputs(seed, b, t, h, p, n, with_state=False):
+    rs = np.random.default_rng(seed)
+    x = (rs.standard_normal((b, t, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rs.standard_normal((b, t, h)))).astype(np.float32)
+    a = -np.exp(rs.standard_normal(h) * 0.3).astype(np.float32)
+    bb, cc = ((rs.standard_normal((b, t, h, n)) * 0.5).astype(np.float32) for _ in range(2))
+    arrays = [x, dt, a, bb, cc]
+    if with_state:
+        arrays.append(rs.standard_normal((b, h, p, n)).astype(np.float32))
+    return [jnp.asarray(z) for z in arrays], [torch.from_numpy(z) for z in arrays]
+
+
+SSD_IMPLS = {
+    "plain": lambda *xs, chunk, **kw: ssd.ssd_scan(*xs, chunk=chunk, **kw),
+    "ssd_ref": lambda *xs, chunk, **kw: tref.ssd_ref(*xs, **kw),
+    "ssd_chunked_ref": lambda *xs, chunk, **kw: tref.ssd_chunked_ref(*xs, chunk=chunk, **kw),
+    "ref": lambda *xs, chunk, **kw: ops.ssd_scan(*xs, chunk=chunk, impl="ref", **kw),
+    "ref_sequential": lambda *xs, chunk, **kw: ops.ssd_scan(*xs, chunk=chunk,
+                                                             impl="ref_sequential", **kw),
+    "auto": lambda *xs, chunk, **kw: ops.ssd_scan(*xs, chunk=chunk, impl="auto", **kw),
+}
+
+# The shapes of tests/test_kernels.py::test_ssd_scan_matches_oracle.
+SSD_SHAPES = [
+    (1, 64, 2, 32, 16, 16),
+    (2, 100, 3, 32, 16, 32),   # ragged chunks
+    (1, 33, 1, 16, 8, 8),
+    (2, 128, 4, 64, 32, 64),
+]
+
+
+@pytest.mark.parametrize("impl", sorted(SSD_IMPLS))
+@pytest.mark.parametrize("b,t,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_matches_reference(b, t, h, p, n, chunk, impl):
+    jx, tx = ssd_inputs(1, b, t, h, p, n)
+    y, fs = SSD_IMPLS[impl](*tx, chunk=chunk)
+    ye, fse = jref.ssd_ref(*jx)
+    assert y.dtype == torch.float32 and fs.shape == (b, h, p, n)
+    np.testing.assert_allclose(f32(y), f32(ye), **SSD_TOL)
+    np.testing.assert_allclose(f32(fs), f32(fse), **SSD_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_plain_matches_pallas_interpret(b, t, h, p, n, chunk):
+    jx, tx = ssd_inputs(2, b, t, h, p, n)
+    ye, fse = pallas_ssd(*jx, chunk=chunk, interpret=True)
+    y, fs = ssd.ssd_scan_plain(*tx, chunk=chunk)
+    np.testing.assert_allclose(f32(y), f32(ye), **SSD_TOL)
+    np.testing.assert_allclose(f32(fs), f32(fse), **SSD_TOL)
+
+
+@pytest.mark.parametrize("impl", sorted(SSD_IMPLS))
+def test_ssd_scan_from_an_initial_state(impl):
+    """The port's kernel takes an initial state, as ``ssd_chunked_ref``
+    does (the Pallas kernel refuses one): held to the reference oracles."""
+    jx, tx = ssd_inputs(3, 2, 70, 3, 16, 8, with_state=True)
+    y, fs = SSD_IMPLS[impl](*tx[:5], chunk=16, initial_state=tx[5])
+    for want in (jref.ssd_ref(*jx[:5], initial_state=jx[5]),
+                 jref.ssd_chunked_ref(*jx[:5], chunk=16, initial_state=jx[5])):
+        np.testing.assert_allclose(f32(y), f32(want[0]), **SSD_TOL)
+        np.testing.assert_allclose(f32(fs), f32(want[1]), **SSD_TOL)
+
+
+def test_ssd_scan_bf16_rounds_y_only():
+    """bf16 x/b/c: y comes back in bf16 and the state in fp32, both close
+    to the JAX oracle run on the same bf16 values."""
+    jx, tx = ssd_inputs(4, 1, 48, 2, 16, 8)
+    jb = [z.astype(jnp.bfloat16) if i in (0, 3, 4) else z for i, z in enumerate(jx)]
+    tb = [z.bfloat16() if i in (0, 3, 4) else z for i, z in enumerate(tx)]
+    y, fs = ssd.ssd_scan(*tb, chunk=16)
+    ye, fse = jref.ssd_chunked_ref(*jb, chunk=16)
+    assert y.dtype == torch.bfloat16 and fs.dtype == torch.float32
+    np.testing.assert_allclose(f32(y), f32(ye), atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(f32(fs), f32(fse), **SSD_TOL)
+
+
+def _ssd_good(p=16, n=8, dtype=torch.float32):
+    return (torch.zeros(2, 10, 3, p, dtype=dtype), torch.zeros(2, 10, 3),
+            torch.zeros(3), torch.zeros(2, 10, 3, n, dtype=dtype),
+            torch.zeros(2, 10, 3, n, dtype=dtype))
+
+
+@pytest.mark.parametrize(
+    "case,err",
+    [
+        ("x_rank", ValueError),
+        ("dt_shape", ValueError),
+        ("a_shape", ValueError),
+        ("fp16", TypeError),
+        ("mixed_dtype", TypeError),
+        ("dt_bf16", TypeError),
+        ("p_ragged_vector", ValueError),
+        ("n_ragged_vector", ValueError),
+        ("chunk_zero", ValueError),
+        ("state_shape", ValueError),
+        ("not_contiguous", ValueError),
+    ],
+)
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(case, err):
+    x, dt, a, b, c = _ssd_good()
+    chunk, state = 4, None
+    if case == "x_rank":
+        x = x[0]
+    elif case == "dt_shape":
+        dt = dt[:, :5]
+    elif case == "a_shape":
+        a = torch.zeros(4)
+    elif case == "fp16":
+        x, b, c = x.half(), b.half(), c.half()
+    elif case == "mixed_dtype":
+        c = c.bfloat16()
+    elif case == "dt_bf16":
+        dt = dt.bfloat16()
+    elif case == "p_ragged_vector":
+        x, dt, a, b, c = _ssd_good(p=12, dtype=torch.bfloat16)
+    elif case == "n_ragged_vector":
+        x, dt, a, b, c = _ssd_good(n=6)
+    elif case == "chunk_zero":
+        chunk = 0
+    elif case == "state_shape":
+        state = torch.zeros(2, 3, 16, 4)
+    elif case == "not_contiguous":
+        b = torch.zeros(2, 10, 8, 3).transpose(2, 3)
+    with pytest.raises(err):
+        ssd._check(x, dt, a, b, c, chunk, state)
+    ssd._check(*_ssd_good(), 4, torch.zeros(2, 3, 16, 8))  # the good case passes
+
+
+@pytest.mark.parametrize("which", ["decode", "flash", "ssd"])
+def test_empty_input_gives_empty_output(which):
+    """A batch of no rows (or no queries) gives an output of no elements
+    in the right shape and dtype, and counts no launch."""
+    before = (da.launches, fa.launches, ssd.launches)
+    if which == "decode":
+        out = da.decode_attention(torch.zeros(0, 4, 8), torch.zeros(0, 5, 2, 8),
+                                  torch.zeros(0, 5, 2, 8), torch.zeros(0, dtype=torch.int32))
+        assert out.shape == (0, 4, 8)
+    elif which == "flash":
+        out = fa.flash_attention(torch.zeros(2, 0, 4, 8), torch.zeros(2, 5, 2, 8),
+                                 torch.zeros(2, 5, 2, 8))
+        assert out.shape == (2, 0, 4, 8)
+    else:
+        out, state = ssd.ssd_scan(torch.zeros(0, 10, 3, 16), torch.zeros(0, 10, 3),
+                                  torch.zeros(3), torch.zeros(0, 10, 3, 8),
+                                  torch.zeros(0, 10, 3, 8), chunk=4)
+        assert out.shape == (0, 10, 3, 16) and state.shape == (0, 3, 16, 8)
+        assert state.dtype == torch.float32
+    assert out.dtype == torch.float32
+    assert (da.launches, fa.launches, ssd.launches) == before
+
+
+def test_unknown_impl_rejected_by_every_op():
+    with pytest.raises(ValueError):
+        ops.flash_attention(*_flash_good(), impl="pallas")
+    with pytest.raises(ValueError):
+        ops.ssd_scan(*_ssd_good(), impl="pallas")
