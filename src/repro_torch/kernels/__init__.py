@@ -4,6 +4,7 @@ PyTorch oracles.
 * ``decode_attention`` — one-token GQA decode against a KV cache
 * ``flash_attention`` — blocked causal/windowed GQA attention for prefill
 * ``ssd_scan`` — the Mamba-2 SSD chunked scan for prefill
+* ``moe_gmm`` — the grouped expert matmul of the sorted MoE dispatch
 
 Use ``repro_torch.kernels.ops`` for the impl-dispatching wrappers.
 """

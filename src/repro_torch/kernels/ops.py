@@ -4,8 +4,8 @@ PyTorch oracles.
 ``impl`` semantics (the reference's vocabulary, plus ``kernel``):
   "ref"            — :mod:`repro_torch.kernels.ref`, the mirror of the JAX
                      oracle (for ``ssd_scan``: the chunked dual form).
-  "ref_grouped"    — the grouped-query oracle (decode attention; flash
-                     attention and the SSD scan treat it as "ref").
+  "ref_grouped"    — the grouped-query oracle (decode attention; the
+                     others treat it as "ref").
   "ref_chunked"    — the online-softmax oracle over KV chunks (flash
                      attention; the others treat it as "ref").
   "ref_sequential" — the per-step SSD recurrence (``ssd_scan`` only; the
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -103,4 +104,21 @@ def ssd_scan(
         return _ref.ssd_ref(x, dt, a, b, c, initial_state=initial_state)
     if impl in ("kernel", "auto"):
         return _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
+    raise _unknown(impl)
+
+
+def moe_gmm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    group_sizes: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """x: (T, d_in) rows sorted by expert; w: (E, d_in, d_out); group_sizes:
+    (E,) int32 summing to T → (T, d_out).  Every ``ref*`` impl is the
+    oracle, as the reference's ``_resolve_nonattn`` has it."""
+    if impl in ("ref", "ref_grouped", "ref_chunked", "ref_sequential"):
+        return _ref.moe_gmm_ref(x, w, group_sizes)
+    if impl in ("kernel", "auto"):
+        return _gmm.moe_gmm(x, w, group_sizes)
     raise _unknown(impl)

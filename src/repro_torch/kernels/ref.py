@@ -11,7 +11,7 @@ Shapes follow the serving convention:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -261,3 +261,47 @@ def ssd_chunked_ref(
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(bs, t_pad, h, p)[:, :t]
     return y.to(x.dtype), state
+
+
+def group_bounds(group_sizes: torch.Tensor, tokens: int) -> Tuple[list, list]:
+    """(first row, end row) of each expert's group, on the host, as the JAX
+    oracle assigns rows: row r goes to the last expert whose group starts at
+    or before r (``ref.py::moe_gmm_ref``'s ``expert_of_row``).  For sizes
+    that sum to ``tokens`` that is the plain split; rows past the sum go to
+    the last expert.  Sizes are taken to be non-negative."""
+    ends = torch.cumsum(group_sizes.long(), 0).clamp(max=tokens).tolist()
+    starts = [0] + ends[:-1]
+    return starts, ends[:-1] + [tokens]
+
+
+def grouped_product(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    group_sizes: torch.Tensor,
+    product: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """``product(rows, w[e])`` for each expert's non-empty group of rows
+    (:func:`group_bounds`), written into one (tokens, d_out) tensor of x's
+    dtype."""
+    out = x.new_empty((x.shape[0], w.shape[2]))
+    for e, (s0, s1) in enumerate(zip(*group_bounds(group_sizes, x.shape[0]))):
+        if s1 > s0:
+            out[s0:s1] = product(x[s0:s1], w[e])
+    return out
+
+
+def moe_gmm_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    group_sizes: torch.Tensor,
+) -> torch.Tensor:
+    """Grouped matmul reference: rows of ``x`` are sorted by expert;
+    ``group_sizes[e]`` rows belong to expert ``e`` and are multiplied by
+    ``w[e]``, in x's dtype.
+
+    x: (tokens, d_in), w: (E, d_in, d_out), group_sizes: (E,) summing to
+    tokens → (tokens, d_out).  The JAX oracle gathers one (d_in, d_out)
+    weight per row, which at Qwen3-MoE's prefill alone would take ~100 GB;
+    this computes the same function with one matmul per non-empty group
+    (the group bounds are read on the host)."""
+    return grouped_product(x, w, group_sizes, torch.matmul)

@@ -1,14 +1,15 @@
 """Model assembly: parameters, the full-sequence forward and loss, the
 cache and the one-token decode step, mirroring ``repro.models.model`` for
-the ``dense`` and ``ssm`` families.
+the ``dense``, ``ssm`` and ``moe`` families (MoE with GQA or MLA).
 
 * ``init_params(cfg, generator, device)`` returns a :class:`ParamTree`, an
   ``nn.Module`` whose parameter names are the JAX param tree's paths
   (``layers.mlp.wg``) with the same shapes and dtypes; homogeneous layer
   stacks keep their leading ``n_layers`` axis.
 * ``forward`` runs the whole sequence (prefill) through a Python loop over
-  the layers, in place of the reference's ``lax.scan``; attention and the
-  SSD scan go through ``kops.flash_attention`` and ``kops.ssd_scan``.
+  the layers, in place of the reference's ``lax.scan``; attention, the
+  SSD scan and the sorted MoE dispatch's grouped matmul go through
+  ``kops.flash_attention``, ``kops.ssd_scan`` and ``kops.moe_gmm``.
 * ``decode_step`` carries an explicit cache dict (see ``init_cache``) and
   supports sliding-window ring buffers; it updates the cache in place.
 """
@@ -21,6 +22,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import Device, resolve_device
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gqa_attention, gqa_decode_attention, rms_norm, swiglu
@@ -29,10 +32,8 @@ Cache = Dict[str, torch.Tensor]
 
 #: Families whose decode and forward are ported, and the ROADMAP items that
 #: bring each of the others.
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "moe")
 LATER = {
-    "moe": "ROADMAP Queue 1 items 5-6 (the MoE slice: MoE and MLA decode and "
-           "forward, with the moe_gmm kernel)",
     "hybrid": "ROADMAP Queue 1 items 5-6 (zamba2's shared block)",
     "vlm": "ROADMAP Queue 1 items 5-6 (M-RoPE)",
     "audio": "ROADMAP Queue 1 items 5-6 (cross-attention and the audio encoder)",
@@ -118,6 +119,51 @@ def _ssm_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _moe_ffn_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    dt = _dtype(cfg)
+    spec = {
+        # the router stays fp32 in a bf16 model, as the reference draws it
+        "router": ((d, e), torch.float32, "normal"),
+        "wg": ((e, d, fe), dt, "normal"),
+        "wu": ((e, d, fe), dt, "normal"),
+        "wd": ((e, fe, d), dt, "normal"),
+    }
+    if cfg.n_shared_experts:
+        fs = fe * cfg.n_shared_experts
+        spec["shared_wg"] = ((d, fs), dt, "normal")
+        spec["shared_wu"] = ((d, fs), dt, "normal")
+        spec["shared_wd"] = ((fs, d), dt, "normal")
+    return spec
+
+
+def _moe_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    spec = _dense_layer_spec(cfg)
+    del spec["mlp"]
+    spec["moe"] = _moe_ffn_spec(cfg)
+    return spec
+
+
+def _mla_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    d, hd, rd, h = cfg.d_model, cfg.hd, cfg.rope_head_dim, cfg.n_heads
+    ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dt = _dtype(cfg)
+    return {
+        "ln1": ((d,), dt, "ones"),
+        "ln2": ((d,), dt, "ones"),
+        "mla": {
+            "wq_a": ((d, ql), dt, "normal"),
+            "q_norm": ((ql,), dt, "ones"),
+            "wq_b": ((ql, h * (hd + rd)), dt, "normal"),
+            "wkv_a": ((d, kvl + rd), dt, "normal"),
+            "kv_norm": ((kvl,), dt, "ones"),
+            "wkv_b": ((kvl, h * 2 * hd), dt, "normal"),
+            "wo": ((h * hd, d), dt, "normal"),
+        },
+        "moe": _moe_ffn_spec(cfg),
+    }
+
+
 def _stack(spec: Dict[str, Any], n: int) -> Dict[str, Any]:
     return {
         k: _stack(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1], v[2])
@@ -135,7 +181,12 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((cfg.d_model, cfg.vocab), dt, "normal")
-    layer = _dense_layer_spec(cfg) if cfg.arch_type == "dense" else _ssm_layer_spec(cfg)
+    if cfg.arch_type == "dense":
+        layer = _dense_layer_spec(cfg)
+    elif cfg.arch_type == "ssm":
+        layer = _ssm_layer_spec(cfg)
+    else:
+        layer = _mla_layer_spec(cfg) if cfg.use_mla else _moe_layer_spec(cfg)
     spec["layers"] = _stack(layer, cfg.n_layers)
     return spec
 
@@ -195,6 +246,23 @@ def _dense_block(h, layer, positions, cfg, *, window, impl):
     return h, kv
 
 
+def _moe_block(h, layer, positions, cfg, *, window, impl, dispatch):
+    x = rms_norm(h, layer["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        attn_out, _ = mla_mod.mla_attention(
+            x, layer["mla"], positions, n_heads=cfg.n_heads, head_dim=cfg.hd,
+            rope_head_dim=cfg.rope_head_dim, theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps, window=window, impl=impl,
+        )
+    else:
+        attn_out, _ = gqa_attention(x, layer, positions, causal=True, window=window,
+                                    impl=impl, **_attn_kwargs(cfg))
+    h = h + attn_out
+    ffn_out, aux = moe_mod.moe_ffn(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["moe"],
+                                   top_k=cfg.top_k, dispatch=dispatch, impl=impl)
+    return h + ffn_out, aux
+
+
 def _ssm_block(h, layer, cfg, *, impl, initial_state=None):
     y, state = ssm_mod.mamba2_block(
         rms_norm(h, layer["ln"], cfg.norm_eps), layer, cfg,
@@ -210,23 +278,30 @@ def forward(
     cfg: ModelConfig,
     *,
     impl: str = "auto",
+    moe_dispatch: str = "sorted",
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  ``batch["tokens"]``: (B, S) token ids.
-    Returns (logits (B, S, V), aux loss scalar: 0 for these families).
-    ``impl`` picks the attention and SSD-scan implementation ("auto": the
-    hand-written kernels for CUDA tensors, their plain twins for CPU
-    tensors)."""
+    Returns (logits (B, S, V), aux loss scalar: the MoE load-balance loss
+    summed over the layers, 0 for the other families).  ``impl`` picks the
+    kernels' implementation ("auto": the hand-written kernels for CUDA
+    tensors, their plain twins for CPU tensors); ``moe_dispatch`` the MoE
+    dispatch ("sorted" or "scan")."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     bsz, s = tokens.shape
     h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, S, D)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    positions = torch.arange(s, device=h.device)[None, :].expand(bsz, s)
     if cfg.arch_type == "dense":
-        positions = torch.arange(s, device=h.device)[None, :].expand(bsz, s)
         for i in range(cfg.n_layers):
             h, _ = _dense_block(h, params["layers"].layer(i), positions, cfg,
                                 window=window, impl=impl)
+    elif cfg.arch_type == "moe":
+        for i in range(cfg.n_layers):
+            h, a = _moe_block(h, params["layers"].layer(i), positions, cfg,
+                              window=window, impl=impl, dispatch=moe_dispatch)
+            aux = aux + a
     else:
         for i in range(cfg.n_layers):
             h, _ = _ssm_block(h, params["layers"].layer(i), cfg, impl=impl)
@@ -242,11 +317,12 @@ def next_token_loss(
     cfg: ModelConfig,
     *,
     impl: str = "auto",
+    moe_dispatch: str = "sorted",
     aux_weight: float = 0.01,
 ) -> torch.Tensor:
     """Mean next-token negative log-likelihood over ``batch["tokens"]``
     (forward only: no gradient yet), plus ``aux_weight`` times the aux loss."""
-    logits, aux = forward(params, batch, cfg, impl=impl)
+    logits, aux = forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch)
     targets = batch["tokens"][:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
@@ -271,7 +347,11 @@ def init_cache(
     dt = _dtype(cfg)
     l, kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     cache: Cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if cfg.arch_type == "dense":
+    if cfg.arch_type == "moe" and cfg.use_mla:
+        cache["ckv"] = torch.zeros((l, batch, capacity, cfg.kv_lora_rank), dtype=dt, device=dev)
+        cache["krope"] = torch.zeros((l, batch, capacity, cfg.rope_head_dim), dtype=dt,
+                                     device=dev)
+    elif cfg.arch_type in ("dense", "moe"):
         cache["k"] = torch.zeros((l, batch, capacity, kh, hd), dtype=dt, device=dev)
         cache["v"] = torch.zeros((l, batch, capacity, kh, hd), dtype=dt, device=dev)
     else:
@@ -312,29 +392,47 @@ def decode_step(
     cfg: ModelConfig,
     *,
     impl: str = "auto",
+    moe_dispatch: str = "sorted",
     cache_update: str = "scatter",
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B,) → (logits (B, V), cache).
 
-    The cache is updated in place (K/V slots, SSM states and ``pos``), and
-    the same dict is returned.  Attention goes through
-    ``kops.decode_attention`` with ``impl`` ("auto": the hand-written kernel
-    for CUDA tensors, its plain twin for CPU tensors)."""
+    The cache is updated in place (K/V or latent slots, SSM states and
+    ``pos``), and the same dict is returned.  Attention goes through
+    ``kops.decode_attention`` and the sorted MoE dispatch through
+    ``kops.moe_gmm`` with ``impl`` ("auto": the hand-written kernels for
+    CUDA tensors, their plain twins for CPU tensors); ``moe_dispatch`` is
+    "sorted" (the reference's default) or "scan" (what serving uses)."""
     _require_ported(cfg)
     h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, D)
     pos = cache["pos"]
-    if cfg.arch_type == "dense":
-        capacity = cache["k"].shape[2]
+    if cfg.arch_type in ("dense", "moe"):
+        mla = cfg.arch_type == "moe" and cfg.use_mla
+        capacity = cache["ckv" if mla else "k"].shape[2]
         write_idx, cache_len = _ring(pos, capacity, cfg.sliding_window is not None)
         for i in range(cfg.n_layers):
             layer = params["layers"].layer(i)
             x = rms_norm(h, layer["ln1"], cfg.norm_eps)
-            attn_out, _ = gqa_decode_attention(
-                x, layer, pos, cache["k"][i], cache["v"][i], cache_len, write_idx,
-                impl=impl, cache_update=cache_update, **_attn_kwargs(cfg),
-            )
+            if mla:
+                attn_out, _ = mla_mod.mla_decode_attention(
+                    x, layer["mla"], pos, cache["ckv"][i], cache["krope"][i], cache_len,
+                    write_idx, n_heads=cfg.n_heads, head_dim=cfg.hd,
+                    rope_head_dim=cfg.rope_head_dim, theta=cfg.rope_theta,
+                    norm_eps=cfg.norm_eps, impl=impl, cache_update=cache_update,
+                )
+            else:
+                attn_out, _ = gqa_decode_attention(
+                    x, layer, pos, cache["k"][i], cache["v"][i], cache_len, write_idx,
+                    impl=impl, cache_update=cache_update, **_attn_kwargs(cfg),
+                )
             h = h + attn_out
-            h = h + swiglu(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
+            x2 = rms_norm(h, layer["ln2"], cfg.norm_eps)
+            if cfg.arch_type == "moe":
+                ffn, _ = moe_mod.moe_ffn(x2[:, None, :], layer["moe"], top_k=cfg.top_k,
+                                         dispatch=moe_dispatch, impl=impl)
+                h = h + ffn[:, 0]
+            else:
+                h = h + swiglu(x2, layer["mlp"])
     else:
         for i in range(cfg.n_layers):
             layer = params["layers"].layer(i)

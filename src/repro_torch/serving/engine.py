@@ -96,15 +96,15 @@ class ExecutionEngine:
         )
         toks = torch.as_tensor(prompt, device=self.device)
         out = []
-        # teacher-forced prefill through the decode path (seeds the cache)
+        # teacher-forced prefill through the decode path (seeds the cache);
+        # MoE models decode with the scan dispatch, as the reference serves them
+        kw = dict(impl=self.impl, moe_dispatch="scan")
         for i in range(s):
-            logits, cache = decode_step(
-                hosted.params, cache, toks[:, i], cfg, impl=self.impl
-            )
+            logits, cache = decode_step(hosted.params, cache, toks[:, i], cfg, **kw)
         nxt = torch.argmax(logits, dim=-1)
         for _ in range(self.decode_tokens):
             out.append(nxt)
-            logits, cache = decode_step(hosted.params, cache, nxt, cfg, impl=self.impl)
+            logits, cache = decode_step(hosted.params, cache, nxt, cfg, **kw)
             nxt = torch.argmax(logits, dim=-1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

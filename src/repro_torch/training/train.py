@@ -21,14 +21,15 @@ def make_prefill_step(
     cfg: ModelConfig,
     *,
     impl: str = "auto",
+    moe_dispatch: str = "sorted",
     device: Device = "cuda",
 ) -> Callable[[ParamTree, Mapping[str, torch.Tensor]], torch.Tensor]:
     """Full-sequence forward (inference prefill) on ``device``:
     ``step(params, batch) → logits (B, S, V)``.  ``batch["tokens"]`` (B, S)
     is moved to the device; the params must already be there.  With
-    ``impl="auto"`` attention and the SSD scan run the hand-written kernels
-    on a card and their plain twins on the CPU.  Asking for a card where
-    there is none raises."""
+    ``impl="auto"`` attention, the SSD scan and the sorted MoE dispatch's
+    grouped matmul run the hand-written kernels on a card and their plain
+    twins on the CPU.  Asking for a card where there is none raises."""
     dev = resolve_device(device)
 
     def step(params: ParamTree, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -36,7 +37,8 @@ def make_prefill_step(
         if where != dev:
             raise ValueError(f"params are on {where}, the step runs on {dev}")
         tokens = torch.as_tensor(batch["tokens"], device=dev)
-        logits, _ = forward(params, {"tokens": tokens}, cfg, impl=impl)
+        logits, _ = forward(params, {"tokens": tokens}, cfg, impl=impl,
+                            moe_dispatch=moe_dispatch)
         return logits
 
     return step

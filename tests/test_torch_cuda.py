@@ -16,6 +16,7 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.examples import serve_cluster as ex  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.training import make_prefill_step  # noqa: E402
 
@@ -172,13 +173,13 @@ def test_ssd_smem_fits_mamba2_at_full_width(card):
     assert ssd.launches == before
 
 
-@pytest.mark.parametrize("which", ["decode", "flash", "ssd"])
+@pytest.mark.parametrize("which", ["decode", "flash", "ssd", "gmm"])
 def test_empty_input_launches_nothing(card, which):
     """No rows (or no queries): an empty output in the right shape, no launch."""
     def z(*shape):
         return torch.zeros(*shape, device=card)
 
-    before = (da.launches, fa.launches, ssd.launches)
+    before = (da.launches, fa.launches, ssd.launches, gmm.launches)
     if which == "decode":
         out = da.decode_attention(z(0, 4, 8), z(0, 5, 2, 8), z(0, 5, 2, 8),
                                   torch.zeros(0, dtype=torch.int32, device=card))
@@ -186,11 +187,14 @@ def test_empty_input_launches_nothing(card, which):
     elif which == "flash":
         out = fa.flash_attention(z(2, 0, 4, 8), z(2, 5, 2, 8), z(2, 5, 2, 8))
         assert out.shape == (2, 0, 4, 8)
+    elif which == "gmm":
+        out = gmm.moe_gmm(z(0, 16), z(4, 16, 8), torch.zeros(4, dtype=torch.int32, device=card))
+        assert out.shape == (0, 8)
     else:
         out, state = ssd.ssd_scan(z(0, 10, 3, 16), z(0, 10, 3), z(3), z(0, 10, 3, 8),
                                   z(0, 10, 3, 8), chunk=4)
         assert out.shape == (0, 10, 3, 16) and state.shape == (0, 3, 16, 8)
-    assert (da.launches, fa.launches, ssd.launches) == before
+    assert (da.launches, fa.launches, ssd.launches, gmm.launches) == before
 
 
 @pytest.mark.parametrize("name", ["mistral-nemo-12b", "granite-20b", "mamba2-780m"])
@@ -207,3 +211,104 @@ def test_prefill_step_through_the_kernels(card, name):
     assert counter.launches == before + cfg.n_layers
     want = make_prefill_step(cfg, impl="ref_chunked", device=card)(params, {"tokens": tokens})
     torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul
+# ---------------------------------------------------------------------------
+GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "t,d_in,d_out,sizes",
+    [
+        (50, 64, 48, [13, 0, 30, 7]),
+        (17, 16, 64, [5, 12, 0]),            # ragged everything
+        (17, 17, 33, [9, 8]),                # widths that are no whole 16-byte vector
+        (20, 16, 8, [0, 20, 0, 0, 0]),       # empty groups
+        (64, 128, 96, [64]),                 # single expert == plain matmul
+        (30, 24, 40, [10, 0, 20, 0]),        # trailing empty group
+        (12, 8, 4, [4, 5, 0]),               # rows past the sizes' sum: the last expert's
+        (16, 256, 96, "decode"),             # 16 rows over 128 experts, as sorted decode
+        (1000, 256, 384, "uneven"),          # many row tiles, several column tiles
+    ],
+)
+def test_gmm_kernel_matches_plain_on_card(card, t, d_in, d_out, sizes, dtype):
+    g = torch.Generator(device=card).manual_seed(t + d_in)
+    if sizes == "decode":
+        sizes = torch.bincount(torch.randint(0, 128, (t,), generator=g, device=card),
+                               minlength=128).tolist()
+    elif sizes == "uneven":
+        sizes = [500, 0, 3, 250, 1, 0, 246, 0]
+    e = len(sizes)
+    x = torch.randn(t, d_in, generator=g, device=card).to(dtype)
+    w = (torch.randn(e, d_in, d_out, generator=g, device=card) / d_in ** 0.5).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    before = gmm.launches
+    got = gmm.moe_gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1 and got.dtype == dtype
+    want = gmm.moe_gmm_plain(x, w, gs)
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_gmm_wrapper_raises_on_a_cuda_input_the_kernel_does_not_take(card):
+    x = torch.zeros(8, 16, device=card, dtype=torch.float16)
+    w = torch.zeros(2, 16, 8, device=card, dtype=torch.float16)
+    gs = torch.tensor([3, 5], dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        gmm.moe_gmm(x, w, gs)
+    with pytest.raises(ValueError, match="group_sizes is on"):
+        gmm.moe_gmm(x.float(), w.float(), gs.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        gmm.moe_gmm(x.float(), w.float(), gs.long())
+
+
+def test_gmm_never_waits_for_the_card(card):
+    """The wrapper reads no value of ``group_sizes`` on the host: with
+    PyTorch's sync debug mode set to raise, a call (and the sorted MoE
+    dispatch around it) goes through."""
+    from repro_torch.models import moe as moe_mod
+
+    x = torch.randn(32, 64, device=card, dtype=torch.bfloat16)
+    p = {"router": torch.randn(64, 16, device=card),
+         **{k: torch.randn(16, *s, device=card, dtype=torch.bfloat16) * 0.1
+            for k, s in (("wg", (64, 32)), ("wu", (64, 32)), ("wd", (32, 64)))}}
+    gs = torch.tensor([8] * 4 + [0] * 12, dtype=torch.int32, device=card)
+    gmm.moe_gmm(x, p["wg"], gs)  # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gmm.moe_gmm(x, p["wg"], gs)
+        moe_mod.moe_ffn(x[None], p, top_k=2, dispatch="sorted")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "deepseek-v2-236b"])
+def test_moe_prefill_and_decode_through_the_kernels(card, name):
+    """A reduced fp32 MoE model's prefill launches flash attention once and
+    the grouped matmul three times per layer, and its sorted decode the
+    decode kernel once and the grouped matmul three times per layer; both
+    agree with the plain path."""
+    cfg = ARCHS[name].reduced(dtype="float32")
+    params = tm.init_params(cfg, torch.Generator(device=card).manual_seed(0), card)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=card)
+    before = (fa.launches, gmm.launches)
+    logits = make_prefill_step(cfg, device=card)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert (fa.launches, gmm.launches) == (before[0] + cfg.n_layers,
+                                           before[1] + 3 * cfg.n_layers)
+    want = make_prefill_step(cfg, impl="ref_chunked", device=card)(params, {"tokens": tokens})
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    caches = {impl: tm.init_cache(cfg, 2, 8, device=card) for impl in ("auto", "ref")}
+    for i in range(6):
+        before = (da.launches, gmm.launches)
+        got, _ = tm.decode_step(params, caches["auto"], tokens[:, i], cfg)
+        assert (da.launches, gmm.launches) == (before[0] + cfg.n_layers,
+                                               before[1] + 3 * cfg.n_layers)
+        plain, _ = tm.decode_step(params, caches["ref"], tokens[:, i], cfg, impl="ref")
+        torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)

@@ -1,8 +1,9 @@
 """The port's attention and SSD oracles and its kernels' plain twins
 against the JAX package's oracles and its Pallas kernels (run in interpret
 mode), on the same numpy inputs; plus the wrappers' host-side checks and
-``ssd_decode_ref`` parity.  The CUDA kernels themselves run only on the
-card: see ``test_torch_cuda.py``."""
+``ssd_decode_ref`` parity.  The grouped matmul's parity is in
+``test_torch_moe.py``.  The CUDA kernels themselves run only on the card:
+see ``test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash  # noq
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -433,11 +435,11 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(case, err):
     ssd._check(*_ssd_good(), 4, torch.zeros(2, 3, 16, 8))  # the good case passes
 
 
-@pytest.mark.parametrize("which", ["decode", "flash", "ssd"])
+@pytest.mark.parametrize("which", ["decode", "flash", "ssd", "gmm"])
 def test_empty_input_gives_empty_output(which):
     """A batch of no rows (or no queries) gives an output of no elements
     in the right shape and dtype, and counts no launch."""
-    before = (da.launches, fa.launches, ssd.launches)
+    before = (da.launches, fa.launches, ssd.launches, gmm.launches)
     if which == "decode":
         out = da.decode_attention(torch.zeros(0, 4, 8), torch.zeros(0, 5, 2, 8),
                                   torch.zeros(0, 5, 2, 8), torch.zeros(0, dtype=torch.int32))
@@ -446,6 +448,10 @@ def test_empty_input_gives_empty_output(which):
         out = fa.flash_attention(torch.zeros(2, 0, 4, 8), torch.zeros(2, 5, 2, 8),
                                  torch.zeros(2, 5, 2, 8))
         assert out.shape == (2, 0, 4, 8)
+    elif which == "gmm":
+        out = gmm.moe_gmm(torch.zeros(0, 16), torch.zeros(4, 16, 8),
+                          torch.zeros(4, dtype=torch.int32))
+        assert out.shape == (0, 8)
     else:
         out, state = ssd.ssd_scan(torch.zeros(0, 10, 3, 16), torch.zeros(0, 10, 3),
                                   torch.zeros(3), torch.zeros(0, 10, 3, 8),
@@ -453,7 +459,7 @@ def test_empty_input_gives_empty_output(which):
         assert out.shape == (0, 10, 3, 16) and state.shape == (0, 3, 16, 8)
         assert state.dtype == torch.float32
     assert out.dtype == torch.float32
-    assert (da.launches, fa.launches, ssd.launches) == before
+    assert (da.launches, fa.launches, ssd.launches, gmm.launches) == before
 
 
 def test_unknown_impl_rejected_by_every_op():
@@ -461,3 +467,65 @@ def test_unknown_impl_rejected_by_every_op():
         ops.flash_attention(*_flash_good(), impl="pallas")
     with pytest.raises(ValueError):
         ops.ssd_scan(*_ssd_good(), impl="pallas")
+    with pytest.raises(ValueError):
+        ops.moe_gmm(*_gmm_good(), impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul: the wrapper's host-side checks
+# ---------------------------------------------------------------------------
+def _gmm_good(t=12, d_in=16, d_out=8, e=4, dtype=torch.float32, device="cpu"):
+    return (torch.zeros(t, d_in, dtype=dtype, device=device),
+            torch.zeros(e, d_in, d_out, dtype=dtype, device=device),
+            torch.zeros(e, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize(
+    "case,err",
+    [
+        ("x_rank", ValueError),
+        ("w_rank", ValueError),
+        ("d_in_mismatch", ValueError),
+        ("sizes_int64", ValueError),
+        ("sizes_shape", ValueError),
+        ("no_expert", ValueError),
+        ("fp16", TypeError),
+        ("mixed_dtype", TypeError),
+        ("sizes_elsewhere", ValueError),
+        ("not_contiguous", ValueError),
+    ],
+)
+def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(case, err):
+    x, w, gs = _gmm_good()
+    if case == "x_rank":
+        x = x[None]
+    elif case == "w_rank":
+        w = w[0]
+    elif case == "d_in_mismatch":
+        w = torch.zeros(4, 15, 8)
+    elif case == "sizes_int64":
+        gs = gs.long()
+    elif case == "sizes_shape":
+        gs = torch.zeros(5, dtype=torch.int32)
+    elif case == "no_expert":
+        w, gs = torch.zeros(0, 16, 8), torch.zeros(0, dtype=torch.int32)
+    elif case == "fp16":
+        x, w = x.half(), w.half()
+    elif case == "mixed_dtype":
+        w = w.bfloat16()
+    elif case == "sizes_elsewhere":
+        gs = torch.zeros(4, dtype=torch.int32, device="meta")
+    elif case == "not_contiguous":
+        w = torch.zeros(4, 8, 16).transpose(1, 2)
+    with pytest.raises(err):
+        gmm._check(x, w, gs)
+    gmm._check(*_gmm_good())  # the good case passes
+
+
+def test_gmm_wrapper_checks_read_no_value():
+    """The checks take shapes, dtypes and devices only, never a value:
+    they pass on ``meta`` tensors, which hold none, so the sizes a CUDA
+    call hands the kernel are never read on the host."""
+    gmm._check(*_gmm_good(device="meta", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="runs on CUDA or CPU"):
+        gmm.moe_gmm(*_gmm_good(device="meta"))

@@ -20,7 +20,8 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.models.model import param_spec  # noqa: E402
 
 TRIO = ["mamba2-780m", "mistral-nemo-12b", "granite-20b"]
-PORTED = sorted(n for n, c in ARCHS.items() if c.arch_type in ("dense", "ssm"))
+MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]  # GQA and MLA; decode parity: test_torch_moe.py
+PORTED = sorted(n for n, c in ARCHS.items() if c.arch_type in ("dense", "ssm", "moe"))
 # fp32 logits agree to ~1e-6; 1e-4 leaves room for the two packages'
 # different summation orders in the matmuls.
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -88,7 +89,7 @@ def test_onehot_cache_update_matches_scatter():
         torch.testing.assert_close(out["onehot"], out["scatter"], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("name", TRIO)
+@pytest.mark.parametrize("name", TRIO + MOE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_cache_layout(name, dtype):
     cfg = ARCHS[name].reduced(dtype=dtype)
@@ -113,7 +114,8 @@ def _leaves(tree, prefix=""):
 def test_full_size_param_layout_and_bytes(name):
     """Names, shapes, dtypes and bytes of every leaf equal the reference's
     at full size (abstract shapes on both sides, nothing allocated): fetch
-    costs, and so placements, depend on the byte count."""
+    costs, and so placements, depend on the byte count.  MoE routers stay
+    fp32 in a bf16 model, as the reference draws them."""
     want = dict(_leaves(jm.abstract_params(REF_ARCHS[name])))
     got = dict(_leaves(param_spec(ARCHS[name])))
     assert set(got) == set(want)
@@ -126,9 +128,11 @@ def test_full_size_param_layout_and_bytes(name):
         assert nbytes == ref.size * ref.dtype.itemsize, path
         total += nbytes
     assert total == sum(x.size * x.dtype.itemsize for x in want.values())
+    if ARCHS[name].arch_type == "moe":
+        assert got["layers.moe.router"][1] == torch.float32
 
 
-@pytest.mark.parametrize("name", TRIO)
+@pytest.mark.parametrize("name", TRIO + MOE)
 def test_param_tree_paths_and_size_bytes(name):
     from repro.serving import HostedModel as RefHosted
     from repro_torch.serving import HostedModel

@@ -26,7 +26,8 @@ from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.training import make_prefill_step  # noqa: E402
 
 TRIO = ["mamba2-780m", "mistral-nemo-12b", "granite-20b"]
-PORTED = sorted(n for n, c in ARCHS.items() if c.arch_type in ("dense", "ssm"))
+MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]  # forward parity: test_torch_moe.py
+PORTED = sorted(n for n, c in ARCHS.items() if c.arch_type in ("dense", "ssm", "moe"))
 # fp32 logits agree to ~1e-6; 1e-4 (as the decode tests use) leaves room
 # for the two packages' different summation orders in the matmuls.
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -148,7 +149,7 @@ def test_forward_last_position_matches_teacher_forced_decode(name):
         torch.testing.assert_close(step, logits[:, i], atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", TRIO)
+@pytest.mark.parametrize("name", TRIO + MOE)
 def test_prefill_step_on_the_cpu(name):
     cfg, rcfg, tp, jp = pair(name)
     toks = tokens(cfg, s=20, seed=3)
