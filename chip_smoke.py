@@ -8,13 +8,17 @@ It needs the checkout around it (``src/repro_torch``), PyTorch with CUDA,
 any phase fails.  Phases:
 
 1. the card (name and power limit) and the build of every kernel under
-   ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all at once;
+   ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all at once,
+   with ptxas's registers, spills and the shared memory of the wgmma bodies;
 2. each kernel against its plain PyTorch version on the card, at the zoo's
-   shapes and the reference tolerances, with its time beside the plain
-   version's, one PyTorch library call's and the least time the card could
-   take (its bound): decode attention (2), flash attention (2b), the
-   SSD scan (2c) and the MoE grouped matmul (2d, group sizes from a seeded
-   router's top-k at Qwen3-MoE's and DeepSeek-V2's prefill and decode);
+   shapes and the reference tolerances, through the body each wrapper
+   picks, with its time beside the plain version's, one PyTorch library
+   call's and the least time the card could take (its bound): decode
+   attention (2), flash attention (2b), the SSD scan (2c) and the MoE
+   grouped matmul (2d, group sizes from a seeded router's top-k at
+   Qwen3-MoE's and DeepSeek-V2's prefill and decode).  At the main shapes
+   of 2b and 2d the wgmma body and the mma.sync body it replaced are timed
+   in turns (new, old, old, new) in the same run;
 3. the decode path at full width in bf16: a 3-worker ServingCluster on one
    card serving 10 pipeline requests (prompts (2, 64)) over
    mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
@@ -22,13 +26,15 @@ any phase fails.  Phases:
    around the run; then NeMo's logits, kernel path against plain path;
 3b. the prefill path at full width in bf16, on phase 3's weights:
    ``make_prefill_step`` over B = 2, S = 2048 seeded tokens for each model,
-   with the flash and SSD launch counts read around the runs, finite logits
+   with the flash and SSD launch counts (and flash's by body: every one on
+   wgmma) read around the runs, finite logits
    and loss, and the last position's logits, kernel path against plain
    path; then NeMo's forward over phase 3's prompt against its decode path,
    within ``LOGIT_BOUND`` with equal argmax;
 3c. once phase 3's models are released: Qwen3-MoE at full width and depth
    in bf16: ``make_prefill_step`` over B = 2, S = 2048 twice with the flash
-   and grouped-matmul launch counts, the loss, one MoE layer and the whole
+   and grouped-matmul launch counts (every one on the wgmma bodies), the
+   loss, one MoE layer and the whole
    model held kernel path against plain path (with the tokens whose expert
    set differs between the two counted per layer), one serving task
    (``ExecutionEngine.run_task``, scan dispatch) and sorted against scan
@@ -133,8 +139,42 @@ def build_kernels():
     for name in libs:
         print(f"built {name}: {_build.build_seconds[name]:.1f} s")
     print(f"kernel build wall time: {wall:.1f} s")
+    report = wgmma_report(_build.build_logs)
     return {"build_wall_s": wall, "build_s": dict(_build.build_seconds),
-            "ptxas": dict(_build.build_logs)}
+            "ptxas": dict(_build.build_logs), "wgmma_bodies": report}
+
+
+def wgmma_report(logs):
+    """ptxas's registers and spills for each wgmma kernel, with the dynamic
+    shared memory its launch asks for (ptxas counts static memory only)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+
+    fa_lib, gmm_lib = _build.load("flash_attention"), _build.load("moe_gmm")
+    fa_lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_int
+    gmm_lib.moe_gmm_wgmma_smem_bytes.restype = ctypes.c_size_t
+    smem = {f"flash_attention D={d}": fa_lib.flash_attention_wgmma_smem_bytes(d)
+            for d in (64, 128, 192, 256)}
+    smem.update({f"moe_gmm E={e}": gmm_lib.moe_gmm_wgmma_smem_bytes(e) for e in (128, 160)})
+    rows = []
+    for lib in ("flash_attention", "moe_gmm"):
+        entry = None
+        for line in logs.get(lib, "").splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            if entry is None or "wgmma" not in entry:
+                continue
+            if "spill" in line or "Used" in line:
+                rows.append(dict(lib=lib, kernel=entry, ptxas=line.strip()))
+                print(f"ptxas {lib} {entry[-48:]}: {line.strip()}")
+        if not logs.get(lib):
+            print(f"ptxas {lib}: no report (an up-to-date library was found on disk)")
+    for what, n in smem.items():
+        print(f"wgmma body dynamic shared memory, {what}: {n} bytes")
+    return dict(ptxas=rows, dynamic_smem=smem)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +203,15 @@ def cuda_time_ms(fn, flush, reps=25, warmup=3):
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def in_turns(new, old, flush, reps):
+    """Median device times of ``new`` and ``old`` in turns (new, old, old,
+    new); returns each one's mean over its two turns, and every reading."""
+    turns = {"new": [], "old": []}
+    for which in ("new", "old", "old", "new"):
+        turns[which].append(cuda_time_ms(new if which == "new" else old, flush, reps=reps))
+    return statistics.mean(turns["new"]), statistics.mean(turns["old"]), turns
 
 
 def decode_bound(b, h, kh, d, lens, dtype, itemsize):
@@ -307,6 +356,9 @@ def flash_vs_plain():
         ("zamba2-7b", 2, 1024, 1024, 32, 32, 112, "causal", True, None, 0),
         ("deepseek-v2-236b", 2, 1024, 1024, 128, 128, 192, "causal", True, None, 0),
     ]
+    # the main shapes, where the wgmma body is timed against the mma body
+    main = {(FLASH_MAIN["model"], FLASH_MAIN["s"], FLASH_MAIN["case"]),
+            ("deepseek-v2-236b", 1024, "causal")}
     rows = []
     for model, b, sq, sk, h, kh, d, case, causal, window, q_offset in shapes:
         kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -315,6 +367,7 @@ def flash_vs_plain():
             q = torch.randn(b, sq, h, d, generator=gen, device=dev, dtype=tdt)
             k = torch.randn(b, sk, kh, d, generator=gen, device=dev, dtype=tdt)
             v = torch.randn(b, sk, kh, d, generator=gen, device=dev, dtype=tdt)
+            body = fa.body_for(tdt, d)
             got = fa.flash_attention(q, k, v, **kw).float()
             torch.cuda.synchronize()
             want = fa.flash_attention_plain(q, k, v, **kw).float()
@@ -327,7 +380,14 @@ def flash_vs_plain():
                 raise AssertionError(f"flash {model} {dtype} {case}: rows that see no key are not 0")
             del got, want
             reps = 25 if sq * sk <= 2048 * 2048 else 7
-            kernel_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush, reps=reps)
+            old_body_ms = turns = None
+            if dtype == "bfloat16" and (model, sq, case) in main:
+                kernel_ms, old_body_ms, turns = in_turns(
+                    lambda: fa.flash_attention(q, k, v, **kw),
+                    lambda: fa.flash_attention(q, k, v, body="mma", **kw), flush, reps)
+            else:
+                kernel_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush,
+                                         reps=reps)
             plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush, reps=reps)
             library_ms = lib_err = None
             if not unseen:  # SDPA gives NaN for a row that sees no key
@@ -339,17 +399,21 @@ def flash_vs_plain():
             bound_ms, nbytes, flops, bound_by = flash_bound(b, sq, sk, h, kh, d, causal, window,
                                                             q_offset, dtype, q.element_size())
             row = dict(model=model, b=b, s=sq, sk=sk, h=h, kh=kh, d=d, case=case, dtype=dtype,
-                       max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       body=body, max_abs_err=err, kernel_ms=kernel_ms,
+                       old_body_ms=old_body_ms, turns_ms=turns, plain_ms=plain_ms,
                        library_ms=library_ms, library_err=lib_err, bound_ms=bound_ms,
                        bytes=nbytes, flops=flops, bound_by=bound_by,
                        kernel_tflops=flops / kernel_ms / 1e9,
-                       ctas=-(-sq // 64) * h * b)
+                       ctas=-(-sq // (128 if body == "wgmma" else 64)) * h * b)
             rows.append(row)
             lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "-"
+            old_txt = (f" mma body={old_body_ms:.4f} ms ({flops / old_body_ms / 1e9:.1f} TFLOP/s)"
+                       if old_body_ms is not None else "")
             print(f"{model:18s} {dtype:8s} B={b} S={sq:5d}x{sk:5d} H={h:3d} KH={kh:3d} D={d:3d} "
-                  f"{case:14s} err={err:.2e} kernel={kernel_ms:.4f} ms plain={plain_ms:.4f} ms "
-                  f"library={lib_txt} bound={bound_ms:.4f} ms ({bound_by}) "
-                  f"{row['kernel_tflops']:.1f} TFLOP/s ctas={row['ctas']}", flush=True)
+                  f"{case:14s} err={err:.2e} {body} kernel={kernel_ms:.4f} ms{old_txt} "
+                  f"plain={plain_ms:.4f} ms library={lib_txt} bound={bound_ms:.4f} ms "
+                  f"({bound_by}) {row['kernel_tflops']:.1f} TFLOP/s ctas={row['ctas']}",
+                  flush=True)
             del q, k, v
     return rows
 
@@ -497,6 +561,7 @@ def gmm_vs_plain():
             tdt = getattr(torch, dtype)
             x = torch.randn(t, d_in, generator=gen, device=dev, dtype=tdt)
             w = (torch.randn(e, d_in, d_out, generator=gen, device=dev) * 0.02).to(tdt)
+            body = gmm.body_for(tdt, d_in, d_out, n_experts=e)
             got = gmm.moe_gmm(x, w, sizes).float()
             torch.cuda.synchronize()
             want = gmm.moe_gmm_plain(x, w, sizes).float()
@@ -510,14 +575,20 @@ def gmm_vs_plain():
             del got, want
             bound_ms, nbytes, flops, bound_by = gmm_bound(t, d_in, d_out, host_sizes, dtype,
                                                           x.element_size())
-            row = dict(model=model, t=t, e=e, d_in=d_in, d_out=d_out, dtype=dtype,
-                       nonempty=sum(1 for n in host_sizes if n > 0),
+            row = dict(model=model, t=t, e=e, d_in=d_in, d_out=d_out, dtype=dtype, body=body,
+                       old_body_ms=None, nonempty=sum(1 for n in host_sizes if n > 0),
                        max_rows=max(host_sizes), max_abs_err=err, oracle_err=oracle_err,
                        bound_ms=bound_ms,
                        bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=None)
             if timed:
                 reps = 25 if t * d_in * d_out < 2**34 else 10
-                row["kernel_ms"] = cuda_time_ms(lambda: gmm.moe_gmm(x, w, sizes), flush, reps=reps)
+                if dtype == "bfloat16":  # the wgmma body against the mma body, in turns
+                    row["kernel_ms"], row["old_body_ms"], row["turns_ms"] = in_turns(
+                        lambda: gmm.moe_gmm(x, w, sizes),
+                        lambda: gmm.moe_gmm(x, w, sizes, body="mma"), flush, reps)
+                else:
+                    row["kernel_ms"] = cuda_time_ms(lambda: gmm.moe_gmm(x, w, sizes), flush,
+                                                    reps=reps)
                 row["plain_ms"] = cuda_time_ms(lambda: gmm.moe_gmm_plain(x, w, sizes), flush,
                                                reps=reps)
                 lib, why = grouped_mm_call(x, w, sizes)
@@ -533,12 +604,15 @@ def gmm_vs_plain():
             if timed:
                 lib_txt = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
                            else f"- ({row['library_note']})")
-                times = (f"kernel={row['kernel_ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
+                old = row["old_body_ms"]
+                old_txt = (f" mma body={old:.4f} ms ({flops / old / 1e9:.1f} TFLOP/s)"
+                           if old is not None else "")
+                times = (f"kernel={row['kernel_ms']:.4f} ms{old_txt} plain={row['plain_ms']:.4f} ms "
                          f"library={lib_txt} {row['kernel_tflops']:.1f} TFLOP/s "
                          f"{row['kernel_tb_per_s']:.2f} TB/s")
             else:
                 times = "not timed"
-            print(f"{model:20s} {dtype:8s} T={t:5d} E={e:3d} ({row['nonempty']} non-empty, "
+            print(f"{model:20s} {dtype:8s} {body:8s} T={t:5d} E={e:3d} ({row['nonempty']} non-empty, "
                   f"largest {row['max_rows']}) {d_in:4d}->{d_out:4d} err={err:.2e} "
                   f"(oracle {oracle_err:.2e}) {times} "
                   f"bound={bound_ms:.4f} ms ({bound_by})", flush=True)
@@ -753,9 +827,10 @@ def prefill_full_width():
     last = {}
     # the main path: counts set to 0 just before, read just after
     da.launches = fa.launches = ssd.launches = 0
+    fa.launches_by_body.clear()
     for h in models:
         step = make_prefill_step(h.cfg, device=dev)
-        f0, s0 = fa.launches, ssd.launches
+        f0, s0, w0 = fa.launches, ssd.launches, fa.launches_by_body.get("wgmma", 0)
         walls = []
         for _ in range(calls):
             torch.cuda.synchronize()
@@ -768,9 +843,11 @@ def prefill_full_width():
         last[h.cfg.name] = logits[:, -1].float()
         del logits
         dense = h.cfg.arch_type == "dense"
-        got = dict(flash=fa.launches - f0, ssd=ssd.launches - s0)
+        got = dict(flash=fa.launches - f0, ssd=ssd.launches - s0,
+                   flash_wgmma=fa.launches_by_body.get("wgmma", 0) - w0)
         want = dict(flash=h.cfg.n_layers * calls if dense else 0,
-                    ssd=0 if dense else h.cfg.n_layers * calls)
+                    ssd=0 if dense else h.cfg.n_layers * calls,
+                    flash_wgmma=h.cfg.n_layers * calls if dense else 0)
         tokens = PREFILL_B * PREFILL_S
         out[h.cfg.name] = dict(layers=h.cfg.n_layers, wall_s=walls,
                                tokens_per_s=[tokens / w for w in walls],
@@ -778,13 +855,15 @@ def prefill_full_width():
         print(f"{h.cfg.name} ({h.cfg.n_layers} layers) prefill B={PREFILL_B} S={PREFILL_S}: "
               f"wall {', '.join(f'{w:.3f}' for w in walls)} s, "
               f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; "
-              f"launches flash {got['flash']} (expected {want['flash']}), "
+              f"launches flash {got['flash']} (expected {want['flash']}; on wgmma "
+              f"{got['flash_wgmma']}), "
               f"ssd {got['ssd']} (expected {want['ssd']})", flush=True)
         if got != want:
             raise AssertionError(f"{h.cfg.name}: launches {got}, expected {want}")
     launches = dict(flash_attention=fa.launches, ssd_scan=ssd.launches,
                     decode_attention=da.launches)
-    print(f"prefill launches: {launches}")
+    print(f"prefill launches: {launches}; flash by body: {fa.launches_by_body}")
+    launches_by_body = dict(fa.launches_by_body)
 
     for h in models:
         batch = {"tokens": batches[h.cfg.name]}
@@ -827,6 +906,7 @@ def prefill_full_width():
     if err / scale > LOGIT_BOUND or not same:
         raise AssertionError("NeMo over the prompt: forward and decode path disagree")
     out["launches"] = launches
+    out["flash_launches_by_body"] = launches_by_body
     return out
 
 
@@ -886,8 +966,26 @@ def counts_zeroed():
     from repro_torch.kernels import ssd_scan as ssd
 
     da.launches = fa.launches = ssd.launches = gmm.launches = 0
+    fa.launches_by_body.clear()
+    gmm.launches_by_body.clear()
     return lambda: dict(decode_attention=da.launches, flash_attention=fa.launches,
                         ssd_scan=ssd.launches, moe_gmm=gmm.launches)
+
+
+def bodies():
+    """Launches by body since ``counts_zeroed``, of the two kernels that have
+    more than one body."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+
+    return dict(flash_attention=dict(fa.launches_by_body), moe_gmm=dict(gmm.launches_by_body))
+
+
+def on_wgmma(launches):
+    """What ``bodies`` reads when every flash and moe_gmm launch of a run
+    with these ``launches`` went through the wgmma bodies."""
+    return {k: {"wgmma": launches[k]} if launches[k] else {}
+            for k in ("flash_attention", "moe_gmm")}
 
 
 def moe_full_width(name, layers=None, reason=None):
@@ -932,6 +1030,7 @@ def moe_full_width(name, layers=None, reason=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     launches = read()
+    by_body = bodies()
     want = dict(decode_attention=0, flash_attention=n * calls, ssd_scan=0,
                 moe_gmm=3 * n * calls)
     if not bool(torch.isfinite(logits).all()):
@@ -940,13 +1039,17 @@ def moe_full_width(name, layers=None, reason=None):
     tokens = PREFILL_B * PREFILL_S
     out.update(prefill_wall_s=walls, prefill_tokens_per_s=[tokens / w for w in walls],
                prefill_launches=launches, prefill_expected_launches=want,
+               prefill_launches_by_body=by_body,
                prefill_peak_bytes=torch.cuda.max_memory_allocated())
     print(f"{name} prefill B={PREFILL_B} S={PREFILL_S}: wall "
           f"{', '.join(f'{w:.3f}' for w in walls)} s, "
           f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; launches {launches} "
-          f"(expected {want}); peak {out['prefill_peak_bytes'] / 1e9:.2f} GB", flush=True)
+          f"(expected {want}); by body {by_body}; peak "
+          f"{out['prefill_peak_bytes'] / 1e9:.2f} GB", flush=True)
     if launches != want:
         raise AssertionError(f"{name}: prefill launches {launches}, expected {want}")
+    if by_body != on_wgmma(want):
+        raise AssertionError(f"{name}: prefill launches by body {by_body}, expected all on wgmma")
     loss = float(next_token_loss(params, batch, cfg))
     out["loss"] = loss
     print(f"{name}: next_token_loss {loss:.4f}", flush=True)
@@ -962,6 +1065,8 @@ def moe_full_width(name, layers=None, reason=None):
     read = counts_zeroed()
     y_kernel, _ = moe_mod.moe_ffn(x, layer, top_k=cfg.top_k)
     kernel_launches = read()["moe_gmm"]
+    if bodies()["moe_gmm"] != {"wgmma": 3}:
+        raise AssertionError(f"{name}: one MoE layer ran moe_gmm on {bodies()['moe_gmm']}")
     y_plain, _ = moe_mod.moe_ffn(x, layer, top_k=cfg.top_k, impl="ref")
     if (kernel_launches, read()["moe_gmm"]) != (3, 3):
         raise AssertionError(f"{name}: one MoE layer launched moe_gmm {read()['moe_gmm']} times")
@@ -1026,7 +1131,7 @@ def moe_full_width(name, layers=None, reason=None):
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) / dec_steps * 1e3
         d = dec.setdefault(dispatch, dict(step_ms=[]))
-        d.update(logits=step_logits.float(), launches=read(), rec=rec)
+        d.update(logits=step_logits.float(), launches=read(), by_body=bodies(), rec=rec)
         d["step_ms"].append(ms)
     for dispatch in ("sorted", "scan"):
         print(f"{name} decode step (B=2, bf16), {dispatch}: {dec[dispatch]['step_ms']} ms; "
@@ -1034,12 +1139,16 @@ def moe_full_width(name, layers=None, reason=None):
     if dec["sorted"]["launches"]["moe_gmm"] != 3 * n * dec_steps:
         raise AssertionError(f"{name}: sorted decode launched moe_gmm "
                              f"{dec['sorted']['launches']['moe_gmm']} times")
+    if dec["sorted"]["by_body"]["moe_gmm"] != {"wgmma": 3 * n * dec_steps}:
+        raise AssertionError(f"{name}: sorted decode ran moe_gmm on "
+                             f"{dec['sorted']['by_body']['moe_gmm']}")
     dec_flips = flips(dec["sorted"]["rec"], dec["scan"]["rec"])
     dcmp = compare_logits(f"{name} decode logits after {dec_steps} steps, sorted vs scan",
                           dec["sorted"]["logits"], dec["scan"]["logits"])
     print(f"  routing flips per layer and step (of 2 tokens): {sum(dec_flips)} in all")
     dcmp.update(flips=dec_flips)
-    out["decode"] = {k: dict(step_ms=v["step_ms"], launches=v["launches"]) for k, v in dec.items()}
+    out["decode"] = {k: dict(step_ms=v["step_ms"], launches=v["launches"], by_body=v["by_body"])
+                     for k, v in dec.items()}
     out["sorted_vs_scan"] = dcmp
     out["profile"] = profile_decode(hosted, prompt_t, dev)
 
@@ -1144,6 +1253,7 @@ def main() -> None:
     gmm_row = next(r for r in gmm_rows if all(r[k] == GMM_MAIN[k] for k in GMM_MAIN))
     kernels = [{
         "name": "decode_attention",
+        "body": "fp32",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:110",
@@ -1156,6 +1266,7 @@ def main() -> None:
         "library_ms": main_row["library_ms"],
     }, {
         "name": "flash_attention",
+        "body": flash_row["body"],
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:130",
@@ -1168,6 +1279,7 @@ def main() -> None:
         "library_ms": flash_row["library_ms"],
     }, {
         "name": "ssd_scan",
+        "body": "fp32",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:130",
@@ -1180,6 +1292,7 @@ def main() -> None:
         "library_ms": None,
     }, {
         "name": "moe_gmm",
+        "body": gmm_row["body"],
         "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:90",

@@ -19,38 +19,62 @@
 // bound by arithmetic: 989 TFLOP/s on the tensor cores in bf16, 67 TFLOP/s
 // on the CUDA cores in fp32.
 //
-// What the design does about it: one CTA per (64-query tile, head, batch
-// row).  64-key tiles of K and V stream through shared memory, and only
-// the band of tiles that the tile's queries can see is visited (the loop
-// bounds of flash_attention.py:51-62), so causal prefill does half the
-// pairs.  The running max m, sum l and the accumulator stay in registers
-// (online softmax in the exp2 domain).  No row or key past Sq or Sk is
-// read from device memory.  CTAs are issued longest first (the last query
-// tiles see the most keys).  Two bodies:
+// What the design does about it: one CTA per (query tile, head, batch
+// row).  Only the band of key tiles that the tile's queries can see is
+// visited (the loop bounds of flash_attention.py:51-62), so causal prefill
+// does half the pairs.  The running max m, sum l and the accumulator stay
+// in registers (online softmax in the exp2 domain).  Masks are computed
+// only on tiles that straddle the diagonal, the window's edge or Sk.  CTAs
+// are issued longest first (the last query tiles see the most keys).
+// Three bodies, chosen by the caller (kernels/flash_attention.py::body_for):
 //
-// * bf16 with D a multiple of 16: the tensor cores.  4 warps, each owning
-//   16 query rows; S = Q K^T and O += P V are mma.sync m16n8k16 products
-//   (bf16 in, fp32 accumulate) fed by ldmatrix from shared tiles whose
-//   rows are padded by 16 bytes (conflict-free).  P goes from the score
-//   accumulators straight into the A fragments of P V, rounded to bf16 as
-//   attention_ref rounds its probabilities to v's dtype.
-// * fp32 (and bf16 head dims that are not a multiple of 16): the CUDA
+// * wgmma (bf16, D in {64, 128, 192, 256}: rows of whole 128-byte swizzle
+//   atoms; q, k, v 16-byte aligned): a 128-query tile on two consumer
+//   warpgroups of 64 rows and a producer warpgroup, one thread of which
+//   loads Q once and streams K and V tiles (128 keys at D = 64, 64
+//   above) through a 2-stage ring by TMA (4-D maps over (B, S, heads, D),
+//   128-byte swizzled, zero past Sq and Sk), each tile on its own mbarrier
+//   so that Q K^T starts before V has landed.  S = Q K^T is a wgmma from
+//   shared memory (K K-major); P is rounded to bf16 in registers, as
+//   attention_ref rounds its probabilities to v's dtype, and is the
+//   register A operand of O += P V (V N-major: the transpose bit).
+//   Consumers release a stage once both products have read it.
+// * mma (bf16 with D a multiple of 16, such as zamba2's 112): 64-query
+//   tiles on 4 warps, each owning 16 query rows; S = Q K^T and O += P V are
+//   mma.sync m16n8k16 products fed by ldmatrix from shared tiles whose
+//   rows are padded by 16 bytes (conflict-free), loaded by all threads
+//   before the compute.
+// * fp32 (fp32, and bf16 head dims that are not a multiple of 16): the CUDA
 //   cores in fp32.  256 threads; the query tile is staged once, scaled by
 //   D^-1/2 * log2(e), transposed, and each thread owns a 4 x 4 block of
 //   the 64 x 64 score tile and the same 4 query rows of the output: two
 //   16-byte shared loads feed 16 FMAs.
 //
-// What it does not do yet: wgmma, TMA and warp specialisation, or any
-// overlap of tile loads with compute (cp.async); the fp32 body takes up to
-// 222 KB of shared memory at D = 256, so one of its CTAs runs per SM.
+// Registers: ptxas compiles the wgmma body to the 168 registers a thread
+// of a 384-thread CTA may hold (setmaxnreg hands registers from the
+// producer to the consumers at run time, but ptxas does not budget the
+// consumer code above 168).  With 128-key tiles at D = 128 the
+// accumulators (O, S and the bf16 P) leave too few for ptxas to keep
+// several wgmmas in flight: it serialises them (its warning C7512) and
+// spills; 64-key tiles avoid both and measured 3 % faster (PERF.md, PR
+// 14).  At D = 192 and 256, O alone takes 96 and 128 registers, and the
+// products stay serialised.
+//
+// What it does not do yet: overlap the softmax of one tile with the
+// products of the next (ping-pong between the consumer warpgroups), one
+// CTA per KV head for MQA, or a TMA store of the output tile; the fp32
+// body takes up to 222 KB of shared memory at D = 256, so one of its CTAs
+// runs per SM.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC; bound through a plain C entry point.
+//             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -521,6 +545,249 @@ cudaError_t launch_mma_dim(const void* q, const void* k, const void* v, void* ou
 #undef FA_MMA_CASE
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma, fed by TMA (D in {64, 128, 192, 256})
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BQ = 128;      // queries per CTA: two consumer warpgroups of 64
+constexpr int THREADS = 384; // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int STAGES = 2;
+
+template <int D>
+struct Cfg {
+  static constexpr int BKV = D <= 64 ? 128 : 64;  // keys per tile (see the note on registers)
+  static constexpr int NB = D / 64;                // 64-wide column blocks of a row
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int SMEM = 1024 /* alignment */ + Q_BYTES + 2 * STAGES * KV_BYTES +
+                              (1 + 3 * STAGES) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+    int H, int KH, int causal, int has_window, int window, int q_offset, float qscale) {
+  using C = Cfg<D>;
+  constexpr int BKV = C::BKV, NB = C::NB;
+  extern __shared__ __align__(16) uint8_t wg_smem[];  // aligned here to 1024 bytes
+  uint8_t* smem = wg_smem + ((1024 - (hopper::smem_addr(wg_smem) & 1023)) & 1023);
+  uint8_t* Qs = smem;                          // NB blocks of BQ rows x 128 bytes
+  uint8_t* Ks = Qs + C::Q_BYTES;               // STAGES x NB blocks of BKV rows x 128 bytes
+  uint8_t* Vs = Ks + STAGES * C::KV_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + STAGES * C::KV_BYTES);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+
+  // The band of key tiles any query of this tile can see.
+  const int n_kv = (Sk + BKV - 1) / BKV;
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  int lo = 0, hi = n_kv;
+  if (causal) hi = max(0, min(n_kv, floordiv(q_last + q_offset, BKV) + 1));
+  if (has_window) lo = max(0, floordiv(q0 + q_offset - window + 1, BKV));
+
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);  // every consumer thread releases a stage
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The role of this thread's warpgroup, uniform across each warp as the
+  // compiler can see, so that it sizes each role's registers by setmaxnreg.
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {  // producer warpgroup: one thread issues every load
+    hopper::regs_dealloc<40>();
+    if (tid == 2 * 128) {
+      hopper::mbar_arrive_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        hopper::tma_load_4d(Qs + c * BQ * 128, &qmap, qbar, 64 * c, h, q0, b);
+      for (int t = lo, it = 0; t < hi; ++t, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        uint8_t* ks = Ks + s * C::KV_BYTES;
+        uint8_t* vs = Vs + s * C::KV_BYTES;
+        hopper::mbar_arrive_expect_tx(&kfull[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_4d(ks + c * BKV * 128, &kmap, &kfull[s], 64 * c, kh, t * BKV, b);
+        hopper::mbar_arrive_expect_tx(&vfull[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_4d(vs + c * BKV * 128, &vmap, &vfull[s], 64 * c, kh, t * BKV, b);
+      }
+    }
+  } else {  // consumer warpgroups
+    hopper::regs_alloc<232>();
+    const int wgi = tid >> 7, t128 = tid & 127, lane = t128 & 31, c4 = lane & 3;
+    const int row0 = wgi * 64 + (t128 >> 5) * 16 + (lane >> 2);  // rows row0 and row0 + 8
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    hopper::mbar_wait(qbar, 0);
+
+    for (int t = lo, it = 0; t < hi; ++t, ++it) {
+      const int s = it % STAGES, ph = (it / STAGES) & 1;
+      const uint8_t* ks = Ks + s * C::KV_BYTES;
+      const uint8_t* vs = Vs + s * C::KV_BYTES;
+
+      // S (64 x BKV per warpgroup) = Q K^T
+      float sc[BKV / 2];
+      hopper::mbar_wait(&kfull[s], ph);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint64_t da = hopper::desc_sw128(
+            Qs + (kd >> 2) * BQ * 128 + wgi * 64 * 128 + (kd & 3) * 32, 16, 1024);
+        const uint64_t db =
+            hopper::desc_sw128(ks + (kd >> 2) * BKV * 128 + (kd & 3) * 32, 16, 1024);
+        hopper::wgmma_ss<BKV, 0>(sc, da, db, kd > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // Mask (on the tiles that straddle an edge), scale into the exp2
+      // domain, and the online-softmax update of both rows.
+      const int k0 = t * BKV;
+      const bool edge = k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0 + q_offset) ||
+                        (has_window && k0 <= q_last + q_offset - window);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int qpos = q0 + row0 + 8 * hf + q_offset;
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = sc[4 * j + 2 * hf + e] * qscale;
+            if (edge) {
+              const int kpos = k0 + 8 * j + 2 * c4 + e;
+              const bool seen = kpos < Sk && (!causal || kpos <= qpos) &&
+                                (!has_window || kpos > qpos - window);
+              if (!seen) x = -INFINITY;
+            }
+            sc[4 * j + 2 * hf + e] = x;
+            mt = fmaxf(mt, x);
+          }
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float mn = fmaxf(m[hf], mt);
+        const float ms = mn == -INFINITY ? 0.f : mn;  // no key seen yet: p = 0 below
+        const float alpha = exp2f(m[hf] - ms);         // 0 while m is -inf
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(sc[4 * j + 2 * hf + e] - ms);
+            sc[4 * j + 2 * hf + e] = p;
+            ps += p;
+          }
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        l[hf] = l[hf] * alpha + ps;
+        m[hf] = mn;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 2 * hf] *= alpha;
+          o[4 * j + 2 * hf + 1] *= alpha;
+        }
+      }
+
+      // O (64 x D per warpgroup) += P V, P from the score registers
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      hopper::mbar_wait(&vfull[s], ph);
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t db = hopper::desc_sw128(vs + kk * 16 * 128, BKV * 128, 1024);
+        hopper::wgmma_rs<D, 1>(o, pa[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = q0 + row0 + 8 * hf;
+      if (r >= Sq) continue;
+      const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;  // no key seen: 0
+      __nv_bfloat16* ob = out + (((size_t)b * Sq + r) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j + 2 * c4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hf] * inv, o[4 * j + 2 * hf + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                   int H, int KH, int causal, int has_window, int window, int q_offset,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  if (Sk == 0)  // no key: every query gives 0
+    return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, stream);
+  CUtensorMap qmap, kmap, vmap;
+  const cuuint64_t qdims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t qstrides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                  (cuuint64_t)Sq * H * D * 2};
+  const cuuint32_t qbox[4] = {64, 1, BQ, 1};
+  const cuuint64_t kdims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t kstrides[3] = {(cuuint64_t)D * 2, (cuuint64_t)KH * D * 2,
+                                  (cuuint64_t)Sk * KH * D * 2};
+  const cuuint32_t kbox[4] = {64, 1, (cuuint32_t)C::BKV, 1};
+  cudaError_t e = hopper::encode_bf16_map(&qmap, q, 4, qdims, qstrides, qbox);
+  if (e == cudaSuccess) e = hopper::encode_bf16_map(&kmap, k, 4, kdims, kstrides, kbox);
+  if (e == cudaSuccess) e = hopper::encode_bf16_map(&vmap, v, 4, kdims, kstrides, kbox);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_wgmma_kernel<D>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  const float qscale = LOG2E / sqrtf((float)D);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
+                                             Sq, Sk, H, KH, causal, has_window, window, q_offset,
+                                             qscale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                       int Sk, int H, int KH, int D, int causal, int has_window, int window,
+                       int q_offset, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)D * QS + (size_t)D * KS + (size_t)BK * D + (size_t)BK * PS);
 }
@@ -556,26 +823,49 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
+
+// Dynamic shared memory of the wgmma body at head dim D (0: no such body).
+extern "C" int flash_attention_wgmma_smem_bytes(int D) {
+  switch (D) {
+    case 64: return wg::Cfg<64>::SMEM;
+    case 128: return wg::Cfg<128>::SMEM;
+    case 192: return wg::Cfg<192>::SMEM;
+    case 256: return wg::Cfg<256>::SMEM;
+    default: return 0;
+  }
+}
 
 // q (B, Sq, H, D), k/v (B, Sk, KH, D), out (B, Sq, H, D): contiguous, of one
 // dtype (0 = fp32, 1 = bf16).  D at most 256 and a whole number of 16-byte
-// vectors; H a multiple of KH.  Returns a cudaError_t code, 0 on success.
+// vectors; H a multiple of KH.  body: 0 = fp32, 1 = mma, 2 = wgmma (see the
+// note at the top); a body that cannot take these inputs is refused.
+// Returns a cudaError_t code, 0 on success.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Sq, int Sk, int H, int KH, int D, int causal,
                                       int has_window, int window, int q_offset, int dtype,
-                                      void* stream) {
+                                      int body, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0 || D <= 0 || D > 256 ||
       (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const bool ok = body == 0 ? true
+                : body == 1 ? dtype == 1 && D % 16 == 0
+                : body == 2 ? dtype == 1 && D % 64 == 0 && D != 0 && aligned16(q) &&
+                                  aligned16(k) && aligned16(v) && aligned16(out)
+                : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == 0)
-    e = launch_dtype<float>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
-  else if (D % 16 == 0)  // the tensor-core body
+  if (body == 2)
+    e = wg::launch_dim(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+  else if (body == 1)
     e = launch_mma_dim(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+  else if (dtype == 0)
+    e = launch_dtype<float>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   else
     e = launch_dtype<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   return (int)e;

@@ -20,37 +20,52 @@
 // What the design does about it: the Pallas wrapper scatters the rows into
 // groups padded to its row block and gathers them back (moe_gmm.py:69-78,
 // 109), which moves x and the output twice more.  Here the group sizes stay
-// on the device and each CTA works out its own offsets: warp 0 walks the
-// exclusive prefix sums of the group sizes and of their row tiles, 32
-// experts at a time with warp shuffles, and finds the (expert, row tile)
-// that its blockIdx.x names.  The grid is static, min(T, ceil(T / BM) + E)
-// row tiles (each non-empty group adds at most one partial tile, and every
-// tile holds a row) by ceil(d_out / BN) column tiles; a CTA past the last
-// tile exits, rows past its group's end are read as zeros and not written,
-// and empty groups own no tile.  The output is written in the sorted row
-// order, in place: no scatter, no gather, no read of the sizes on the host.
-// Two bodies:
+// on the device and every CTA works out the offsets itself from their
+// exclusive prefix sums (and those of the row tiles), 32 experts at a time
+// with warp shuffles.  Rows of a tile past its group's end are read,
+// multiplied and never written; empty groups own no tile.  The output is
+// written in the sorted row order, in place: no scatter, no gather, no read
+// of the sizes on the host.  Four bodies, chosen by the caller
+// (kernels/moe_gmm.py::body_for):
 //
-// * bf16: the tensor cores.  A 64 x 128 output tile per CTA of 4 warps,
-//   each warp 32 x 64, from mma.sync m16n8k16 (bf16 in, fp32 accumulate)
-//   fed by ldmatrix from shared tiles whose rows are padded by 16 bytes
-//   (conflict-free), as in flash_attention.cu.  32-deep slices of x and w
-//   come in through cp.async, two stages deep, when d_in and d_out are whole
-//   16-byte vectors; otherwise by element, zero-filled past the edges.
+// * wgmma (bf16; d_in and d_out whole 16-byte vectors; x, w, out 16-byte
+//   aligned; at most MAX_EXPERTS experts): a persistent grid of one CTA per
+//   SM walks the (row tile, column tile) list expert by expert, the column
+//   tiles of one 128-row tile next to each other, so that an expert's rows
+//   of x and its weights come from device memory about once and from L2
+//   after that.  (A grid with the row tiles fastest sweeps all of x once per
+//   column tile: six times at Qwen3's 2048 -> 768.)  Each CTA has a producer
+//   warpgroup, one thread of which keeps a 4-stage ring of 64-deep slices
+//   filled by TMA (x through a 2-D map over (T, d_in), w through a 3-D map
+//   over (E, d_in, d_out), both 128-byte swizzled, zero past the edges),
+//   and two consumer warpgroups, each computing 64 rows of the 128 x 128
+//   output tile with wgmma m64n128k16 from shared memory (w N-major: the
+//   transpose bit).  A consumer warpgroup whose 64 rows all lie past its
+//   group's end skips the products (decode's one-row groups).
+// * mma (bf16, the same widths and alignment): a 64 x 128 output tile per
+//   CTA of 4 warps, each warp 32 x 64, from mma.sync m16n8k16 fed by
+//   ldmatrix from shared tiles whose rows are padded by 16 bytes, 32-deep
+//   slices through a two-stage cp.async ring, on a static grid of
+//   min(T, ceil(T / 64) + E) row tiles by ceil(d_out / 128) column tiles
+//   (a CTA past the last tile exits).
+// * mma_elem (bf16, any widths): the mma body with element loads,
+//   zero-filled past the edges (ragged widths such as 999 -> 777).
 // * fp32: the CUDA cores in fp32 FMA (the reference's GMM tolerance is
 //   2e-4).  A 64 x 64 output tile per CTA of 256 threads, each a 4 x 4
-//   block, from 16-deep shared slices (x transposed).
+//   block, from 16-deep shared slices (x transposed), on the mma body's grid.
 //
-// What it does not do yet: wgmma, TMA, a persistent schedule, or a variant
-// for a few rows per expert (decode reads a whole 64-row tile's worth of
-// shared memory traffic for one row).
+// What it does not do yet: a variant for a few rows per expert (decode
+// multiplies a whole 64-row half tile for one row), or a TMA store of the
+// output tile.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC; bound through a plain C entry point.
+//             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -326,35 +341,227 @@ __global__ void __launch_bounds__(F_NT) gmm_f32_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma, fed by TMA: a persistent, warp-specialised grid
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BM = 128;            // rows per output tile: two consumer warpgroups of 64
+constexpr int BN = 128;            // columns per output tile: two 64-wide column blocks of w
+constexpr int BK = 64;             // depth of one slice (one 128-byte swizzle row of x)
+constexpr int STAGES = 4;          // slices in flight
+constexpr int THREADS = 384;       // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int X_BYTES = BM * BK * 2;
+constexpr int W_BLOCK = BK * 128;  // one 64-wide column block of a w slice (bytes)
+constexpr int W_BYTES = BK * BN * 2;
+constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+constexpr int MAX_EXPERTS = 1024;  // the per-expert tables live in shared memory
+
+size_t smem_bytes(int E) {
+  return 1024 /* alignment */ + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t) +
+         3 * sizeof(int) * (size_t)E;
+}
+
+// The expert that owns row tile `rt`: the first e with tiles_end[e] > rt.
+__device__ __forceinline__ int expert_of(const int* tiles_end, int E, int rt) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tiles_end[mid] > rt) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(THREADS, 1) gmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out, int T, int E,
+    int d_in, int d_out) {
+  extern __shared__ __align__(16) uint8_t wg_smem[];  // aligned here to 1024 bytes
+  uint8_t* smem = wg_smem + ((1024 - (hopper::smem_addr(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  int* tiles_end = reinterpret_cast<int*>(empty + STAGES);  // inclusive prefix of row tiles
+  int* row_start = tiles_end + E;
+  int* row_end = row_start + E;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);  // every consumer thread releases a slice
+    }
+    hopper::mbar_fence_init();
+  }
+  if (tid < 32) {  // the groups' rows and row tiles, 32 experts a pass
+    int rows_before = 0, tiles_before = 0;
+    for (int base = 0; base < E; base += 32) {
+      const int e = base + tid;
+      const int size = e < E ? min(max(group_sizes[e], 0), T) : 0;
+      const int rows_incl = warp_scan(size, tid);
+      const int start = min(rows_before + rows_incl - size, T);
+      const int end = e == E - 1 ? T : min(rows_before + rows_incl, T);
+      const int ntiles = e < E ? (end - start + BM - 1) / BM : 0;
+      const int tiles_incl = warp_scan(ntiles, tid);
+      if (e < E) {
+        tiles_end[e] = tiles_before + tiles_incl;
+        row_start[e] = start;
+        row_end[e] = end;
+      }
+      rows_before = min(rows_before + __shfl_sync(FULL, rows_incl, 31), T);
+      tiles_before += __shfl_sync(FULL, tiles_incl, 31);
+    }
+  }
+  __syncthreads();
+
+  const int col_tiles = (d_out + BN - 1) / BN;
+  const int total = tiles_end[E - 1] * col_tiles;  // expert-major, column tiles fastest
+  const int nk = (d_in + BK - 1) / BK;
+
+  // The role of this thread's warpgroup, uniform across each warp as the
+  // compiler can see, so that it sizes each role's registers by setmaxnreg.
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {  // producer warpgroup: one thread issues every load
+    hopper::regs_dealloc<40>();
+    if (tid == 2 * 128) {
+      hopper::tma_prefetch_map(&xmap);
+      hopper::tma_prefetch_map(&wmap);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int rt = tile / col_tiles, n0 = (tile - rt * col_tiles) * BN;
+        const int e = expert_of(tiles_end, E, rt);
+        const int row0 = row_start[e] + (rt - (e ? tiles_end[e - 1] : 0)) * BM;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          uint8_t* st = smem + s * STAGE_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+          hopper::tma_load_2d(st, &xmap, &full[s], kb * BK, row0);
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            hopper::tma_load_3d(st + X_BYTES + c * W_BLOCK, &wmap, &full[s], n0 + 64 * c,
+                                kb * BK, e);
+        }
+      }
+    }
+  } else {  // consumer warpgroups
+    hopper::regs_alloc<232>();
+    const int wgi = tid >> 7, t = tid & 127, lane = t & 31;
+    const int rbase = wgi * 64 + (t >> 5) * 16 + (lane >> 2);  // this thread's first row
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int rt = tile / col_tiles, n0 = (tile - rt * col_tiles) * BN;
+      const int e = expert_of(tiles_end, E, rt);
+      const int row0 = row_start[e] + (rt - (e ? tiles_end[e - 1] : 0)) * BM;
+      const int rows = min(row_end[e] - row0, BM);
+      const bool active = wgi * 64 < rows;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        if (active) {
+          const uint8_t* st = smem + s * STAGE_BYTES;
+          hopper::fence_regs(acc);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t da = hopper::desc_sw128(st + wgi * 64 * 128 + kk * 32, 16, 1024);
+            const uint64_t db = hopper::desc_sw128(st + X_BYTES + kk * 16 * 128, W_BLOCK, 1024);
+            hopper::wgmma_ss<BN, 1>(acc, da, db, kb > 0 || kk > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
+        }
+        hopper::mbar_arrive(&empty[s]);
+      }
+      if (active) {  // round once to bf16, store the rows of this group
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 2) {
+          const int r = rbase + 8 * ((i >> 1) & 1);
+          const int c = n0 + (i >> 2) * 8 + (lane & 3) * 2;
+          if (r < rows && c < d_out)  // d_out is even: c and c + 1 are both in or both out
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row0 + r) * d_out + c) =
+                __floats2bfloat162_rn(acc[i], acc[i + 1]);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch(const void* x, const void* w, const int* gs, void* out, int T, int E, int d_in,
+                   int d_out, cudaStream_t stream) {
+  if (d_in == 0) return cudaMemsetAsync(out, 0, (size_t)T * d_out * 2, stream);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {(cuuint64_t)d_in, (cuuint64_t)T};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)d_in * 2};
+  const cuuint32_t xbox[2] = {64, BM};
+  const cuuint64_t wdims[3] = {(cuuint64_t)d_out, (cuuint64_t)d_in, (cuuint64_t)E};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)d_out * 2, (cuuint64_t)d_in * d_out * 2};
+  const cuuint32_t wbox[3] = {64, BK, 1};
+  cudaError_t e = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstrides, xbox);
+  if (e == cudaSuccess) e = hopper::encode_bf16_map(&wmap, w, 3, wdims, wstrides, wbox);
+  if (e != cudaSuccess) return e;
+  const size_t smem = smem_bytes(E);
+  e = cudaFuncSetAttribute(gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  // one CTA per SM, or fewer when there are fewer tiles than SMs
+  const long long tiles = ((T + BM - 1) / BM + (long long)E) * ((d_out + BN - 1) / BN);
+  const int sms = hopper::sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gmm_wgmma_kernel<<<grid, THREADS, smem, stream>>>(xmap, wmap, gs,
+                                                    static_cast<__nv_bfloat16*>(out), T, E,
+                                                    d_in, d_out);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
+// Dynamic shared memory of the wgmma body over E experts.
+extern "C" size_t moe_gmm_wgmma_smem_bytes(int E) { return wg::smem_bytes(E); }
+
 // x (T, d_in), w (E, d_in, d_out), out (T, d_out): contiguous, of one dtype
 // (0 = fp32, 1 = bf16); group_sizes (E,) int32 on the device, read only by
-// the kernel.  Returns a cudaError_t code, 0 on success.
+// the kernel.  body: 0 = fp32, 1 = mma_elem, 2 = mma, 3 = wgmma (see the
+// note at the top); a body that cannot take these inputs is refused.
+// Returns a cudaError_t code, 0 on success.
 extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_sizes, void* out,
-                              int T, int E, int d_in, int d_out, int dtype, void* stream) {
+                              int T, int E, int d_in, int d_out, int dtype, int body,
+                              void* stream) {
   if (T < 0 || E <= 0 || d_in < 0 || d_out < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const bool vec = d_in % 8 == 0 && d_out % 8 == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(out);
+  const bool ok = body == 0 ? dtype == 0
+                : body == 1 ? dtype == 1
+                : body == 2 ? dtype == 1 && vec
+                : body == 3 ? dtype == 1 && vec && E <= wg::MAX_EXPERTS
+                : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (T == 0 || d_out == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
+  if (body == 3) return (int)wg::launch(x, w, gs, out, T, E, d_in, d_out, s);
   const int bm = dtype == 0 ? F_BM : BM, bn = dtype == 0 ? F_BN : BN;
   // the static grid: every row tile a group can need, and no more than T
   const long long row_tiles = (T + bm - 1) / bm + (long long)E;
   dim3 grid((unsigned)(row_tiles < T ? row_tiles : T), (d_out + bn - 1) / bn);
-  if (dtype == 0) {
+  if (body == 0) {
     gmm_f32_kernel<<<grid, F_NT, 0, s>>>(static_cast<const float*>(x),
                                          static_cast<const float*>(w), gs,
                                          static_cast<float*>(out), T, E, d_in, d_out);
   } else {
-    const bool vec = d_in % 8 == 0 && d_out % 8 == 0 && aligned16(x) && aligned16(w) &&
-                     aligned16(out);
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-    if (vec)
+    if (body == 2)
       gmm_bf16_kernel<true><<<grid, NT, 0, s>>>(xb, wb, gs, ob, T, E, d_in, d_out);
     else
       gmm_bf16_kernel<false><<<grid, NT, 0, s>>>(xb, wb, gs, ob, T, E, d_in, d_out);

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, which is
-loaded with ``ctypes``.  Libraries land in ``build/kernels/`` at the root
-of the checkout, named after a hash of their source and flags, so an
-edited source is rebuilt and an unchanged one is not.
+loaded with ``ctypes``.  Sources may include the shared headers
+``csrc/*.cuh`` (``-I csrc``).  Libraries land in ``build/kernels/`` at the
+root of the checkout, named after a hash of their source, every shared
+header and the flags, so an edited source or header is rebuilt and an
+unchanged one is not.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,7 +69,7 @@ def build(name: str) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -312,3 +312,95 @@ def test_moe_prefill_and_decode_through_the_kernels(card, name):
                                                before[1] + 3 * cfg.n_layers)
         plain, _ = tm.decode_step(params, caches["ref"], tokens[:, i], cfg, impl="ref")
         torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma bodies against the mma.sync bodies and the plain versions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kh,d,causal,window,q_offset",
+    [
+        (2, 200, 200, 8, 2, 64, True, None, 0),      # partial tiles
+        (1, 1000, 1000, 4, 2, 64, True, None, 0),
+        (2, 200, 200, 4, 2, 128, True, None, 0),
+        (1, 1000, 1000, 4, 4, 128, True, None, 0),
+        (2, 200, 200, 4, 4, 192, True, None, 0),     # MLA's hd + rope dim
+        (1, 1000, 1000, 2, 2, 192, True, None, 0),
+        (1, 130, 130, 2, 1, 256, True, None, 0),
+        (2, 70, 300, 4, 2, 128, True, None, 230),    # Sq != Sk, q_offset
+        (1, 300, 700, 4, 2, 192, True, None, 400),
+        (2, 333, 333, 4, 2, 128, True, 64, 0),       # window 64
+        (2, 300, 300, 4, 2, 192, True, 64, 0),
+        (1, 300, 300, 16, 1, 128, True, None, 0),    # MQA
+        (1, 256, 256, 4, 2, 64, False, None, 0),     # bidirectional
+        (2, 200, 200, 4, 2, 128, True, None, -64),   # rows 0..63 see no key
+    ],
+)
+def test_flash_wgmma_body_matches_mma_body_and_plain(card, b, sq, sk, h, kh, d, causal, window,
+                                                     q_offset):
+    g = torch.Generator(device=card).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device=card, dtype=torch.bfloat16)
+               for s, n in ((sq, h), (sk, kh), (sk, kh)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert fa.body_for(q.dtype, d) == "wgmma"
+    before = (fa.launches_by_body.get("wgmma", 0), fa.launches_by_body.get("mma", 0))
+    new = fa.flash_attention(q, k, v, **kw).float()
+    old = fa.flash_attention(q, k, v, body="mma", **kw).float()
+    torch.cuda.synchronize()
+    assert (fa.launches_by_body["wgmma"], fa.launches_by_body["mma"]) == (before[0] + 1,
+                                                                          before[1] + 1)
+    want = fa.flash_attention_plain(q, k, v, **kw).float()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(new, want, atol=tol, rtol=tol)
+    torch.testing.assert_close(new, old, atol=tol, rtol=tol)
+    if q_offset < 0:
+        assert not new[:, :-q_offset].any()  # a query that sees no key gives 0
+
+
+@pytest.mark.parametrize(
+    "t,d_in,d_out,sizes",
+    [
+        (384, 256, 256, [127, 128, 129]),      # groups across the 128-row tile's edge
+        (40, 512, 384, [10, 0, 30]),           # T below one tile
+        (1000, 256, 776, "five empty"),        # 128 experts, 5 empty; a partial column tile
+        (700, 2048, 768, [700]),               # a single expert
+        (333, 1000, 776, [100, 200, 33]),      # partial depth and column tiles
+        (16, 2048, 768, "decode"),             # 16 rows over 128 experts
+    ],
+)
+def test_gmm_wgmma_body_matches_mma_body_and_plain(card, t, d_in, d_out, sizes):
+    g = torch.Generator(device=card).manual_seed(t + d_out)
+    if sizes == "five empty":
+        sizes = [0] * 5 + [t // 123] * 123
+        sizes[-1] += t - sum(sizes)
+    elif sizes == "decode":
+        sizes = torch.bincount(torch.randint(0, 128, (t,), generator=g, device=card),
+                               minlength=128).tolist()
+    e = len(sizes)
+    x = torch.randn(t, d_in, generator=g, device=card).to(torch.bfloat16)
+    w = (torch.randn(e, d_in, d_out, generator=g, device=card) / d_in ** 0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    assert gmm.body_for(x.dtype, d_in, d_out, n_experts=e) == "wgmma"
+    before = (gmm.launches_by_body.get("wgmma", 0), gmm.launches_by_body.get("mma", 0))
+    new = gmm.moe_gmm(x, w, gs).float()
+    old = gmm.moe_gmm(x, w, gs, body="mma").float()
+    torch.cuda.synchronize()
+    assert (gmm.launches_by_body["wgmma"], gmm.launches_by_body["mma"]) == (before[0] + 1,
+                                                                            before[1] + 1)
+    want = gmm.moe_gmm_plain(x, w, gs).float()
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(new, want, atol=tol, rtol=tol)
+    torch.testing.assert_close(new, old, atol=tol, rtol=tol)
+
+
+def test_named_wgmma_body_raises_where_it_cannot_take_the_shape(card):
+    q = torch.zeros(1, 64, 4, 112, device=card, dtype=torch.bfloat16)  # zamba2's head dim
+    before = (fa.launches, gmm.launches)
+    with pytest.raises(ValueError, match="wgmma"):
+        fa.flash_attention(q, q, q, body="wgmma")
+    x = torch.zeros(8, 999, device=card, dtype=torch.bfloat16)
+    w = torch.zeros(2, 999, 777, device=card, dtype=torch.bfloat16)
+    gs = torch.tensor([3, 5], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="wgmma"):
+        gmm.moe_gmm(x, w, gs, body="wgmma")
+    assert (fa.launches, gmm.launches) == before

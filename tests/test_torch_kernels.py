@@ -529,3 +529,79 @@ def test_gmm_wrapper_checks_read_no_value():
     gmm._check(*_gmm_good(device="meta", dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="runs on CUDA or CPU"):
         gmm.moe_gmm(*_gmm_good(device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# which body a CUDA call runs, and the build's cache key
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "dtype,d,aligned,bodies",
+    [
+        (torch.float32, 64, True, ("fp32",)),
+        (torch.float32, 128, False, ("fp32",)),
+        (torch.bfloat16, 64, True, ("wgmma", "mma", "fp32")),
+        (torch.bfloat16, 128, True, ("wgmma", "mma", "fp32")),
+        (torch.bfloat16, 192, True, ("wgmma", "mma", "fp32")),   # MLA's hd + rope dim
+        (torch.bfloat16, 256, True, ("wgmma", "mma", "fp32")),
+        (torch.bfloat16, 128, False, ("mma", "fp32")),           # TMA needs 16-byte alignment
+        (torch.bfloat16, 112, True, ("mma", "fp32")),            # zamba2: no whole swizzle row
+        (torch.bfloat16, 32, True, ("mma", "fp32")),
+        (torch.bfloat16, 8, True, ("fp32",)),
+        (torch.bfloat16, 40, True, ("fp32",)),
+        (torch.float16, 64, True, ()),
+    ],
+)
+def test_flash_body_for(dtype, d, aligned, bodies):
+    assert fa.bodies_for(dtype, d, aligned) == bodies
+    if bodies:
+        assert fa.body_for(dtype, d, aligned) == bodies[0]
+    else:
+        with pytest.raises(TypeError):
+            fa.body_for(dtype, d, aligned)
+
+
+@pytest.mark.parametrize(
+    "dtype,d_in,d_out,aligned,experts,bodies",
+    [
+        (torch.float32, 2048, 768, True, 128, ("fp32",)),
+        (torch.float32, 999, 777, False, 8, ("fp32",)),
+        (torch.bfloat16, 2048, 768, True, 128, ("wgmma", "mma", "mma_elem")),   # Qwen3-MoE
+        (torch.bfloat16, 5120, 1536, True, 160, ("wgmma", "mma", "mma_elem")),  # DeepSeek-V2
+        (torch.bfloat16, 1000, 776, True, 8, ("wgmma", "mma", "mma_elem")),
+        (torch.bfloat16, 2048, 768, False, 128, ("mma_elem",)),
+        (torch.bfloat16, 999, 777, True, 8, ("mma_elem",)),
+        (torch.bfloat16, 1000, 777, True, 8, ("mma_elem",)),
+        (torch.bfloat16, 2048, 768, True, 1025, ("mma", "mma_elem")),
+        (torch.float16, 64, 64, True, 4, ()),
+    ],
+)
+def test_gmm_body_for(dtype, d_in, d_out, aligned, experts, bodies):
+    assert gmm.bodies_for(dtype, d_in, d_out, aligned, experts) == bodies
+    if bodies:
+        assert gmm.body_for(dtype, d_in, d_out, aligned, experts) == bodies[0]
+    else:
+        with pytest.raises(TypeError):
+            gmm.body_for(dtype, d_in, d_out, aligned, experts)
+
+
+def test_library_name_follows_every_shared_header(tmp_path, monkeypatch):
+    """A library is named after its source, every ``csrc/*.cuh`` and the
+    flags: an edited header gives a new name, so a stale build is never
+    loaded as current; a new header too; an unrelated file does not."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("#define X 1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert _build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("#define X 2\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "more.cuh").write_text("\n")
+    assert _build.library_path("k") not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path("k") not in (first, second)
+    assert _build.sources() == ["k"]  # headers are not kernel sources
