@@ -324,36 +324,10 @@ constexpr int TC_BQ = 64;   // queries per CTA: 16 per warp
 constexpr int TC_BK = 64;   // keys per shared-memory tile
 constexpr int TC_NT = 128;  // 4 warps
 
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3, const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::ldsm_x4;
+using hopper::ldsm_x4_trans;
+using hopper::mma_bf16;
+using hopper::pack_bf16;
 
 template <int D>
 __global__ void __launch_bounds__(TC_NT) flash_attention_mma_kernel(
@@ -428,14 +402,14 @@ __global__ void __launch_bounds__(TC_NT) flash_attention_mma_kernel(
       for (int e = 0; e < 4; ++e) s[nj][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a0, a1, a2, a3;
-      ldsm_x4(a0, a1, a2, a3, Qs + (warp * 16 + lr + 8 * (lm & 1)) * RS + kk * 16 + 8 * (lm >> 1));
+      uint32_t a[4];
+      ldsm_x4(a[0], a[1], a[2], a[3], Qs + (warp * 16 + lr + 8 * (lm & 1)) * RS + kk * 16 + 8 * (lm >> 1));
 #pragma unroll
       for (int nj = 0; nj < 8; nj += 2) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4(b0, b1, b2, b3, Ks + (nj * 8 + lr + 8 * (lm >> 1)) * RS + kk * 16 + 8 * (lm & 1));
-        mma_bf16(s[nj], a0, a1, a2, a3, b0, b1);
-        mma_bf16(s[nj + 1], a0, a1, a2, a3, b2, b3);
+        mma_bf16(s[nj], a, b0, b1);
+        mma_bf16(s[nj + 1], a, b2, b3);
       }
     }
 
@@ -483,16 +457,16 @@ __global__ void __launch_bounds__(TC_NT) flash_attention_mma_kernel(
     // O (16 x D per warp) += P V, P from the score accumulators
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4_trans(b0, b1, b2, b3, Vs + (kk * 16 + lr + 8 * (lm & 1)) * RS + nd * 8 + 8 * (lm >> 1));
-        mma_bf16(o[nd], a0, a1, a2, a3, b0, b1);
-        mma_bf16(o[nd + 1], a0, a1, a2, a3, b2, b3);
+        mma_bf16(o[nd], a, b0, b1);
+        mma_bf16(o[nd + 1], a, b2, b3);
       }
     }
   }

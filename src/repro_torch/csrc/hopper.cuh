@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernel bodies
-// (moe_gmm.cu, flash_attention.cu), in inline PTX:
+// Hopper (sm_90a) building blocks shared by the port's kernel bodies
+// (wgmma: moe_gmm.cu, flash_attention.cu; mma.sync: the mma bodies of those
+// two, decode_attention.cu's split body, ssd_scan.cu's chunked body), in
+// inline PTX:
 //
 // * mbarrier: init, arrive, arrive_expect_tx, and a try_wait.parity loop;
 // * TMA: 2-D to 4-D tile loads (cp.async.bulk.tensor) into 128-byte-swizzled
@@ -8,7 +10,10 @@
 // * wgmma: the shared-memory descriptor for the 128-byte swizzle, fence,
 //   commit_group, wait_group<N>, and m64nNk16 bf16 products with A from
 //   shared memory (SS) or from registers (RS);
-// * setmaxnreg for the producer and consumer warpgroups.
+// * setmaxnreg for the producer and consumer warpgroups;
+// * mma.sync: 16-byte cp.async with zero fill and its groups, ldmatrix x4
+//   (plain and transposed), the m16n8k16 bf16 product with fp32 sums, and
+//   packing two floats into one bf16 pair.
 //
 // Shared tiles.  A TMA box whose inner extent is 64 bf16 (128 bytes) lands
 // as rows of 128 bytes, the 16-byte chunks of row r XOR-ed with r % 8; the
@@ -32,6 +37,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -394,6 +400,51 @@ inline int sm_count() {
       cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
     return 0;
   return n;
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync building blocks
+// ---------------------------------------------------------------------------
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid (gmem
+// is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Waits until at most N of this thread's newest groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8q .. 8q + 7 give the row addresses of matrix q.
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one bf16 pair, lo in the low half (round to nearest even).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace hopper

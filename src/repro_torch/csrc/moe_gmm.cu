@@ -130,39 +130,11 @@ constexpr int NT = 128;    // 4 warps, 2 x 2, each 32 x 64
 constexpr int AS = BK + 8; // row stride of the x slice (elements): a 16-byte pad
 constexpr int WS = BN + 8; // row stride of the w slice
 
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3, const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::ldsm_x4;
+using hopper::ldsm_x4_trans;
+using hopper::mma_bf16;
 
 // VEC: d_in and d_out are whole 16-byte vectors and x, w are 16-byte aligned.
 template <bool VEC>
@@ -226,7 +198,7 @@ __global__ void __launch_bounds__(NT) gmm_bf16_kernel(
       load((kt + 1) & 1, (kt + 1) * BK);  // that stage was consumed in the last pass
     else
       cp_async_commit();  // an empty group, so that "all but the newest" is this slice
-    cp_async_wait_1();
+    hopper::cp_async_wait<1>();
     __syncthreads();
     const __nv_bfloat16* xs = Xs[kt & 1];
     const __nv_bfloat16* ws = Ws[kt & 1];

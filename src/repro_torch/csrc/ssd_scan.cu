@@ -9,48 +9,70 @@
 //     y     = ((C B^T) . G) X + exp(s) * (C S_in^T)
 //     S_out = exp(s_L) * S_in + sum_j exp(s_L - s_j) * dt_j * x_j (x) b_j
 //
-// with padded steps (t >= T) given dt = 0, chunks in sequence, y in x's
-// dtype and the final state (B, H, P, N) in fp32.  Unlike the Pallas
-// kernel, this one takes an initial state (B, H, P, N) fp32, as
-// ssd_chunked_ref does; without one the scan starts from zero.
+// with padded steps (t >= T) given dt = 0, y in x's dtype and the final
+// state (B, H, P, N) in fp32.  Unlike the Pallas kernel, this one takes an
+// initial state (B, H, P, N) fp32, as ssd_chunked_ref does; without one the
+// scan starts from zero.
 //
 // What bounds it: operations, here.  Per chunk and head the function needs
 // L (L + 1) (N + P) + 4 L P N flops (the pairs j <= i of C B^T and of its
 // product with X, then C S_in^T and the state update) against reading x, dt,
 // b, c and writing y once; at mamba2-780m's L = 128, P = 64, N = 128 that is
 // about 75 flops per byte in bf16 and 37 in fp32.  On the tensor cores bf16
-// would be bound by bytes (the ridge is about 295 flops per byte), but this
-// kernel does its arithmetic on the CUDA cores in fp32, whose ridge is 20.
+// is bound by bytes (the ridge is about 295 flops per byte); on the CUDA
+// cores fp32 is bound by operations (ridge 20).
 //
-// What the design does about it: the TPU kernel carries the state across
-// a sequential grid dimension in VMEM scratch.  Hopper's blocks run in no
-// order, so one CTA of 256 threads owns a whole (b, h) and loops over its
-// chunks, with the (P x N) state kept in shared memory from one chunk to
-// the next.  Shared memory is the constraint: staging b, c, x, G and S in
-// fp32 at L = 128, P = 64, N = 128 takes 256 KB, more than the 227 KB a
-// block may use.  So (C B^T) . G is built 32 rows at a time (16 KB instead
-// of 64 KB), and each 32-row block of y is finished before the next: the
-// chunk's B and C (transposed), X, S and one row block take 216 KB.  Only
-// the blocks of C B^T on or below the diagonal are computed.  Each thread
-// computes 4 x 4 (or 4 x 2) output blocks from 16-byte shared loads.
+// Two bodies, chosen by the wrapper (kernels/ssd_scan.py):
 //
-// What it does not do yet: fill the card.  B * H CTAs (96 for mamba2-780m
-// at B = 2) occupy 96 of 132 SMs, one CTA each, and the chunks of one
-// (b, h) run in sequence.  Computing the chunk states in parallel and
-// then running a short inter-chunk pass, and using the tensor cores for
-// the three products, are the next steps.
+// * chunked (the chunked algorithm of the Mamba-2 paper, Dao & Gu 2024,
+//   section 6), three launches:
+//   (a) one CTA per (b, chunk, h): s, and the chunk's own state
+//       S_c = sum_j exp(s_L - s_j) dt_j x_j (x) b_j, written with exp(s_L)
+//       to fp32 scratch (B, n_chunks, H, P, N) and (B, n_chunks, H);
+//   (b) the inter-chunk pass S_in[c + 1] = exp(s_L[c]) S_in[c] + S_c, in
+//       sequence over chunks, in parallel over (b, h) and the P x N state;
+//       it overwrites each S_c with S_in[c] in place and writes the final
+//       state;
+//   (c) one CTA per (b, chunk, h): the whole output of the chunk,
+//       y = ((C B^T) . G) X + exp(s) (C S_in^T), rounded once.
+//   (The diagonal product sits in (c) and not in (a), so that y is
+//   rounded to x's dtype once and no fp32 y goes through device memory.)
+//   bf16: C B^T, ((C B^T) . G) X and C S_in^T run on mma.sync m16n8k16
+//   from ldmatrix with fp32 sums, and so does the state product of (a).
+//   b, c and x are exact in bf16, but w . x (w_j = exp(s_L - s_j) dt_j),
+//   (C B^T) . G and S_in are fp32 values: each goes in as a bf16 high part
+//   and its bf16 rest, two products, so that the state keeps fp32's
+//   accuracy and y bf16's (one rounding to bf16 costs 2^-9 of each term,
+//   which moved y by 0.25 where terms of up to 65 cancel, on mamba2-780m's
+//   shapes).  fp32: the same three launches on the CUDA cores, with the
+//   serial body's per-chunk code.  The scratch is read and written about
+//   four times (a writes, b reads and writes, c reads): 400 MB at
+//   mamba2-780m's B = 2, T = 2048, well above the 46 us bound's bytes;
+//   fusing (b) into (a) with an ordered look-back is the next step.
+//
+// * serial (the first port's body): one CTA of 256 threads owns a whole
+//   (b, h) and loops over its chunks, with the (P x N) state kept in shared
+//   memory from one chunk to the next, all in fp32 on the CUDA cores.
+//   Shared memory is the constraint: staging b, c, x, G and S in fp32 at
+//   L = 128, P = 64, N = 128 takes 256 KB, more than the 227 KB a block may
+//   use, so (C B^T) . G is built 32 rows at a time and each 32-row block of
+//   y is finished before the next (216 KB in all); only the blocks of C B^T
+//   on or below the diagonal are computed.  B * H CTAs (96 for mamba2-780m
+//   at B = 2) occupy 96 of 132 SMs and run their chunks in sequence.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC; bound through a plain C entry point.
+//             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NT = 256;      // threads per CTA
+constexpr int NT = 256;      // threads per CTA of the fp32 code
 constexpr int RB = 32;       // rows of (C B^T) . G built at a time
 constexpr int MS = RB + 4;   // row stride of that block, transposed
 
@@ -84,235 +106,766 @@ template <> struct Vec<__nv_bfloat16> {
 
 __host__ __device__ __forceinline__ int padded(int L) { return (L + 3) & ~3; }
 
+
+// ---------------------------------------------------------------------------
+// fp32 per-chunk work on the CUDA cores (the serial body, and the chunked
+// body's fp32 launches)
+// ---------------------------------------------------------------------------
+// The shared tiles of one chunk.
+struct ChunkSmem {
+  int LP, LS;   // chunk rows padded to whole float4s (the pad has dt = 0); row stride of Bt, Ct
+  float* Ct;    // N x LS: C of the chunk, transposed
+  float* Bt;    // N x LS: B of the chunk, transposed
+  float* Xs;    // LP x P: X of the chunk
+  float* St;    // N x P: the state, transposed
+  float* Mt;    // LP x MS: RB rows of (C B^T) . G, transposed
+  float* sv;    // LP: s = cumsum(a dt), rounded to fp32
+  float* dv;    // LP: dt (0 past T)
+  float* wv;    // LP: exp(s_L - s_j) dt_j
+  float* sl;    // LP: the rest of s (s_diff)
+};
+
+__device__ __forceinline__ ChunkSmem carve(float* smem, int L, int P, int N) {
+  ChunkSmem c;
+  c.LP = padded(L);
+  c.LS = c.LP + 4;
+  c.Ct = smem;
+  c.Bt = c.Ct + N * c.LS;
+  c.Xs = c.Bt + N * c.LS;
+  c.St = c.Xs + c.LP * P;
+  c.Mt = c.St + N * P;
+  c.sv = c.Mt + c.LP * MS;
+  c.dv = c.sv + c.LP;
+  c.wv = c.dv + c.LP;
+  c.sl = c.wv + c.LP;
+  return c;
+}
+
+// Stages dt, B, C (transposed; zeros when cm is null) and X of the chunk
+// starting at step t0.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const ChunkSmem& s, const T* x, const float* dt,
+                                            const T* bm, const T* cm, int Tn, int H, int P,
+                                            int N, int L, int b, int h, int t0) {
+  const int tid = threadIdx.x, LP = s.LP, LS = s.LS;
+  constexpr int VEC = Vec<T>::N;
+  const int nvec = N / VEC, pvec = P / VEC;
+  for (int j = tid; j < LP; j += NT) {
+    const int t = t0 + j;
+    s.dv[j] = (j < L && t < Tn) ? dt[((size_t)b * Tn + t) * H + h] : 0.f;
+  }
+  for (int i = tid; i < LP * nvec; i += NT) {  // rows fastest: conflict-free stores
+    const int j = i % LP, c = (i / LP) * VEC;
+    const int t = t0 + j;
+    float fb[VEC], fc[VEC];
+    if (j < L && t < Tn) {
+      const size_t off = (((size_t)b * Tn + t) * H + h) * N + c;
+      Vec<T>::load(bm + off, fb);
+      if (cm != nullptr) {
+        Vec<T>::load(cm + off, fc);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) fc[e] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) fb[e] = fc[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      s.Bt[(c + e) * LS + j] = fb[e];
+      s.Ct[(c + e) * LS + j] = fc[e];
+    }
+  }
+  for (int i = tid; i < LP * pvec; i += NT) {
+    const int j = i / pvec, c = (i - j * pvec) * VEC;
+    const int t = t0 + j;
+    float f[VEC];
+    if (j < L && t < Tn) {
+      Vec<T>::load(x + (((size_t)b * Tn + t) * H + h) * P + c, f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s.Xs[j * P + c + e] = f[e];
+  }
+}
+
+// s = cumsum(a dt) over LP rows, in fp64: warp 0, each lane a contiguous
+// segment, then a warp scan of the segment totals; s is kept as its fp32
+// rounding sv and the rest sl.  Every body computes s this way.  Over a
+// chunk s reaches a few hundred, where an fp32 s_i - s_j is off by ~1e-5
+// absolute: that moved y by up to 4e-4 at T = 8192, past fp32's tolerance.
+__device__ __forceinline__ void chunk_cumsum(float* sv, float* sl, const float* dv, int LP,
+                                             float ah) {
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    const int seg = (LP + 31) / 32;
+    const int j0 = tid * seg, j1 = min(j0 + seg, LP);
+    double run = 0.0;
+    for (int j = j0; j < j1; ++j) run += (double)ah * dv[j];
+    double incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double up = __shfl_up_sync(0xffffffffu, incl, o);
+      if (tid >= o) incl += up;
+    }
+    double acc = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (tid == 0) acc = 0.0;
+    for (int j = j0; j < j1; ++j) {
+      acc += (double)ah * dv[j];
+      const float hi = (float)acc;
+      sv[j] = hi;
+      sl[j] = (float)(acc - (double)hi);
+    }
+  }
+}
+
+// s_i - s_j from s's two parts: the fp32 difference of the rounded parts is
+// rounded once, and the rests add what the rounding dropped.
+__device__ __forceinline__ float s_diff(const float* sv, const float* sl, int i, int j) {
+  return (sv[i] - sv[j]) + (sl[i] - sl[j]);
+}
+
+// y of the chunk starting at t0: ((C B^T) . G) X + exp(s) (C St^T), in
+// row blocks of RB (s, Ct, Bt, Xs, St staged; ends after a __syncthreads).
+template <typename T>
+__device__ __forceinline__ void chunk_y(const ChunkSmem& s, T* y, int Tn, int H, int P, int N,
+                                        int L, int b, int h, int t0) {
+  const int tid = threadIdx.x, LP = s.LP, LS = s.LS;
+  const float* sv = s.sv;
+  const float* sl = s.sl;
+  const float* dv = s.dv;
+  for (int r0 = 0; r0 < LP; r0 += RB) {
+    const int rows = min(RB, LP - r0);
+    const int jn = r0 + rows;  // columns j <= i < jn
+    const int cg = jn / 4;
+    // Mt[j][i - r0] = (C_i . B_j) * exp(s_i - s_j) * dt_j for j <= i, else 0.
+    for (int mi = tid; mi < (rows / 4) * cg; mi += NT) {
+      const int ig = mi / cg;
+      const int i0 = r0 + ig * 4, j0 = (mi - ig * cg) * 4;
+      float acc[4][4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
+      if (j0 <= i0 + 3) {
+#pragma unroll 4
+        for (int n = 0; n < N; ++n) {
+          const float4 cv = *reinterpret_cast<const float4*>(s.Ct + n * LS + i0);
+          const float4 bv = *reinterpret_cast<const float4*>(s.Bt + n * LS + j0);
+          const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
+          const float ba[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(ca[ii], ba[jj], acc[ii][jj]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int i = i0 + ii;
+          const float g = j <= i ? expf(s_diff(sv, sl, i, j)) * dv[j] : 0.f;
+          s.Mt[j * MS + (i - r0)] = acc[ii][jj] * g;
+        }
+      }
+    }
+    __syncthreads();
+
+    // y rows [r0, r0 + rows): blocks of 4 rows x 2 columns of P.
+    const int pg = P / 2;
+    for (int mi = tid; mi < (rows / 4) * pg; mi += NT) {
+      const int ig = mi / pg;
+      const int i0 = r0 + ig * 4, p0 = (mi - ig * pg) * 2;
+      float intra[4][2], inter[4][2];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) intra[ii][0] = intra[ii][1] = inter[ii][0] = inter[ii][1] = 0.f;
+      const int jend = min(jn, i0 + 4);
+      for (int j = 0; j < jend; ++j) {
+        const float4 mv = *reinterpret_cast<const float4*>(s.Mt + j * MS + ig * 4);
+        const float2 xv = *reinterpret_cast<const float2*>(s.Xs + j * P + p0);
+        const float ma[4] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          intra[ii][0] = fmaf(ma[ii], xv.x, intra[ii][0]);
+          intra[ii][1] = fmaf(ma[ii], xv.y, intra[ii][1]);
+        }
+      }
+#pragma unroll 4
+      for (int n = 0; n < N; ++n) {
+        const float4 cv = *reinterpret_cast<const float4*>(s.Ct + n * LS + i0);
+        const float2 st = *reinterpret_cast<const float2*>(s.St + n * P + p0);
+        const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          inter[ii][0] = fmaf(ca[ii], st.x, inter[ii][0]);
+          inter[ii][1] = fmaf(ca[ii], st.y, inter[ii][1]);
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int i = i0 + ii, t = t0 + i;
+        if (i < L && t < Tn) {
+          const float e = expf(sv[i] + sl[i]);
+          Vec<T>::store2(y + (((size_t)b * Tn + t) * H + h) * P + p0,
+                         intra[ii][0] + e * inter[ii][0], intra[ii][1] + e * inter[ii][1]);
+        }
+      }
+    }
+    __syncthreads();  // Mt is rewritten by the next row block
+  }
+}
+
+// St = decay St + sum_j B_j (x) (X_j w_j): blocks of 4 n x 4 p (wv staged).
+__device__ __forceinline__ void chunk_state(const ChunkSmem& s, float decay, int P, int N) {
+  const int tid = threadIdx.x, LP = s.LP, LS = s.LS;
+  const int pq = P / 4;
+  for (int mi = tid; mi < (N / 4) * pq; mi += NT) {
+    const int n0 = (mi / pq) * 4, p0 = (mi % pq) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) acc[nn][pp] = 0.f;
+    for (int j = 0; j < LP; ++j) {
+      const float4 xv = *reinterpret_cast<const float4*>(s.Xs + j * P + p0);
+      const float w = s.wv[j];
+      const float xw[4] = {xv.x * w, xv.y * w, xv.z * w, xv.w * w};
+      float ba[4];
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) ba[nn] = s.Bt[(n0 + nn) * LS + j];
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) acc[nn][pp] = fmaf(ba[nn], xw[pp], acc[nn][pp]);
+    }
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) {
+        float* st = s.St + (n0 + nn) * P + p0 + pp;
+        *st = decay * *st + acc[nn][pp];
+      }
+  }
+}
+
+// The serial body: one CTA per (b, h), its chunks in sequence.
 template <typename T>
 __global__ void __launch_bounds__(NT) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
     const T* __restrict__ bm, const T* __restrict__ cm, const float* __restrict__ init,
     T* __restrict__ y, float* __restrict__ final_state, int Tn, int H, int P, int N, int L) {
-  const int LP = padded(L);   // chunk rows, padded to whole float4s (the pad has dt = 0)
-  const int LS = LP + 4;      // row stride of the transposed B and C
   extern __shared__ __align__(16) float smem[];
-  float* Ct = smem;                // N x LS: C of the chunk, transposed
-  float* Bt = Ct + N * LS;         // N x LS: B of the chunk, transposed
-  float* Xs = Bt + N * LS;         // LP x P: X of the chunk
-  float* St = Xs + LP * P;         // N x P: the carried state, transposed
-  float* Mt = St + N * P;          // LP x MS: RB rows of (C B^T) . G, transposed
-  float* sv = Mt + LP * MS;        // LP: s = cumsum(a dt)
-  float* dv = sv + LP;             // LP: dt (0 past T)
-  float* wv = dv + LP;             // LP: exp(s_L - s_j) dt_j
-
+  const ChunkSmem s = carve(smem, L, P, N);
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x;
   const float ah = a[h];
   const size_t bh = (size_t)b * H + h;
   for (int i = tid; i < N * P; i += NT) {
     const int n = i / P, p = i - n * P;
-    St[i] = init != nullptr ? init[(bh * P + p) * N + n] : 0.f;
+    s.St[i] = init != nullptr ? init[(bh * P + p) * N + n] : 0.f;
   }
-
-  constexpr int VEC = Vec<T>::N;
-  const int nvec = N / VEC, pvec = P / VEC;
   const int n_chunks = (Tn + L - 1) / L;
   for (int ci = 0; ci < n_chunks; ++ci) {
     const int t0 = ci * L;
     __syncthreads();  // the previous chunk is consumed
-    for (int j = tid; j < LP; j += NT) {
-      const int t = t0 + j;
-      dv[j] = (j < L && t < Tn) ? dt[((size_t)b * Tn + t) * H + h] : 0.f;
-    }
-    for (int i = tid; i < LP * nvec; i += NT) {  // rows fastest: conflict-free stores
-      const int j = i % LP, c = (i / LP) * VEC;
-      const int t = t0 + j;
-      float fb[VEC], fc[VEC];
-      if (j < L && t < Tn) {
-        const size_t off = (((size_t)b * Tn + t) * H + h) * N + c;
-        Vec<T>::load(bm + off, fb);
-        Vec<T>::load(cm + off, fc);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) fb[e] = fc[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        Bt[(c + e) * LS + j] = fb[e];
-        Ct[(c + e) * LS + j] = fc[e];
-      }
-    }
-    for (int i = tid; i < LP * pvec; i += NT) {
-      const int j = i / pvec, c = (i - j * pvec) * VEC;
-      const int t = t0 + j;
-      float f[VEC];
-      if (j < L && t < Tn) {
-        Vec<T>::load(x + (((size_t)b * Tn + t) * H + h) * P + c, f);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) Xs[j * P + c + e] = f[e];
-    }
+    stage_chunk<T>(s, x, dt, bm, cm, Tn, H, P, N, L, b, h, t0);
     __syncthreads();
-
-    // s = cumsum(a dt): warp 0, each lane a contiguous segment, then a
-    // warp scan of the segment totals.
-    if (tid < 32) {
-      const int seg = (LP + 31) / 32;
-      const int j0 = tid * seg, j1 = min(j0 + seg, LP);
-      float run = 0.f;
-      for (int j = j0; j < j1; ++j) {
-        run += ah * dv[j];
-        sv[j] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += up;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      for (int j = j0; j < j1; ++j) sv[j] += excl;
-    }
+    chunk_cumsum(s.sv, s.sl, s.dv, s.LP, ah);
     __syncthreads();
-    const float sL = sv[LP - 1];
-    for (int j = tid; j < LP; j += NT) wv[j] = expf(sL - sv[j]) * dv[j];
-
-    for (int r0 = 0; r0 < LP; r0 += RB) {
-      const int rows = min(RB, LP - r0);
-      const int jn = r0 + rows;  // columns j <= i < jn
-      const int cg = jn / 4;
-      // Mt[j][i - r0] = (C_i . B_j) * exp(s_i - s_j) * dt_j for j <= i, else 0.
-      for (int mi = tid; mi < (rows / 4) * cg; mi += NT) {
-        const int ig = mi / cg;
-        const int i0 = r0 + ig * 4, j0 = (mi - ig * cg) * 4;
-        float acc[4][4];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
-        if (j0 <= i0 + 3) {
-#pragma unroll 4
-          for (int n = 0; n < N; ++n) {
-            const float4 cv = *reinterpret_cast<const float4*>(Ct + n * LS + i0);
-            const float4 bv = *reinterpret_cast<const float4*>(Bt + n * LS + j0);
-            const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
-            const float ba[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-            for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(ca[ii], ba[jj], acc[ii][jj]);
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int j = j0 + jj;
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            const int i = i0 + ii;
-            const float g = j <= i ? expf(sv[i] - sv[j]) * dv[j] : 0.f;
-            Mt[j * MS + (i - r0)] = acc[ii][jj] * g;
-          }
-        }
-      }
-      __syncthreads();
-
-      // y rows [r0, r0 + rows): blocks of 4 rows x 2 columns of P.
-      const int pg = P / 2;
-      for (int mi = tid; mi < (rows / 4) * pg; mi += NT) {
-        const int ig = mi / pg;
-        const int i0 = r0 + ig * 4, p0 = (mi - ig * pg) * 2;
-        float intra[4][2], inter[4][2];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) intra[ii][0] = intra[ii][1] = inter[ii][0] = inter[ii][1] = 0.f;
-        const int jend = min(jn, i0 + 4);
-        for (int j = 0; j < jend; ++j) {
-          const float4 mv = *reinterpret_cast<const float4*>(Mt + j * MS + ig * 4);
-          const float2 xv = *reinterpret_cast<const float2*>(Xs + j * P + p0);
-          const float ma[4] = {mv.x, mv.y, mv.z, mv.w};
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            intra[ii][0] = fmaf(ma[ii], xv.x, intra[ii][0]);
-            intra[ii][1] = fmaf(ma[ii], xv.y, intra[ii][1]);
-          }
-        }
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          const float4 cv = *reinterpret_cast<const float4*>(Ct + n * LS + i0);
-          const float2 st = *reinterpret_cast<const float2*>(St + n * P + p0);
-          const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            inter[ii][0] = fmaf(ca[ii], st.x, inter[ii][0]);
-            inter[ii][1] = fmaf(ca[ii], st.y, inter[ii][1]);
-          }
-        }
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const int i = i0 + ii, t = t0 + i;
-          if (i < L && t < Tn) {
-            const float e = expf(sv[i]);
-            Vec<T>::store2(y + (((size_t)b * Tn + t) * H + h) * P + p0,
-                           intra[ii][0] + e * inter[ii][0], intra[ii][1] + e * inter[ii][1]);
-          }
-        }
-      }
-      __syncthreads();  // Mt is rewritten by the next row block
-    }
-
-    // S_out = exp(s_L) S_in + sum_j B_j (x) (X_j w_j): blocks of 4 n x 4 p.
-    const float decay = expf(sL);
-    const int pq = P / 4;
-    for (int mi = tid; mi < (N / 4) * pq; mi += NT) {
-      const int n0 = (mi / pq) * 4, p0 = (mi % pq) * 4;
-      float acc[4][4];
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-        for (int pp = 0; pp < 4; ++pp) acc[nn][pp] = 0.f;
-      for (int j = 0; j < LP; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + j * P + p0);
-        const float w = wv[j];
-        const float xw[4] = {xv.x * w, xv.y * w, xv.z * w, xv.w * w};
-        float ba[4];
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) ba[nn] = Bt[(n0 + nn) * LS + j];
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-          for (int pp = 0; pp < 4; ++pp) acc[nn][pp] = fmaf(ba[nn], xw[pp], acc[nn][pp]);
-      }
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
-          float* s = St + (n0 + nn) * P + p0 + pp;
-          *s = decay * *s + acc[nn][pp];
-        }
-    }
+    const int jL = s.LP - 1;
+    for (int j = tid; j < s.LP; j += NT) s.wv[j] = expf(s_diff(s.sv, s.sl, jL, j)) * s.dv[j];
+    chunk_y<T>(s, y, Tn, H, P, N, L, b, h, t0);
+    chunk_state(s, expf(s.sv[jL] + s.sl[jL]), P, N);
   }
   __syncthreads();
   for (int i = tid; i < N * P; i += NT) {
     const int p = i / N, n = i - p * N;
-    final_state[(bh * P + p) * N + n] = St[n * P + p];
+    final_state[(bh * P + p) * N + n] = s.St[n * P + p];
   }
 }
 
-// Shared memory (bytes) one CTA takes for chunk L, head dim P, state dim N.
+// Shared memory (bytes) of the fp32 per-chunk tiles for chunk L, head dim P,
+// state dim N.
 size_t smem_bytes(int L, int P, int N) {
   const size_t LP = padded(L);
-  return sizeof(float) * (2 * (size_t)N * (LP + 4) + LP * P + (size_t)N * P + LP * MS + 3 * LP);
+  return sizeof(float) * (2 * (size_t)N * (LP + 4) + LP * P + (size_t)N * P + LP * MS + 4 * LP);
+}
+
+// ---------------------------------------------------------------------------
+// The chunked body
+// ---------------------------------------------------------------------------
+// Scratch layout: states (B, n_chunks, H, P, N) and decays (B, n_chunks, H).
+__device__ __forceinline__ size_t chunk_index(int b, int c, int h, int nc, int H) {
+  return ((size_t)b * nc + c) * H + h;
+}
+
+// (a), fp32: the chunk's own state and exp(s_L).  Grid (H, n_chunks, B).
+template <typename T>
+__global__ void __launch_bounds__(NT) ssd_chunk_state_f32_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const T* __restrict__ bm, float* __restrict__ states, float* __restrict__ decays, int Tn,
+    int H, int P, int N, int L) {
+  extern __shared__ __align__(16) float smem[];
+  const ChunkSmem s = carve(smem, L, P, N);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < N * P; i += NT) s.St[i] = 0.f;
+  stage_chunk<T>(s, x, dt, bm, nullptr, Tn, H, P, N, L, b, h, c * L);
+  __syncthreads();
+  chunk_cumsum(s.sv, s.sl, s.dv, s.LP, a[h]);
+  __syncthreads();
+  const int jL = s.LP - 1;
+  for (int j = tid; j < s.LP; j += NT) s.wv[j] = expf(s_diff(s.sv, s.sl, jL, j)) * s.dv[j];
+  __syncthreads();
+  chunk_state(s, 0.f, P, N);
+  __syncthreads();
+  const size_t ci = chunk_index(b, c, h, nc, H);
+  float* out = states + ci * P * N;
+  for (int i = tid; i < N * P; i += NT) {
+    const int p = i / N, n = i - p * N;
+    out[i] = s.St[n * P + p];
+  }
+  if (tid == 0) decays[ci] = expf(s.sv[jL] + s.sl[jL]);
+}
+
+// (c), fp32: y of the chunk from S_in.  Grid (H, n_chunks, B).
+template <typename T>
+__global__ void __launch_bounds__(NT) ssd_chunk_out_f32_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const T* __restrict__ bm, const T* __restrict__ cm, const float* __restrict__ states,
+    T* __restrict__ y, int Tn, int H, int P, int N, int L) {
+  extern __shared__ __align__(16) float smem[];
+  const ChunkSmem s = carve(smem, L, P, N);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int tid = threadIdx.x;
+  const float* in = states + chunk_index(b, c, h, nc, H) * P * N;
+  for (int i = tid; i < N * P; i += NT) {
+    const int n = i / P, p = i - n * P;
+    s.St[i] = in[(size_t)p * N + n];
+  }
+  stage_chunk<T>(s, x, dt, bm, cm, Tn, H, P, N, L, b, h, c * L);
+  __syncthreads();
+  chunk_cumsum(s.sv, s.sl, s.dv, s.LP, a[h]);
+  __syncthreads();
+  chunk_y<T>(s, y, Tn, H, P, N, L, b, h, c * L);
+}
+
+// bf16 tiles of the chunked body: rows padded to 16 (zeros), columns padded
+// to 16 and then by 8 more elements, a 16-byte pad that keeps ldmatrix free
+// of bank conflicts.
+__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
+
+// Rows [t0, t0 + L) of a (B, T, H, W) bf16 tensor into a (LP x stride) tile
+// by cp.async (the caller commits and waits): zeros past the chunk, past T
+// and past W.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int stride, const __nv_bfloat16* src,
+                                           int W, int WP, int LP, int L, int Tn, int H, int b,
+                                           int h, int t0) {
+  const int nv = WP / 8;
+  for (int i = threadIdx.x; i < LP * nv; i += blockDim.x) {
+    const int j = i / nv, c = (i - j * nv) * 8;
+    const int t = t0 + j;
+    const bool ok = j < L && t < Tn && c < W;
+    hopper::cp_async16(dst + j * stride + c,
+                       ok ? src + (((size_t)b * Tn + t) * H + h) * W + c : src, ok);
+  }
+}
+
+__device__ __forceinline__ void stage_dt(float* dv, const float* dt, int LP, int L, int Tn, int H,
+                                         int b, int h, int t0) {
+  for (int j = threadIdx.x; j < LP; j += blockDim.x) {
+    const int t = t0 + j;
+    dv[j] = (j < L && t < Tn) ? dt[((size_t)b * Tn + t) * H + h] : 0.f;
+  }
+}
+
+constexpr int STATE_THREADS = 256;
+
+// Shared memory (bytes) of (a) and (c) in bf16.
+size_t mma_state_smem(int L, int P, int N) {
+  const size_t LP = round16(L);
+  return 2 * (LP * (round16(N) + 8) + 2 * LP * (round16(P) + 8)) + 4 * 3 * LP;
+}
+size_t mma_out_smem(int L, int PP, int N) {
+  const size_t LP = round16(L), CS = round16(N) + 8;
+  const size_t RR = LP > 2 * (size_t)PP ? LP : 2 * (size_t)PP;
+  return 2 * ((LP + RR) * CS + LP * (PP + 8)) + 4 * 3 * LP;
+}
+
+// (a), bf16: the chunk's own state S_c[p][n] = sum_j u_j[p] b_j[n], u = w . x
+// (w_j = exp(s_L - s_j) dt_j), as two tensor-core products: u's bf16 high
+// part, then its bf16 rest.  Grid (H, n_chunks, B), 8 warps.
+__global__ void __launch_bounds__(STATE_THREADS) ssd_chunk_state_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const __nv_bfloat16* __restrict__ bm, float* __restrict__ states, float* __restrict__ decays,
+    int Tn, int H, int P, int N, int L) {
+  const int LP = round16(L), NP = round16(N), PP = round16(P);
+  const int BS = NP + 8, US = PP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // LP x BS
+  __nv_bfloat16* Uh = Bs + LP * BS;                                 // LP x US: bf16(u)
+  __nv_bfloat16* Ul = Uh + LP * US;                                 // LP x US: bf16(u - Uh)
+  float* sv = reinterpret_cast<float*>(Ul + LP * US);               // LP
+  float* dv = sv + LP;                                              // LP
+  float* sl = dv + LP;                                              // LP
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * L;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
+
+  stage_rows(Bs, BS, bm, N, NP, LP, L, Tn, H, b, h, t0);
+  stage_rows(Uh, US, x, P, PP, LP, L, Tn, H, b, h, t0);  // x, made into u in place below
+  hopper::cp_async_commit();
+  stage_dt(dv, dt, LP, L, Tn, H, b, h, t0);
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(sv, sl, dv, LP, a[h]);
+  __syncthreads();
+  const int jL = LP - 1;
+  const int pv = PP / 8;
+  for (int i = tid; i < LP * pv; i += STATE_THREADS) {
+    const int j = i / pv, c8 = (i - j * pv) * 8;
+    float f[8];
+    Vec<__nv_bfloat16>::load(Uh + j * US + c8, f);
+    const float w = expf(s_diff(sv, sl, jL, j)) * dv[j];
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float u0 = f[2 * e] * w, u1 = f[2 * e + 1] * w;
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(u0, u1);
+      const float2 hf = __bfloat1622float2(hv);
+      hi[e] = *reinterpret_cast<const uint32_t*>(&hv);
+      lo[e] = hopper::pack_bf16(u0 - hf.x, u1 - hf.y);
+    }
+    *reinterpret_cast<uint4*>(Uh + j * US + c8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(Ul + j * US + c8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  __syncthreads();
+
+  // S_c (PP x NP): units of 16 rows of p by 16 columns of n, one per warp at a time.
+  const size_t ci = chunk_index(b, c, h, nc, H);
+  float* out = states + ci * P * N;
+  const int npr = NP / 16;
+  for (int unit = warp; unit < (PP / 16) * npr; unit += STATE_THREADS / 32) {
+    const int mt = unit / npr, np = unit - mt * npr;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int kk = 0; kk < LP / 16; ++kk) {
+      uint32_t ah[4], al[4], b0, b1, b2, b3;
+      const int ua = (kk * 16 + 8 * (lm >> 1) + lr) * US + mt * 16 + 8 * (lm & 1);
+      hopper::ldsm_x4_trans(ah[0], ah[1], ah[2], ah[3], Uh + ua);
+      hopper::ldsm_x4_trans(al[0], al[1], al[2], al[3], Ul + ua);
+      hopper::ldsm_x4_trans(b0, b1, b2, b3, Bs + (kk * 16 + lr + 8 * (lm & 1)) * BS + np * 16 + 8 * (lm >> 1));
+      hopper::mma_bf16(acc[0], ah, b0, b1);
+      hopper::mma_bf16(acc[1], ah, b2, b3);
+      hopper::mma_bf16(acc[0], al, b0, b1);
+      hopper::mma_bf16(acc[1], al, b2, b3);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int p = mt * 16 + g + 8 * hf, n = np * 16 + nt * 8 + 2 * t4;
+        if (p < P && n < N)
+          *reinterpret_cast<float2*>(out + (size_t)p * N + n) =
+              make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+      }
+  }
+  if (tid == 0) decays[ci] = expf(sv[jL] + sl[jL]);
+}
+
+// (c), bf16: y of the chunk.  Warp w takes rows 16w .. 16w + 15: G = C B^T
+// over the column blocks on or below its diagonal, masked and weighted into
+// M = (C B^T) . G, then M X and C S_in^T, all on mma.sync with fp32 sums.
+// M and S_in are fp32 values: each goes in as a bf16 high part and its bf16
+// rest, two products, since one rounding to bf16 (2^-9 of each term) moves
+// y by more than bf16's tolerance where large terms cancel.  S_in comes
+// split so from (b); B's tile is dead once C B^T is formed, so S_in's two
+// parts take its place, loaded by cp.async under M and M X.
+// Grid (H, n_chunks, B), LP / 16 warps.  PP: P padded to 16, 32, 64 or 128.
+template <int PP>
+__global__ void __launch_bounds__(256) ssd_chunk_out_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const __nv_bfloat16* __restrict__ bm, const __nv_bfloat16* __restrict__ cm,
+    const __nv_bfloat16* __restrict__ s_in, __nv_bfloat16* __restrict__ y, int Tn, int H, int P,
+    int N, int L) {
+  constexpr int ND = PP / 8, XS = PP + 8;
+  const int LP = round16(L), NP = round16(N);
+  const int CS = NP + 8;
+  const int RR = max(LP, 2 * PP);  // rows of the region that holds B, then S_in
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // LP x CS
+  __nv_bfloat16* Bs = Cs + LP * CS;                                 // LP x CS, then:
+  __nv_bfloat16* Sh = Bs;                                           //   PP x CS: bf16(S_in)
+  __nv_bfloat16* Sl = Bs + PP * CS;                                 //   PP x CS: bf16(S_in - Sh)
+  __nv_bfloat16* Xs = Bs + RR * CS;                                 // LP x XS
+  float* sv = reinterpret_cast<float*>(Xs + LP * XS);               // LP
+  float* dv = sv + LP;                                              // LP
+  float* sl = dv + LP;                                              // LP
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * L;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
+
+  stage_rows(Cs, CS, cm, N, NP, LP, L, Tn, H, b, h, t0);
+  stage_rows(Bs, CS, bm, N, NP, LP, L, Tn, H, b, h, t0);
+  stage_rows(Xs, XS, x, P, PP, LP, L, Tn, H, b, h, t0);
+  hopper::cp_async_commit();
+  stage_dt(dv, dt, LP, L, Tn, H, b, h, t0);
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(sv, sl, dv, LP, a[h]);
+  __syncthreads();
+
+  const int i0 = warp * 16;
+  const int nj_end = 2 * (warp + 1);  // 8-wide column blocks j < i0 + 16
+  float gm[16][4];
+#pragma unroll
+  for (int nj = 0; nj < 16; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gm[nj][e] = 0.f;
+  for (int kk = 0; kk < NP / 16; ++kk) {
+    uint32_t ac[4];
+    hopper::ldsm_x4(ac[0], ac[1], ac[2], ac[3], Cs + (i0 + lr + 8 * (lm & 1)) * CS + kk * 16 + 8 * (lm >> 1));
+#pragma unroll
+    for (int nj = 0; nj < 16; nj += 2) {
+      if (nj < nj_end) {  // warp-uniform
+        uint32_t b0, b1, b2, b3;
+        hopper::ldsm_x4(b0, b1, b2, b3, Bs + (nj * 8 + lr + 8 * (lm >> 1)) * CS + kk * 16 + 8 * (lm & 1));
+        hopper::mma_bf16(gm[nj], ac, b0, b1);
+        hopper::mma_bf16(gm[nj + 1], ac, b2, b3);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with B: S_in's two parts take its place
+  {
+    const size_t PN = (size_t)P * N;
+    const __nv_bfloat16* hi = s_in + chunk_index(b, c, h, nc, H) * 2 * PN;
+    const int nv = NP / 8;
+    for (int i = tid; i < PP * nv; i += blockDim.x) {
+      const int p = i / nv, c8 = (i - p * nv) * 8;
+      const bool ok = p < P && c8 < N;
+      const size_t off = ok ? (size_t)p * N + c8 : 0;
+      hopper::cp_async16(Sh + p * CS + c8, hi + off, ok);
+      hopper::cp_async16(Sl + p * CS + c8, hi + PN + off, ok);
+    }
+    hopper::cp_async_commit();  // in flight under M and M X
+  }
+
+  // M_ij = (C_i . B_j) exp(s_i - s_j) dt_j for j <= i, else 0
+#pragma unroll
+  for (int nj = 0; nj < 16; ++nj) {
+    if (nj < nj_end) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e >> 1), j = nj * 8 + 2 * t4 + (e & 1);
+        gm[nj][e] = j <= i ? gm[nj][e] * expf(s_diff(sv, sl, i, j)) * dv[j] : 0.f;
+      }
+    }
+  }
+  float yd[ND][4], yo[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yd[nd][e] = yo[nd][e] = 0.f;
+  // M X, over the 16-deep blocks of j up to the diagonal, M in two parts
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk <= warp) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float f0 = gm[2 * kk + (r >> 1)][2 * (r & 1)];
+        const float f1 = gm[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(f0, f1);
+        const float2 hf = __bfloat1622float2(hv);
+        ah[r] = *reinterpret_cast<const uint32_t*>(&hv);
+        al[r] = hopper::pack_bf16(f0 - hf.x, f1 - hf.y);
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t b0, b1, b2, b3;
+        hopper::ldsm_x4_trans(b0, b1, b2, b3, Xs + (kk * 16 + lr + 8 * (lm & 1)) * XS + nd * 8 + 8 * (lm >> 1));
+        hopper::mma_bf16(yd[nd], ah, b0, b1);
+        hopper::mma_bf16(yd[nd + 1], ah, b2, b3);
+        hopper::mma_bf16(yd[nd], al, b0, b1);
+        hopper::mma_bf16(yd[nd + 1], al, b2, b3);
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // S_in's parts are staged
+  // C S_in^T, S_in in two parts
+  for (int kk = 0; kk < NP / 16; ++kk) {
+    uint32_t ac[4];
+    hopper::ldsm_x4(ac[0], ac[1], ac[2], ac[3], Cs + (i0 + lr + 8 * (lm & 1)) * CS + kk * 16 + 8 * (lm >> 1));
+#pragma unroll
+    for (int nd = 0; nd < ND; nd += 2) {
+      const int so = (nd * 8 + lr + 8 * (lm >> 1)) * CS + kk * 16 + 8 * (lm & 1);
+      uint32_t b0, b1, b2, b3;
+      hopper::ldsm_x4(b0, b1, b2, b3, Sh + so);
+      hopper::mma_bf16(yo[nd], ac, b0, b1);
+      hopper::mma_bf16(yo[nd + 1], ac, b2, b3);
+      hopper::ldsm_x4(b0, b1, b2, b3, Sl + so);
+      hopper::mma_bf16(yo[nd], ac, b0, b1);
+      hopper::mma_bf16(yo[nd + 1], ac, b2, b3);
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + g + 8 * hf, t = t0 + i;
+    if (i >= L || t >= Tn) continue;
+    const float e = expf(sv[i] + sl[i]);
+    __nv_bfloat16* yr = y + (((size_t)b * Tn + t) * H + h) * P;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int p = nd * 8 + 2 * t4;
+      if (p < P)
+        Vec<__nv_bfloat16>::store2(yr + p, yd[nd][2 * hf] + e * yo[nd][2 * hf],
+                                   yd[nd][2 * hf + 1] + e * yo[nd][2 * hf + 1]);
+    }
+  }
+}
+
+// (b): S_in[0] = init (or 0), S_in[c + 1] = exp(s_L[c]) S_in[c] + S_c; the
+// last step gives the final state.  S_in[c] goes to s_in: fp32 in place of
+// S_c (s_in == states; fp32 inputs), or as the bf16 high part and the bf16
+// rest of each element, (P N) of each after the other per chunk (bf16
+// inputs: what (c) multiplies by).  Grid (ceil(P N / 256), B H), one
+// thread per state element, the chunks' loads batched ahead of the chain.
+__global__ void __launch_bounds__(256) ssd_state_pass_kernel(
+    const float* states, const float* __restrict__ decays, const float* __restrict__ init,
+    void* s_in, int pairs, float* __restrict__ final_state, int nc, int H, int PN) {
+  constexpr int BATCH = 8;
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  if (idx >= PN) return;
+  float st = init != nullptr ? init[(size_t)bh * PN + idx] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += BATCH) {
+    float sc[BATCH], dc[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (c0 + u < nc) {
+        const size_t ci = chunk_index(b, c0 + u, h, nc, H);
+        sc[u] = states[ci * PN + idx];
+        dc[u] = decays[ci];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (c0 + u < nc) {
+        const size_t ci = chunk_index(b, c0 + u, h, nc, H);
+        if (pairs) {
+          __nv_bfloat16* out = static_cast<__nv_bfloat16*>(s_in) + ci * 2 * PN + idx;
+          const __nv_bfloat16 hi = __float2bfloat16(st);
+          out[0] = hi;
+          out[PN] = __float2bfloat16(st - __bfloat162float(hi));
+        } else {
+          static_cast<float*>(s_in)[ci * PN + idx] = st;
+        }
+        st = dc[u] * st + sc[u];
+      }
+    }
+  }
+  final_state[(size_t)bh * PN + idx] = st;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+int padded_p(int P) { return P <= 16 ? 16 : (P <= 32 ? 32 : (P <= 64 ? 64 : 128)); }
+
+// Shared memory (bytes) the chunked body's largest CTA takes.
+size_t chunked_smem_bytes(int L, int P, int N, int dtype) {
+  if (dtype == 0) return smem_bytes(L, P, N);
+  const size_t sa = mma_state_smem(L, P, N), sc = mma_out_smem(L, padded_p(P), N);
+  return sa > sc ? sa : sc;
+}
+
+template <int PP>
+cudaError_t launch_out_mma(dim3 grid, int threads, size_t smem, const void* x, const float* dt,
+                           const float* a, const void* b, const void* c, const void* s_in,
+                           void* y, int Tn, int H, int P, int N, int L, cudaStream_t s) {
+  auto kernel = ssd_chunk_out_mma_kernel<PP>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), dt, a, static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(c), static_cast<const __nv_bfloat16*>(s_in),
+      static_cast<__nv_bfloat16*>(y), Tn, H, P, N, L);
+  return cudaGetLastError();
+}
+
+// The chunked body: (a), (b), (c) on one stream.
+cudaError_t launch_chunked(const void* x, const float* dt, const float* a, const void* b,
+                           const void* c, const float* init, void* y, float* fs, float* states,
+                           float* decays, void* s_in, int B, int Tn, int H, int P, int N, int L,
+                           int dtype, cudaStream_t s) {
+  const int nc = (Tn + L - 1) / L;
+  const dim3 grid(H, nc, B);
+  cudaError_t e = cudaSuccess;
+  if (nc > 0) {  // (a)
+    if (dtype == 1) {
+      const size_t smem = mma_state_smem(L, P, N);
+      e = set_smem(ssd_chunk_state_mma_kernel, smem);
+      if (e != cudaSuccess) return e;
+      ssd_chunk_state_mma_kernel<<<grid, STATE_THREADS, smem, s>>>(
+          static_cast<const __nv_bfloat16*>(x), dt, a, static_cast<const __nv_bfloat16*>(b),
+          states, decays, Tn, H, P, N, L);
+      e = cudaGetLastError();
+    } else {
+      const size_t smem = smem_bytes(L, P, N);
+      e = set_smem(ssd_chunk_state_f32_kernel<float>, smem);
+      if (e != cudaSuccess) return e;
+      ssd_chunk_state_f32_kernel<float><<<grid, NT, smem, s>>>(
+          static_cast<const float*>(x), dt, a, static_cast<const float*>(b), states, decays, Tn,
+          H, P, N, L);
+      e = cudaGetLastError();
+    }
+    if (e != cudaSuccess) return e;
+  }
+  // (b)
+  const int PN = P * N;
+  ssd_state_pass_kernel<<<dim3((PN + 255) / 256, B * H), 256, 0, s>>>(
+      states, decays, init, dtype == 1 ? s_in : states, dtype == 1, fs, nc, H, PN);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || nc == 0) return e;
+  // (c)
+  if (dtype == 1) {
+    const int pp = padded_p(P);
+    const size_t smem = mma_out_smem(L, pp, N);
+    const int threads = 32 * (round16(L) / 16);
+    switch (pp) {
+      case 16: return launch_out_mma<16>(grid, threads, smem, x, dt, a, b, c, s_in, y, Tn, H, P, N, L, s);
+      case 32: return launch_out_mma<32>(grid, threads, smem, x, dt, a, b, c, s_in, y, Tn, H, P, N, L, s);
+      case 64: return launch_out_mma<64>(grid, threads, smem, x, dt, a, b, c, s_in, y, Tn, H, P, N, L, s);
+      default: return launch_out_mma<128>(grid, threads, smem, x, dt, a, b, c, s_in, y, Tn, H, P, N, L, s);
+    }
+  }
+  const size_t smem = smem_bytes(L, P, N);
+  e = set_smem(ssd_chunk_out_f32_kernel<float>, smem);
+  if (e != cudaSuccess) return e;
+  ssd_chunk_out_f32_kernel<float><<<grid, NT, smem, s>>>(
+      static_cast<const float*>(x), dt, a, static_cast<const float*>(b),
+      static_cast<const float*>(c), states, static_cast<float*>(y), Tn, H, P, N, L);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const float* dt, const float* a, const void* b,
-                   const void* c, const float* init, void* y, float* fs, int B, int Tn,
-                   int H, int P, int N, int L, size_t smem, cudaStream_t stream) {
+cudaError_t launch_serial(const void* x, const float* dt, const float* a, const void* b,
+                          const void* c, const float* init, void* y, float* fs, int B, int Tn,
+                          int H, int P, int N, int L, cudaStream_t stream) {
+  const size_t smem = smem_bytes(L, P, N);
   auto kernel = ssd_scan_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid(H, B);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), dt, a, static_cast<const T*>(b), static_cast<const T*>(c),
@@ -322,33 +875,47 @@ cudaError_t launch(const void* x, const float* dt, const float* a, const void* b
 
 }  // namespace
 
-// Shared memory (bytes) one CTA takes for chunk L, head dim P, state dim N:
-// the wrapper holds it against the card's limit before it launches.
-extern "C" size_t ssd_scan_smem_bytes(int L, int P, int N) { return smem_bytes(L, P, N); }
+// Shared memory (bytes) the largest CTA of a body (0 = serial, 1 =
+// chunked) takes for chunk L, head dim P, state dim N and dtype (0 = fp32,
+// 1 = bf16): the wrapper holds it against the card's limit before it
+// launches.
+extern "C" size_t ssd_scan_smem_bytes(int L, int P, int N, int dtype, int body) {
+  return body == 1 ? chunked_smem_bytes(L, P, N, dtype) : smem_bytes(L, P, N);
+}
 
 // x (B, T, H, P) and b/c (B, T, H, N) of one dtype (0 = fp32, 1 = bf16);
 // dt (B, T, H) and a (H,) fp32; init (B, H, P, N) fp32 or null; outputs
 // y (B, T, H, P) in x's dtype and the final state (B, H, P, N) fp32; all
-// contiguous.  P and N whole numbers of 16-byte vectors; 1 <= L.  Returns a
-// cudaError_t code, 0 on success.
+// contiguous.  P and N whole numbers of 16-byte vectors; 1 <= L.  body: 0 =
+// serial, 1 = chunked (L <= 128, and P <= 128 in bf16), whose scratch is
+// states (B, ceil(T / L), H, P, N) and decays (B, ceil(T / L), H), fp32,
+// and in bf16 s_in, (B, ceil(T / L), H, 2, P, N) bf16 (null in fp32).
+// Returns a cudaError_t code, 0 on success.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a, const void* b,
                                const void* c, const void* init, void* y, void* final_state,
-                               int B, int Tn, int H, int P, int N, int L, int dtype,
-                               void* stream) {
+                               void* states, void* decays, void* s_in, int B, int Tn, int H,
+                               int P, int N, int L, int dtype, int body, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || Tn < 0 || H < 0 || P <= 0 || N <= 0 || L <= 0 || (P * itemsize) % 16 != 0 ||
-      (N * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1))
+      (N * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || (body != 0 && body != 1))
+    return (int)cudaErrorInvalidValue;
+  if (body == 1 && (L > 128 || (dtype == 1 && P > 128) ||
+                    (Tn > 0 && (states == nullptr || decays == nullptr ||
+                                (dtype == 1 && s_in == nullptr)))))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
-  const size_t smem = smem_bytes(L, P, N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
   const float* in = static_cast<const float*>(init);
   float* fs = static_cast<float*>(final_state);
-  cudaError_t e =
-      dtype == 0
-          ? launch<float>(x, dtf, af, b, c, in, y, fs, B, Tn, H, P, N, L, smem, s)
-          : launch<__nv_bfloat16>(x, dtf, af, b, c, in, y, fs, B, Tn, H, P, N, L, smem, s);
+  cudaError_t e;
+  if (body == 1)
+    e = launch_chunked(x, dtf, af, b, c, in, y, fs, static_cast<float*>(states),
+                       static_cast<float*>(decays), s_in, B, Tn, H, P, N, L, dtype, s);
+  else if (dtype == 0)
+    e = launch_serial<float>(x, dtf, af, b, c, in, y, fs, B, Tn, H, P, N, L, s);
+  else
+    e = launch_serial<__nv_bfloat16>(x, dtf, af, b, c, in, y, fs, B, Tn, H, P, N, L, s);
   return (int)e;
 }

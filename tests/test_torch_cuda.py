@@ -25,6 +25,16 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 SSD_TOL = {torch.float32: dict(atol=5e-5, rtol=5e-4), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
+def decode_close(got, want, dtype):
+    """chip_smoke.py's check of a decode-attention output: in bf16 the
+    absolute tolerance is scaled to each output row's largest |want| when
+    that is below 1, so that a split dropped over a long cache, whose rows
+    are small, does not pass."""
+    tol = TOL[dtype]
+    atol = tol * want.abs().amax(dim=-1, keepdim=True).clamp(max=1.0) if dtype == torch.bfloat16 else tol
+    return bool(((got - want).abs() <= atol + tol * want.abs()).all())
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -163,7 +173,10 @@ def test_ssd_smem_fits_mamba2_at_full_width(card):
     memory on this card; L = 256, N = 256 does not, and the wrapper says so."""
     _, smem_bytes = ssd._entry()
     limit = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
-    assert smem_bytes(128, 64, 128) <= limit < smem_bytes(256, 64, 256)
+    serial = ssd.BODIES["serial"]
+    assert smem_bytes(128, 64, 128, 0, serial) <= limit < smem_bytes(256, 64, 256, 0, serial)
+    for dtype in (0, 1):  # the chunked body's largest CTA, fp32 and bf16
+        assert smem_bytes(128, 64, 128, dtype, ssd.BODIES["chunked"]) <= limit
     x = torch.zeros(1, 512, 1, 64, device=card)
     b = torch.zeros(1, 512, 1, 256, device=card)
     before = ssd.launches
@@ -404,3 +417,162 @@ def test_named_wgmma_body_raises_where_it_cannot_take_the_shape(card):
     with pytest.raises(ValueError, match="wgmma"):
         gmm.moe_gmm(x, w, gs, body="wgmma")
     assert (fa.launches, gmm.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the split decode body and the chunked SSD body against the bodies they
+# replace and the plain versions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 112, 128, 192, 256])
+@pytest.mark.parametrize("g", [1, 4, 48])
+def test_decode_split_body_matches_single_body_and_plain(card, g, d, dtype):
+    """KH = 2 and B = 4 over 700 slots give 11 splits of 64 slots; the
+    lengths cover an empty row, one slot, both sides of a split's edge,
+    the edge itself and the whole cache."""
+    b, kh, t = 4, 2, 700
+    assert da.splits_for(b, kh, t) == 11 and da.body_for(dtype, d, g, 11) == "split"
+    per = da.slots_per_split(t, da.splits_for(b, kh, t))
+    gen = torch.Generator(device=card).manual_seed(g * d)
+    q = torch.randn(b, g * kh, d, generator=gen, device=card, dtype=dtype)
+    k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
+    v = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
+    tol = TOL[dtype]
+    for lens in ([0, 1, per - 1, per + 1], [per, 2 * per, t - 1, t]):
+        n = torch.tensor(lens, dtype=torch.int32, device=card)
+        before = (da.launches, da.launches_by_body.get("split", 0),
+                  da.launches_by_body.get("single", 0))
+        new = da.decode_attention(q, k, v, n).float()
+        old = da.decode_attention(q, k, v, n, body="single").float()
+        torch.cuda.synchronize()
+        assert (da.launches, da.launches_by_body["split"], da.launches_by_body["single"]) == (
+            before[0] + 2, before[1] + 1, before[2] + 1)
+        want = da.decode_attention_plain(q, k, v, n).float()
+        torch.testing.assert_close(new, want, atol=tol, rtol=tol)
+        torch.testing.assert_close(new, old, atol=tol, rtol=tol)
+        assert decode_close(new, want, dtype)
+        if lens[0] == 0:
+            assert not new[0].any()  # an empty row gives 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,d,t", [
+    (2, 32, 8, 128, 13),     # NeMo's serving shape: one split, no combine
+    (2, 48, 1, 128, 13),     # granite's: every query row in one CTA
+    (2, 48, 1, 128, 5000),   # many splits, a partial last tile
+    (1, 128, 1, 64, 300),    # 128 query rows per KV head (bf16: one CTA; fp32: single only)
+    (2, 8, 8, 128, 0),       # no slot at all (the plain version takes none): 0
+])
+def test_decode_split_body_at_the_edges(card, b, h, kh, d, t, dtype):
+    """Through the body the wrapper picks and, where it takes the shape
+    and is not that body, through the split body by name."""
+    gen = torch.Generator(device=card).manual_seed(t + h)
+    q = torch.randn(b, h, d, generator=gen, device=card, dtype=dtype)
+    k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
+    v = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
+    n = torch.randint(0, t + 1, (b,), generator=gen, device=card, dtype=torch.int32)
+    found = da.bodies_for(dtype, d, h // kh, da.splits_for(b, kh, t))
+    for body in [None] + [x for x in found[1:] if x == "split"]:
+        got = da.decode_attention(q, k, v, n, body=body).float()
+        torch.cuda.synchronize()
+        if t == 0:
+            assert not got.any()
+            continue
+        want = da.decode_attention_plain(q, k, v, n).float()
+        torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+        assert decode_close(got, want, dtype)
+
+
+def test_decode_never_waits_for_the_card(card):
+    """Neither body reads ``cache_len`` on the host: with PyTorch's sync
+    debug mode set to raise, a call with several splits, one with one split
+    and one through the single body go through."""
+    q = torch.randn(2, 48, 128, device=card, dtype=torch.bfloat16)
+    k = torch.randn(2, 4096, 1, 128, device=card, dtype=torch.bfloat16)
+    n = torch.tensor([4000, 17], dtype=torch.int32, device=card)
+    short = k[:, :13].contiguous()
+    da.decode_attention(q, k, k, n)  # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da.decode_attention(q, k, k, n)
+        da.decode_attention(q, short, short, n)
+        da.decode_attention(q, k, k, n, body="single")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,chunk,with_state", [
+    (2, 2000, 4, 64, 128, 128, False),   # mamba2-780m's P, N and chunk; a partial last chunk
+    (2, 2000, 4, 64, 128, 64, False),    # the ops default chunk
+    (2, 2000, 3, 64, 64, 128, True),     # zamba2's N, from a given state
+    (1, 8192, 8, 64, 128, 128, False),   # a long sequence: s reaches hundreds in a chunk
+    (1, 100, 2, 64, 128, 128, True),     # T < chunk: one chunk
+    (2, 70, 3, 32, 16, 16, True),        # narrow P and N (padded to 16 in bf16)
+    (1, 33, 2, 16, 8, 8, False),
+])
+def test_ssd_chunked_body_matches_serial_body_and_plain(card, b, t, h, p, n, chunk, with_state,
+                                                       dtype):
+    g = torch.Generator(device=card).manual_seed(t + p + n)
+    x = (torch.randn(b, t, h, p, generator=g, device=card) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=g, device=card))
+    a = -torch.exp(torch.randn(h, generator=g, device=card) * 0.3)
+    bb = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    cc = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    init = torch.randn(b, h, p, n, generator=g, device=card) if with_state else None
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert ssd.body_for(dtype, p, n, min(chunk, t), b * h, sms) == "chunked"
+    before = (ssd.launches, ssd.launches_by_body.get("chunked", 0),
+              ssd.launches_by_body.get("serial", 0))
+    y, fs = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init)
+    yo, fso = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init, body="serial")
+    torch.cuda.synchronize()
+    assert (ssd.launches, ssd.launches_by_body["chunked"], ssd.launches_by_body["serial"]) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    ye, fse = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk, initial_state=init)
+    assert y.dtype == dtype and fs.dtype == torch.float32
+    torch.testing.assert_close(y.float(), ye.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(y.float(), yo.float(), **SSD_TOL[dtype])
+    # the state at the fp32 tolerance in both dtypes
+    torch.testing.assert_close(fs, fse, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(fs, fso, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("spare", [True, False])
+def test_ssd_fp32_body_follows_the_cards_sms(card, spare):
+    """fp32 runs the chunked body where the serial body's B·H CTAs would
+    fill at most two thirds of the card's SMs, and the serial body
+    elsewhere; both agree with the plain version."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    b, h = (1, 2 * sms // 3) if spare else (1, 2 * sms // 3 + 1)
+    g = torch.Generator(device=card).manual_seed(h)
+    x = torch.randn(b, 40, h, 16, generator=g, device=card)
+    dt = torch.nn.functional.softplus(torch.randn(b, 40, h, generator=g, device=card))
+    a = -torch.exp(torch.randn(h, generator=g, device=card) * 0.3)
+    bb, cc = (torch.randn(b, 40, h, 8, generator=g, device=card) for _ in range(2))
+    want = "chunked" if spare else "serial"
+    assert ssd.body_for(torch.float32, 16, 8, 16, b * h, sms) == want
+    before = ssd.launches_by_body.get(want, 0)
+    y, fs = ssd.ssd_scan(x, dt, a, bb, cc, chunk=16)
+    torch.cuda.synchronize()
+    assert ssd.launches_by_body[want] == before + 1
+    ye, fse = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=16)
+    torch.testing.assert_close(y, ye, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(fs, fse, **SSD_TOL[torch.float32])
+
+
+def test_named_split_and_chunked_bodies_raise_where_they_cannot_take_the_shape(card):
+    q = torch.zeros(1, 65, 64, device=card)  # fp32 with 65 query rows per KV head
+    k = torch.zeros(1, 16, 1, 64, device=card)
+    n = torch.ones(1, dtype=torch.int32, device=card)
+    x = torch.zeros(1, 512, 1, 64, device=card, dtype=torch.bfloat16)
+    bb = torch.zeros(1, 512, 1, 16, device=card, dtype=torch.bfloat16)
+    dt, a = torch.zeros(1, 512, 1, device=card), torch.zeros(1, device=card)
+    before = (da.launches, ssd.launches)
+    with pytest.raises(ValueError, match="split"):
+        da.decode_attention(q, k, k, n, body="split")
+    with pytest.raises(ValueError, match="chunked"):
+        ssd.ssd_scan(x, dt, a, bb, bb, chunk=256, body="chunked")
+    assert (da.launches, ssd.launches) == before

@@ -605,3 +605,165 @@ def test_library_name_follows_every_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("k") not in (first, second)
     assert _build.sources() == ["k"]  # headers are not kernel sources
+
+
+# ---------------------------------------------------------------------------
+# the split decode body and the chunked SSD body: their choices and their
+# arithmetic, written out in PyTorch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "b,kh,t,splits,slots",
+    [
+        (2, 8, 13, 1, 64),        # NeMo's serving shape: one split, no combine
+        (2, 1, 13, 1, 64),        # granite's
+        (2, 8, 300, 5, 64),       # fewer tiles than the CTAs wanted: one tile each
+        (2, 8, 4096, 16, 256),    # NeMo's long caches: about two CTAs per SM
+        (2, 8, 32768, 17, 1984),
+        (2, 1, 32768, 128, 256),  # granite's
+        (2, 128, 300, 2, 192),    # DeepSeek-V2's MLA: B·KH already fills the card
+        (1, 264, 4096, 1, 4096),  # more CTAs than wanted without splitting
+        (1, 1, 0, 1, 64),         # no slot at all
+    ],
+)
+def test_splits_for(b, kh, t, splits, slots):
+    assert da.splits_for(b, kh, t) == splits
+    assert da.slots_per_split(t, splits) == slots
+    assert slots % da.SPLIT_TILE == 0 and splits * slots >= t
+    assert t == 0 or (splits - 1) * slots < t  # every split holds a valid slot
+
+
+@pytest.mark.parametrize(
+    "dtype,d,g,splits,bodies",
+    [
+        (torch.bfloat16, 128, 4, 1, ("split", "single")),     # NeMo at T = 13
+        (torch.bfloat16, 128, 48, 1, ("split", "single")),    # granite's MQA at T = 13
+        (torch.bfloat16, 192, 1, 2, ("split", "single")),     # MLA's hd + rope dim
+        (torch.bfloat16, 112, 1, 5, ("split", "single")),     # zamba2
+        (torch.bfloat16, 256, 128, 17, ("split", "single")),
+        (torch.bfloat16, 128, 129, 5, ("single",)),           # more rows than one CTA takes
+        (torch.float32, 64, 64, 5, ("split", "single")),
+        (torch.float32, 64, 65, 5, ("single",)),
+        (torch.float32, 128, 48, 1, ("single", "split")),     # fp32, one range: single first
+        (torch.float32, 128, 4, 2, ("split", "single")),      # fp32, two ranges: split first
+        (torch.bfloat16, 264, 4, 1, ()),                      # head dim past 256
+        (torch.bfloat16, 36, 4, 1, ()),                       # no whole 16-byte vectors
+        (torch.float16, 128, 4, 1, ()),
+    ],
+)
+def test_decode_body_for(dtype, d, g, splits, bodies):
+    assert da.bodies_for(dtype, d, g, splits) == bodies
+    if bodies:
+        assert da.body_for(dtype, d, g, splits) == bodies[0]
+    else:
+        with pytest.raises(TypeError):
+            da.body_for(dtype, d, g, splits)
+
+
+@pytest.mark.parametrize(
+    "dtype,p,n,chunk,bh,bodies",
+    [
+        (torch.bfloat16, 64, 128, 128, 96, ("chunked", "serial")),  # mamba2-780m, B = 2
+        (torch.bfloat16, 64, 64, 64, 96, ("chunked", "serial")),    # zamba2's N, the ops chunk
+        (torch.bfloat16, 64, 128, 128, 960, ("chunked", "serial")),  # bf16: B·H does not matter
+        (torch.float32, 64, 128, 128, 96, ("serial", "chunked")),   # fp32: serial fills 96 SMs
+        (torch.float32, 64, 128, 128, 48, ("chunked", "serial")),   # fp32, B = 1: 84 SMs idle
+        (torch.float32, 64, 128, 128, 88, ("chunked", "serial")),   # two thirds of one wave
+        (torch.float32, 64, 128, 128, 89, ("serial", "chunked")),
+        (torch.float32, 64, 128, 128, 144, ("chunked", "serial")),  # B = 3: a second wave of 12
+        (torch.float32, 64, 128, 128, 192, ("serial", "chunked")),  # B = 4: two waves, 73 % full
+        (torch.bfloat16, 64, 128, 256, 96, ("serial",)),            # a chunk past 128
+        (torch.bfloat16, 136, 16, 64, 96, ("serial",)),             # P past 128 in bf16
+        (torch.float32, 136, 16, 64, 8, ("chunked", "serial")),
+        (torch.bfloat16, 12, 16, 64, 96, ()),                       # no whole 16-byte vectors
+        (torch.float16, 64, 128, 128, 96, ()),
+    ],
+)
+def test_ssd_body_for(dtype, p, n, chunk, bh, bodies):
+    sms = 132  # an H100 SXM
+    assert ssd.bodies_for(dtype, p, n, chunk, bh, sms) == bodies
+    if bodies:
+        assert ssd.body_for(dtype, p, n, chunk, bh, sms) == bodies[0]
+    else:
+        with pytest.raises(TypeError):
+            ssd.body_for(dtype, p, n, chunk, bh, sms)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,h,kh,d,t,lens",
+    [
+        (4, 8, 2, 64, 300, [1, 63, 64, 65]),       # one slot; a tile's edge ± 1
+        (3, 48, 1, 128, 200, [200, 129, 7]),       # granite's MQA, ragged across the batch
+        (2, 4, 1, 192, 130, [128, 130]),           # MLA's head dim
+        (2, 8, 8, 112, 97, [97, 33]),              # zamba2's head dim
+    ],
+)
+def test_decode_split_plain_matches_reference(b, h, kh, d, t, lens, dtype):
+    """The partials of 1, 2, 3 and 7 ranges, combined, against the plain
+    version and the JAX package's oracle, for lengths of at least 1."""
+    jx, tx = inputs(11, b, h, kh, d, t, dtype, lens=lens)
+    want_port = f32(da.decode_attention_plain(*tx))
+    want = f32(jref.decode_attention_ref(*jx))
+    for splits in (1, 2, 3, 7):
+        got = f32(da.decode_attention_split_plain(*tx, splits))
+        np.testing.assert_allclose(got, want_port, atol=TOL[dtype], rtol=TOL[dtype])
+        np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_decode_split_plain_gives_zero_for_an_empty_row():
+    """A row of length 0 gives 0, and ranges past a row's length (m = -inf,
+    l = 0) leave the other rows alone."""
+    _, tx = inputs(12, 3, 8, 2, 64, 256, "float32", lens=[0, 65, 256])
+    got = da.decode_attention_split_plain(*tx, 4)
+    assert not got[0].any()
+    torch.testing.assert_close(got, da.decode_attention_plain(*tx), atol=2e-5, rtol=2e-5)
+
+
+def _ssd_steps(tx, chunk, initial_state=None):
+    x, dt, a, b, c = tx
+    states, decays = ssd.ssd_chunk_states_plain(x, dt, a, b, chunk=chunk)
+    s_in, final = ssd.ssd_state_pass_plain(states, decays, initial_state)
+    return ssd.ssd_chunk_out_plain(x, dt, a, b, c, s_in, chunk=chunk), final
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [
+    (2, 200, 3, 16, 8, 64),    # a partial last chunk
+    (1, 40, 2, 32, 16, 64),    # T < chunk: one chunk
+    (2, 128, 2, 16, 8, 128),
+])
+def test_ssd_steps_compose_to_the_reference(b, t, h, p, n, chunk):
+    """The chunked body's three steps, composed, against the port's chunked
+    oracle, the JAX package's sequential oracle and its Pallas kernel in
+    interpret mode (which starts from zero)."""
+    jx, tx = ssd_inputs(13, b, t, h, p, n)
+    y, fs = _ssd_steps(tx, chunk)
+    assert y.dtype == torch.float32 and fs.shape == (b, h, p, n)
+    ye, fse = tref.ssd_chunked_ref(*tx, chunk=chunk)
+    np.testing.assert_allclose(f32(y), f32(ye), **SSD_TOL)
+    np.testing.assert_allclose(f32(fs), f32(fse), **SSD_TOL)
+    for want in (jref.ssd_ref(*jx), pallas_ssd(*jx, chunk=chunk, interpret=True)):
+        np.testing.assert_allclose(f32(y), f32(want[0]), **SSD_TOL)
+        np.testing.assert_allclose(f32(fs), f32(want[1]), **SSD_TOL)
+
+
+def test_ssd_steps_from_an_initial_state():
+    jx, tx = ssd_inputs(14, 2, 150, 3, 16, 8, with_state=True)
+    y, fs = _ssd_steps(tx[:5], 64, initial_state=tx[5])
+    ye, fse = jref.ssd_chunked_ref(*jx[:5], chunk=64, initial_state=jx[5])
+    np.testing.assert_allclose(f32(y), f32(ye), **SSD_TOL)
+    np.testing.assert_allclose(f32(fs), f32(fse), **SSD_TOL)
+
+
+def test_ssd_state_pass_plain_carries_the_states():
+    """S_in[0] is the initial state, S_in[c + 1] = decay[c]·S_in[c] + S_c, and
+    the final state is one step past the last chunk."""
+    rs = np.random.default_rng(15)
+    states = torch.from_numpy(rs.standard_normal((2, 3, 2, 4, 8)).astype(np.float32))
+    decays = torch.from_numpy(rs.uniform(0.1, 1.0, (2, 3, 2)).astype(np.float32))
+    init = torch.from_numpy(rs.standard_normal((2, 2, 4, 8)).astype(np.float32))
+    s_in, final = ssd.ssd_state_pass_plain(states, decays, init)
+    torch.testing.assert_close(s_in[:, 0], init)
+    for c in range(2):
+        torch.testing.assert_close(s_in[:, c + 1],
+                                   decays[:, c, :, None, None] * s_in[:, c] + states[:, c])
+    torch.testing.assert_close(final, decays[:, 2, :, None, None] * s_in[:, 2] + states[:, 2])
