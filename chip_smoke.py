@@ -17,7 +17,8 @@ any phase fails.  Phases:
    below 1), through the body each wrapper
    picks, with its time beside the plain version's, one PyTorch library
    call's and the least time the card could take (its bound): decode
-   attention (2), flash attention (2b), the SSD scan (2c) and the MoE
+   attention (2), flash attention (2b), the SSD scan (2c; mamba2's and
+   zamba2's heads) and the MoE
    grouped matmul (2d, group sizes from a seeded router's top-k at
    Qwen3-MoE's and DeepSeek-V2's prefill and decode).  At the main shapes
    the new body and the body it replaced are timed in turns (new, old,
@@ -50,11 +51,30 @@ any phase fails.  Phases:
    decode from one cache;
 3d. the same for DeepSeek-V2 (MLA, shared experts) at full width with its
    depth cut to 4 layers;
+3e. zamba2-7b (hybrid) at full width and depth: ``make_prefill_step`` at
+   B = 2, S = 2048 and at B = 1, S = 8192 (the shared block's 4,096-key
+   window cuts into the band), each twice with its launches by body (flash
+   on mma, as D = 112 is no wgmma head dim; the SSD scan on chunked), the
+   loss, the logits kernel path against plain path (the last position's
+   within ``LOGIT_BOUND``, the argmax equal at ``ARGMAX_SHARE`` of all
+   positions), and the device's busy share; one serving task; 16 decode steps from a shared
+   block ring seeded with random K/V at a ``pos`` past the window, kernel
+   path against plain path, with every attention call held to phase 2's
+   check; a decode profile;
+3f. whisper-medium (audio) at full width and depth: the same prefill over
+   1,500 stub frames and a 448-token text context (every flash launch, the
+   encoder's included, on wgmma), decode from a cross-attention cache
+   seeded from the encoder (every self- and cross-attention call held to
+   phase 2's check), one serving task, a decode profile;
+3g. qwen2-vl-72b (VLM, M-RoPE) at full width with its depth cut to 32
+   layers: the same prefill over 1,024 vision embeddings and 2,048 tokens,
+   decode steps, one serving task, a decode profile;
 4. the reduced fp32 serve example, kernel path against plain path: equal
    assignments and tokens.
 
 It prints, in order: the card line, per-phase results, one JSON line with
-every kernel's numbers, and last ``{"ok": true, "device": {...}}``.
+every kernel's numbers (with the shapes phases 3e-3g gave it and its
+launches there), and last ``{"ok": true, "device": {...}}``.
 ``--out DIR`` also writes every measurement and nvcc's ptxas report there.
 """
 
@@ -86,13 +106,36 @@ SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock: covers the host's enq
 # 9e-2 there: 40 bf16 layers of random weights amplify one-ulp differences
 # in an attention output that much (PERF.md), so 2e-2 cannot hold.
 LOGIT_BOUND = 0.1
+# Phases 3e-3g hold the argmax over every position (prefill) or every
+# decoded row, not at the last position alone: over random bf16 weights
+# 5-15 % of positions pick another token on the kernel path than on the
+# plain path, about as many as the plain path against an fp32 evaluation of
+# the same weights, and zamba2's last position flips by two bf16 ulps
+# (tools/logit_agreement.py; PERF.md §6).  The share of positions that
+# agree must reach ARGMAX_SHARE, the midpoint of the lowest share of the
+# sound kernel path (qwen2-vl's decode, 0.8125) and the highest share below
+# it of the faults that ``tools/logit_agreement.py --plant`` plants in flash
+# and decode attention (whisper's flash fault, 0.7969), on an H100.  A
+# decode fault that drops one slot of thousands reads above it; phase 2's
+# check on every attention call (``checked_attention``) catches that.
+ARGMAX_SHARE = 0.8
+# decode steps of phases 3e-3g held kernel path against plain path
+DECODE_STEPS = 16
 MAIN_SHAPE = dict(model="mistral-nemo-12b", b=2, h=32, kh=8, d=128, t=13, dtype="bfloat16")
 # the serving run's other decode shape: granite's MQA (48 query heads on one KV head)
 GRANITE_SHAPE = dict(model="granite-20b", b=2, h=48, kh=1, d=128, t=13, dtype="bfloat16")
 # the prefill phase's shapes: B = 2, S = 2048, bf16
 PREFILL_B, PREFILL_S = 2, 2048
 FLASH_MAIN = dict(model="mistral-nemo-12b", b=PREFILL_B, s=PREFILL_S, case="causal", dtype="bfloat16")
-SSD_MAIN = dict(b=PREFILL_B, t=PREFILL_S, dtype="bfloat16")
+SSD_MAIN = dict(model="mamba2-780m", b=PREFILL_B, t=PREFILL_S, dtype="bfloat16")
+# the hybrid, VLM and audio prefills (phases 3e-3g): whisper's decoder over
+# its whole 448-token text context beside 1,500 encoder frames; qwen2-vl
+# over 1,024 vision embeddings (a 32 x 32 grid) and 2,048 tokens; zamba2 at
+# PREFILL_B x PREFILL_S and at one 8,192-token sequence, where its shared
+# block's 4,096-key window cuts into the band
+WHISPER_S = 448
+VLM_VISION = 1024
+ZAMBA_LONG_S = 8192
 # Qwen3-MoE's prefill: B·S·top_k = 32768 rows over 128 experts, 2048 -> 768
 GMM_MAIN = dict(model="qwen3 prefill", d_in=2048, d_out=768, dtype="bfloat16")
 # what phase 3 hands to phase 3b: the hosted models and NeMo's prompt and logits
@@ -297,11 +340,16 @@ def library_call(q, k, v, lens):
 
 
 # phase 2's decode shapes: (model, B, H, KH, D) at each T, then the zoo's
-# other head dims: whisper 64, zamba2 112, MLA 192 (hd + rope)
+# other head dims: whisper 64, zamba2 112, MLA 192 (hd + rope); then the
+# hybrid, VLM and audio paths' long shapes: whisper's cross-attention over
+# 1,500 encoder frames, zamba2's full 4,096-slot ring, qwen2-vl after a
+# 3,072-token prefill
 DECODE_MODELS = {"mistral-nemo-12b": (2, 32, 8, 128), "granite-20b": (2, 48, 1, 128)}
 DECODE_SHAPES = ([(m, *s, t) for m, s in DECODE_MODELS.items() for t in (13, 300, 4096, 32768)]
                  + [("whisper-medium", 2, 16, 16, 64, 300), ("zamba2-7b", 2, 32, 32, 112, 300),
-                    ("deepseek-v2-236b", 2, 128, 128, 192, 300)])
+                    ("deepseek-v2-236b", 2, 128, 128, 192, 300),
+                    ("whisper-medium", 2, 16, 16, 64, 1500), ("zamba2-7b", 2, 32, 32, 112, 4096),
+                    ("qwen2-vl-72b", 2, 64, 8, 128, 3072)])
 
 
 def decode_inputs(gen, dev):
@@ -464,6 +512,18 @@ def flash_vs_plain():
         ("whisper-medium", 2, 1024, 1024, 16, 16, 64, "causal", True, None, 0),
         ("zamba2-7b", 2, 1024, 1024, 32, 32, 112, "causal", True, None, 0),
         ("deepseek-v2-236b", 2, 1024, 1024, 128, 128, 192, "causal", True, None, 0),
+        # the hybrid, VLM and audio prefills: whisper's encoder and its
+        # decoder's cross-attention over 1,500 frames (bidirectional),
+        # zamba2's shared block (D = 112 on the mma body) with its 4,096-key
+        # window, at S = 2048 and where the window cuts into the band, and
+        # qwen2-vl over 1,024 vision embeddings and 2,048 tokens
+        ("whisper-medium", 2, 1500, 1500, 16, 16, 64, "encoder", False, None, 0),
+        ("whisper-medium", 2, WHISPER_S, 1500, 16, 16, 64, "cross", False, None, 0),
+        # the decoder's own text: 448 = 3.5 tiles, its causal diagonal tile ends part-way
+        ("whisper-medium", 2, WHISPER_S, WHISPER_S, 16, 16, 64, "causal", True, None, 0),
+        ("zamba2-7b", 2, 2048, 2048, 32, 32, 112, "window 4096", True, 4096, 0),
+        ("zamba2-7b", 1, 8192, 8192, 32, 32, 112, "window 4096", True, 4096, 0),
+        ("qwen2-vl-72b", 2, 3072, 3072, 64, 8, 128, "causal", True, None, 0),
     ]
     # the main shapes, where the wgmma body is timed against the mma body
     main = {(FLASH_MAIN["model"], FLASH_MAIN["s"], FLASH_MAIN["case"]),
@@ -549,16 +609,19 @@ def ssd_vs_plain():
     dev = torch.device("cuda")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
-    cfg = ARCHS["mamba2-780m"]
-    h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     both = ("float32", "bfloat16")
-    # B = 1, 3 and 4 in fp32: the serial body's B·H CTAs fill 36 %, 55 % and
-    # 73 % of the SM waves they take, against B = 2's 73 %: both sides of
-    # fp32's choice (bf16's does not depend on B)
+    # mamba2-780m at B = 1, 3 and 4 in fp32: the serial body's B·H CTAs fill
+    # 36 %, 55 % and 73 % of the SM waves they take, against B = 2's 73 %:
+    # both sides of fp32's choice (bf16's does not depend on B); then
+    # zamba2's heads (H = 112, P = N = 64) at its two prefill shapes
     rows = []
-    for b, t, dtypes in ((2, 2048, both), (2, 8192, both), (2, 2000, both),
-                         *((b, 8192, ("float32",)) for b in (1, 3, 4))):
+    for model, b, t, dtypes in (("mamba2-780m", 2, 2048, both), ("mamba2-780m", 2, 8192, both),
+                                ("mamba2-780m", 2, 2000, both),
+                                *(("mamba2-780m", b, 8192, ("float32",)) for b in (1, 3, 4)),
+                                ("zamba2-7b", 2, 2048, both), ("zamba2-7b", 1, 8192, both)):
+        cfg = ARCHS[model]
+        h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
         for dtype in dtypes:
             tdt = getattr(torch, dtype)
             x = (torch.randn(b, t, h, p, generator=gen, device=dev) * 0.5).to(tdt)
@@ -574,12 +637,13 @@ def ssd_vs_plain():
             state_err = float((fs - fse).abs().max())
             if not (torch.allclose(y.float(), ye.float(), **SSD_TOL[dtype])
                     and torch.allclose(fs, fse, **SSD_TOL["float32"])):
-                raise AssertionError(f"ssd {dtype} T={t}: max err y {err}, state {state_err} "
+                raise AssertionError(f"ssd {model} {dtype} B={b} T={t}: max err y {err}, "
+                                     f"state {state_err} "
                                      f"outside {SSD_TOL[dtype]}")
             bound_ms, nbytes, flops, bound_by = ssd_bound(b, t, h, p, n, chunk, dtype,
                                                           x.element_size())
             ctas = b * h * -(-t // chunk) if body == "chunked" else b * h
-            row = dict(model="mamba2-780m", b=b, t=t, h=h, p=p, n=n, chunk=chunk, dtype=dtype,
+            row = dict(model=model, b=b, t=t, h=h, p=p, n=n, chunk=chunk, dtype=dtype,
                        body=body, max_abs_err=err, state_err=state_err, bound_ms=bound_ms,
                        bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=None, ctas=ctas,
                        old_body_ms=None)
@@ -601,7 +665,7 @@ def ssd_vs_plain():
                      f"serial {row['old_body_ms']:.4f} ms in turns) "
                      f"plain={row['plain_ms']:.4f} ms {row['kernel_tflops']:.2f} TFLOP/s"
                      if "kernel_ms" in row else "not timed")
-            print(f"mamba2-780m        {dtype:8s} B={b} T={t:5d} H={h} P={p} N={n} L={chunk} "
+            print(f"{model:18s} {dtype:8s} B={b} T={t:5d} H={h} P={p} N={n} L={chunk} "
                   f"{body} err y={err:.2e} state={state_err:.2e} {times} library=- "
                   f"bound={bound_ms:.4f} ms ({bound_by}) ctas={ctas}", flush=True)
             del x, dt, bb, cc, y, fs, ye, fse
@@ -939,7 +1003,7 @@ def long_context_decode(nemo, dev, compare, steps=4):
             launches, by_body = da.launches, dict(da.launches_by_body)
     if not all(bool(torch.isfinite(x).all()) for x in logits.values()):
         raise AssertionError("long-context decode: non-finite logits")
-    calls = checked_attention(nemo, cache, tokens, start)
+    calls = checked_attention(nemo.params, nemo.cfg, cache, tokens, start)
     cmp = compare(f"logits after {steps} steps from a {LONG_CONTEXT}-slot cache", "auto",
                   "ref_grouped", logits["auto"], logits["ref_grouped"])
     for impl in ("auto", "ref_grouped"):
@@ -962,7 +1026,7 @@ def long_context_decode(nemo, dev, compare, steps=4):
     return out
 
 
-def checked_attention(nemo, cache, tokens, start):
+def checked_attention(params, cfg, cache, tokens, start, what="long-context"):
     """The kernel path's steps once more from ``start``, with every decode
     attention call held against the plain version on its own inputs by
     phase 2's check (``decode_close``): the logits alone cannot show a
@@ -991,11 +1055,11 @@ def checked_attention(nemo, cache, tokens, start):
     da.decode_attention = checked
     try:
         for i in range(tokens.shape[0]):
-            decode_step(nemo.params, cache, tokens[i], nemo.cfg, impl="auto")
+            decode_step(params, cache, tokens[i], cfg, impl="auto")
     finally:
         da.decode_attention = real
     torch.cuda.synchronize()
-    print(f"long-context attention calls held to phase 2's check: {seen}", flush=True)
+    print(f"{what} attention calls held to phase 2's check: {seen}", flush=True)
     return seen
 
 
@@ -1207,6 +1271,22 @@ def flips(a, b):
     return [int((x != y).any(dim=-1).sum()) for x, y in zip(a.calls, b.calls)]
 
 
+def argmax_share(x, y):
+    """Share of rows (the last axis is the vocabulary) at which the two
+    logits pick the same token: x's argmax is one of y's largest logits or
+    y's one of x's (an exact tie makes argmax's first-index pick arbitrary)."""
+    ax, ay = x.argmax(-1, keepdim=True), y.argmax(-1, keepdim=True)
+    same = (y.gather(-1, ax) == y.gather(-1, ay)) | (x.gather(-1, ay) == x.gather(-1, ax))
+    return float(same.float().mean())
+
+
+def top2(x):
+    """The two largest logits of each row of ``x`` (B, V), as (token, logit)
+    pairs: what decides a flip of one row's argmax."""
+    vals, idx = x.float().topk(2, dim=-1)
+    return [[(int(i), float(v)) for i, v in zip(ri, rv)] for ri, rv in zip(idx, vals)]
+
+
 def compare_logits(what, x, y):
     err, scale = float((x - y).abs().max()), float(y.abs().max())
     same = bool((x.argmax(-1) == y.argmax(-1)).all())
@@ -1229,32 +1309,30 @@ def counts_zeroed():
 
 
 def bodies():
-    """Launches by body since ``counts_zeroed``, of the two kernels that have
-    more than one body."""
+    """Launches by body of each kernel since ``counts_zeroed``."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssd_scan as ssd
 
-    return dict(flash_attention=dict(fa.launches_by_body), moe_gmm=dict(gmm.launches_by_body))
-
-
-def on_wgmma(launches):
-    """What ``bodies`` reads when every flash and moe_gmm launch of a run
-    with these ``launches`` went through the wgmma bodies."""
-    return {k: {"wgmma": launches[k]} if launches[k] else {}
-            for k in ("flash_attention", "moe_gmm")}
+    return {name: dict(mod.launches_by_body) for name, mod in (
+        ("decode_attention", da), ("flash_attention", fa), ("ssd_scan", ssd), ("moe_gmm", gmm))}
 
 
-def moe_full_width(name, layers=None, reason=None):
-    """Prefill (twice, with launch counts), the loss, the kernel path against
-    the plain path (whole model and one MoE layer), one serving task, and
-    sorted against scan decode on one cache, for the MoE model ``name``."""
-    import numpy as np
+def on_bodies(launches, **body):
+    """What ``bodies`` reads when every launch of a run with these
+    ``launches`` went through the body named for its kernel."""
+    return {k: {body[k]: n} if n else {} for k, n in launches.items()}
+
+
+def load_full_width(name, layers=None, reason=None):
+    """Release the earlier phase's models, then the zoo's ``name`` at full
+    width in bf16, with its depth cut to ``layers`` where given (printed,
+    with ``reason``), its weights from a ``torch.Generator`` seed.  Returns
+    (cfg, params, the phase's output dict)."""
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.models import decode_step, forward, init_cache, init_params, next_token_loss
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.serving import ExecutionEngine, HostedModel
-    from repro_torch.training import make_prefill_step
+    from repro_torch.models import init_params
 
     release_models()
     dev = torch.device("cuda")
@@ -1269,34 +1347,37 @@ def moe_full_width(name, layers=None, reason=None):
     out = dict(model=name, layers=cfg.n_layers, bytes=size, init_s=time.perf_counter() - t0)
     print(f"{name}: {cfg.n_layers} layers, {size / 1e9:.2f} GB bf16, weights initialised in "
           f"{out['init_s']:.1f} s", flush=True)
+    return cfg, params, out
+
+
+def moe_full_width(name, layers=None, reason=None):
+    """Prefill (twice, with launch counts), the loss, the kernel path against
+    the plain path (whole model and one MoE layer), one serving task, and
+    sorted against scan decode on one cache, for the MoE model ``name``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward, init_cache, next_token_loss
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import ExecutionEngine, HostedModel
+    from repro_torch.training import make_prefill_step
+
+    dev = torch.device("cuda")
+    cfg, params, out = load_full_width(name, layers, reason)
     gen = torch.Generator(device=dev).manual_seed(5)
     batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
                                      device=dev)}
     n = cfg.n_layers
 
-    # 1. prefill, the main path: counts set to 0 just before, read just after
-    step = make_prefill_step(cfg, device=dev)
-    calls, walls = 2, []
-    torch.cuda.reset_peak_memory_stats()
-    read = counts_zeroed()
-    for _ in range(calls):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        logits = step(params, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
-    launches = read()
-    by_body = bodies()
+    # 1. prefill, the main path
+    calls = 2
+    logits, walls, launches, by_body, peak = timed_prefill(cfg, params, batch, calls)
+    del logits
     want = dict(decode_attention=0, flash_attention=n * calls, ssd_scan=0,
                 moe_gmm=3 * n * calls)
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{name}: non-finite prefill logits")
-    del logits
     tokens = PREFILL_B * PREFILL_S
     out.update(prefill_wall_s=walls, prefill_tokens_per_s=[tokens / w for w in walls],
                prefill_launches=launches, prefill_expected_launches=want,
-               prefill_launches_by_body=by_body,
-               prefill_peak_bytes=torch.cuda.max_memory_allocated())
+               prefill_launches_by_body=by_body, prefill_peak_bytes=peak)
     print(f"{name} prefill B={PREFILL_B} S={PREFILL_S}: wall "
           f"{', '.join(f'{w:.3f}' for w in walls)} s, "
           f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; launches {launches} "
@@ -1304,7 +1385,7 @@ def moe_full_width(name, layers=None, reason=None):
           f"{out['prefill_peak_bytes'] / 1e9:.2f} GB", flush=True)
     if launches != want:
         raise AssertionError(f"{name}: prefill launches {launches}, expected {want}")
-    if by_body != on_wgmma(want):
+    if by_body != on_bodies(want, flash_attention="wgmma", moe_gmm="wgmma"):
         raise AssertionError(f"{name}: prefill launches by body {by_body}, expected all on wgmma")
     loss = float(next_token_loss(params, batch, cfg))
     out["loss"] = loss
@@ -1428,6 +1509,396 @@ def deepseek_v2_cut_depth():
 
 
 # ---------------------------------------------------------------------------
+# phases 3e-3g: the hybrid, audio and VLM families at full width
+# ---------------------------------------------------------------------------
+def timed_prefill(cfg, params, batch, calls=2):
+    """``make_prefill_step`` over ``batch``, ``calls`` times: the main path,
+    with the counts set to 0 just before and read just after.  Returns the
+    last call's logits, the wall times, the launches, the launches by body
+    and the peak device memory."""
+    import torch
+    from repro_torch.training import make_prefill_step
+
+    step = make_prefill_step(cfg, device=torch.device("cuda"))
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    read = counts_zeroed()
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches, by_body = read(), bodies()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    return logits, walls, launches, by_body, torch.cuda.max_memory_allocated()
+
+
+def prefill_checks(cfg, params, batch, what, want, **body):
+    """The prefill of phases 3e-3g: ``timed_prefill`` with its launches
+    (and by body) held to ``want``; the loss; the kernel path against the
+    plain path (``ref_chunked``): the last position's logits within
+    ``LOGIT_BOUND`` and the argmax equal at ``ARGMAX_SHARE`` of all
+    positions (the last position's agreement and top two logits printed
+    beside it); and the device's busy share over one more call, by the
+    profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.models import next_token_loss
+    from repro_torch.training import make_prefill_step
+
+    dev = torch.device("cuda")
+    logits, walls, launches, by_body, peak = timed_prefill(cfg, params, batch)
+    tokens = int(np.prod(batch["tokens"].shape))
+    print(f"{cfg.name} prefill {what}: wall {', '.join(f'{w:.3f}' for w in walls)} s, "
+          f"{', '.join(f'{tokens / w:.0f}' for w in walls)} tokens/s; launches {launches} "
+          f"(expected {want}); by body {by_body}; peak {peak / 1e9:.2f} GB", flush=True)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: prefill launches {launches}, expected {want}")
+    if by_body != on_bodies(want, **body):
+        raise AssertionError(f"{cfg.name}: prefill launches by body {by_body}, expected {body}")
+    loss = float(next_token_loss(params, batch, cfg))
+    print(f"{cfg.name}: next_token_loss {loss:.4f}", flush=True)
+    if not np.isfinite(loss):
+        raise AssertionError(f"{cfg.name}: non-finite loss")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = make_prefill_step(cfg, impl="ref_chunked", device=dev)(params, batch)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    cmp = compare_logits(f"{cfg.name} prefill {what}, last-position logits, kernel vs plain",
+                         logits[:, -1].float(), plain[:, -1].float())
+    cmp.update(argmax_agreement(logits, plain, logits[:, -1], plain[:, -1]))
+    del logits, plain
+    print(f"  argmax equal at {cmp['argmax_share']:.4f} of {tokens} positions, kernel vs plain; "
+          f"at the last position (ties equal) {cmp['last_agrees']}, top two kernel "
+          f"{cmp['last_top2'][0]} plain {cmp['last_top2'][1]}", flush=True)
+    if cmp["ratio"] > LOGIT_BOUND or cmp["argmax_share"] < ARGMAX_SHARE:
+        raise AssertionError(f"{cfg.name} prefill {what}: kernel and plain path disagree")
+    step = make_prefill_step(cfg, device=dev)
+    busy = profile_call(lambda: step(params, batch), f"one {cfg.name} prefill {what}")
+    return dict(wall_s=walls, tokens_per_s=[tokens / w for w in walls], launches=launches,
+                expected_launches=want, launches_by_body=by_body, peak_bytes=peak, loss=loss,
+                plain_wall_s=plain_wall, kernel_vs_plain=cmp, profile=busy)
+
+
+def argmax_agreement(x, y, x_last, y_last):
+    """The argmax of logits ``x`` against ``y`` (the last axis is the
+    vocabulary): the share of all rows that agree, and for the last
+    position's or step's rows ``x_last``, ``y_last`` (B, V) each row's
+    agreement and the top two logits of each side (ties count as agreement
+    throughout)."""
+    return dict(argmax_share=argmax_share(x, y),
+                last_agrees=[argmax_share(a, b) == 1.0 for a, b in zip(x_last, y_last)],
+                last_top2=(top2(x_last), top2(y_last)))
+
+
+def profile_call(fn, what):
+    """Device time of one call of ``fn`` (the profiler's device events)
+    against its wall time, which ends in a synchronise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(
+        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"profile of {what}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms wall "
+          f"({100 * device_ms / wall_ms:.1f} %)", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms)
+
+
+def serve_task(cfg, params, prompt, want_decode):
+    """One ``ExecutionEngine.run_task`` (a 64-token prompt, 6 tokens): the
+    main path of serving, with its launches read around it and held to
+    ``want_decode`` decode launches, every one on the split body."""
+    import torch
+    from repro_torch.serving import ExecutionEngine, HostedModel
+
+    dev = torch.device("cuda")
+    hosted = HostedModel(0, cfg, params, dev)
+    engine = ExecutionEngine({0: hosted}, decode_tokens=6, device=dev)
+    read = counts_zeroed()
+    generated, wall = engine.run_task(0, prompt)
+    launches, by_body = read(), bodies()
+    steps = prompt.shape[1] + 6
+    print(f"{cfg.name} serving task (B=2, {prompt.shape[1]}-token prompt, 6 tokens): "
+          f"{wall:.3f} s, {wall / steps * 1e3:.2f} ms per decode step; launches {launches}; "
+          f"by body {by_body}", flush=True)
+    want = dict(decode_attention=want_decode, flash_attention=0, ssd_scan=0, moe_gmm=0)
+    if launches != want or by_body != on_bodies(want, decode_attention="split"):
+        raise AssertionError(f"{cfg.name}: serving launches {launches} ({by_body}), "
+                             f"expected {want}")
+    return hosted, dict(wall_s=wall, step_ms=wall / steps * 1e3, launches=launches,
+                        by_body=by_body, tokens=generated.tolist())
+
+
+def decode_logits(cfg, params, cache, tokens, start, impl):
+    """``tokens.shape[0]`` decode steps on ``impl``'s path from a copy of
+    ``cache`` at ``pos`` = start: the logits (steps, B, V) in fp32 and the
+    host's ms per step."""
+    import torch
+    from repro_torch.models import decode_step
+
+    c = {k: v.clone() for k, v in cache.items()}
+    c["pos"].fill_(start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for i in range(tokens.shape[0]):
+        out, c = decode_step(params, c, tokens[i], cfg, impl=impl)
+        outs.append(out)
+    torch.cuda.synchronize()
+    return torch.stack(outs).float(), (time.perf_counter() - t0) / tokens.shape[0] * 1e3
+
+
+def decode_kernel_vs_plain(cfg, params, cache, tokens, start, want_decode):
+    """``tokens.shape[0]`` decode steps from ``cache`` at ``pos`` = start on
+    the kernel path and on the plain path, each from its own copy of the
+    cache, after one untimed step on each (the first call at these shapes
+    warms cuBLAS and the allocator), in turns (kernel, plain, plain,
+    kernel): step times, the kernel path's launches (held to
+    ``want_decode``, all on the split body), the logits compared (the last
+    step's within ``LOGIT_BOUND``, the argmax equal at ``ARGMAX_SHARE`` of
+    every step's rows); then every attention call of one more kernel pass
+    held to ``decode_close``."""
+    steps = tokens.shape[0]
+    for impl in ("auto", "ref_grouped"):
+        decode_logits(cfg, params, cache, tokens[:1], start, impl)
+    logits, step_ms, turns = {}, {}, []
+    launches = by_body = None
+    for impl in ("auto", "ref_grouped", "ref_grouped", "auto"):
+        read = counts_zeroed()
+        logits[impl], ms = decode_logits(cfg, params, cache, tokens, start, impl)
+        step_ms.setdefault(impl, []).append(ms)
+        turns.append(ms)
+        if impl == "auto":
+            launches, by_body = read(), bodies()
+    print(f"{cfg.name} decode step (B=2, bf16) from pos {start}, in turns (kernel, plain, plain, "
+          f"kernel): {', '.join(f'{t:.2f}' for t in turns)} ms", flush=True)
+    print(f"  kernel path launches {launches}; by body {by_body}", flush=True)
+    x, y = logits["auto"], logits["ref_grouped"]
+    cmp = compare_logits(f"{cfg.name} logits after {steps} decode steps from pos {start}, "
+                         "kernel vs plain", x[-1], y[-1])
+    cmp.update(argmax_agreement(x, y, x[-1], y[-1]))
+    print(f"  argmax equal at {cmp['argmax_share']:.4f} of {steps} steps x {tokens.shape[1]} rows; "
+          f"at the last step (ties equal) {cmp['last_agrees']}, top two kernel "
+          f"{cmp['last_top2'][0]} plain {cmp['last_top2'][1]}", flush=True)
+    calls = checked_attention(params, cfg, {k: v.clone() for k, v in cache.items()}, tokens,
+                              start, what=cfg.name)
+    want = dict(decode_attention=want_decode, flash_attention=0, ssd_scan=0, moe_gmm=0)
+    if launches != want or by_body != on_bodies(want, decode_attention="split"):
+        raise AssertionError(f"{cfg.name}: decode launches {launches} ({by_body}), expected {want}")
+    if cmp["ratio"] > LOGIT_BOUND or cmp["argmax_share"] < ARGMAX_SHARE:
+        raise AssertionError(f"{cfg.name}: decode logits, kernel and plain path disagree")
+    if calls["outside"] or calls["calls"] != want_decode:
+        raise AssertionError(f"{cfg.name}: {calls['outside']} of {calls['calls']} attention calls "
+                             f"(expected {want_decode}) outside phase 2's check")
+    return dict(start=start, steps=steps, step_ms=step_ms, turns_ms=turns, launches=launches,
+                by_body=by_body, kernel_vs_plain=cmp, attention_calls=calls)
+
+
+def serve_prompt(cfg):
+    """The serving task's prompt of phases 3e-3g: (2, 64) tokens from seed 6."""
+    import numpy as np
+
+    return np.random.default_rng(6).integers(0, cfg.vocab, size=(2, 64)).astype(np.int32)
+
+
+# The seeded inputs of phases 3e-3g (also ``tools/logit_agreement.py``'s):
+# each returns the prefill batches by name and a function that builds the
+# checked decode's inputs, dict(cache, tokens, start), drawing on from the
+# same generator.
+def zamba2_inputs(cfg, params, dev):
+    """zamba2: B = 2, S = 2048 and B = 1, S = 8192 (the shared block's
+    4,096-key window cuts into the band); decode from a shared block ring
+    seeded with random K/V and ``pos`` past the window (it has wrapped)."""
+    import torch
+    from repro_torch.models import init_cache
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    prefill = {
+        f"B={PREFILL_B} S={PREFILL_S}": {"tokens": torch.randint(
+            0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen, device=dev)},
+        f"B=1 S={ZAMBA_LONG_S}": {"tokens": torch.randint(
+            0, cfg.vocab, (1, ZAMBA_LONG_S), generator=gen, device=dev)},
+    }
+
+    def decode():
+        window = cfg.sliding_window
+        cache = init_cache(cfg, 2, window, device=dev)
+        for key in ("shared_k", "shared_v"):
+            cache[key].normal_(generator=gen)
+        tokens = torch.randint(0, cfg.vocab, (DECODE_STEPS, 2), generator=gen, device=dev)
+        return dict(cache=cache, tokens=tokens, start=3 * window + 100)  # wrapped three times
+
+    return prefill, decode
+
+
+def whisper_inputs(cfg, params, dev):
+    """whisper: B = 2, its 448-token text context over 1,500 stub frames;
+    decode from a cross-attention cache seeded from the encoder's output
+    (each layer's projection, as ``tests/test_archs.py`` seeds it) after 16
+    steps over the serving prompt.  ``decode`` also reads the encoder's
+    launches (by body)."""
+    import torch
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.layers import project_cross_kv
+    from repro_torch.models.model import _encode_audio
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    frames = (torch.randn(PREFILL_B, cfg.n_audio_frames, cfg.d_model, generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, WHISPER_S), generator=gen,
+                                     device=dev),
+             "audio_frames": frames}
+
+    def decode():
+        read = counts_zeroed()
+        enc = _encode_audio(params, frames, cfg, impl="auto")
+        encoder = dict(launches=read(), by_body=bodies())
+        cache = init_cache(cfg, 2, 16 + DECODE_STEPS, device=dev)
+        for i in range(cfg.n_layers):
+            k, v = project_cross_kv(enc, params["layers"].layer(i)["cross"],
+                                    n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd)
+            cache["cross_k"][i].copy_(k)
+            cache["cross_v"][i].copy_(v)
+        del enc
+        prompt = torch.as_tensor(serve_prompt(cfg), device=dev)
+        for i in range(16):
+            decode_step(params, cache, prompt[:, i], cfg)
+        return dict(cache=cache, tokens=prompt[:, 16:16 + DECODE_STEPS].t().contiguous(),
+                    start=16, encoder=encoder)
+
+    return {f"B={PREFILL_B} S={WHISPER_S}, {cfg.n_audio_frames} frames": batch}, decode
+
+
+def qwen2_vl_inputs(cfg, params, dev):
+    """qwen2-vl: B = 2, 1,024 vision embeddings and 2,048 tokens; decode
+    after 16 steps over the serving prompt."""
+    import torch
+    from repro_torch.models import decode_step, init_cache
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                                     device=dev),
+             "vision_embeds": (torch.randn(PREFILL_B, VLM_VISION, cfg.d_model, generator=gen,
+                                           device=dev) * 0.02).to(torch.bfloat16)}
+
+    def decode():
+        prompt = torch.as_tensor(serve_prompt(cfg), device=dev)
+        cache = init_cache(cfg, 2, 16 + DECODE_STEPS, device=dev)
+        for i in range(16):
+            decode_step(params, cache, prompt[:, i], cfg)
+        return dict(cache=cache, tokens=prompt[:, 16:16 + DECODE_STEPS].t().contiguous(),
+                    start=16)
+
+    return {f"B={PREFILL_B}, {VLM_VISION} vision embeddings + {PREFILL_S} tokens": batch}, decode
+
+
+QWEN2_VL_LAYERS = 32
+QWEN2_VL_CUT = ("the whole model is 145.41 GB and cannot be held by one card; each layer at full "
+                "width takes 1.76 GB, and the prefill's activations and the plain path's scores "
+                "need the rest")
+
+
+def zamba2_full_width():
+    """zamba2-7b at full width and depth: prefill at B = 2, S = 2048, one
+    forward at B = 1, S = 8192, one serving task, and 16 decode steps from
+    a wrapped shared block ring (``zamba2_inputs``).  Flash attention runs
+    on the mma body (D = 112 is no wgmma head dim), the SSD scan on
+    chunked, decode on split."""
+    import torch
+
+    dev = torch.device("cuda")
+    cfg, params, out = load_full_width("zamba2-7b")
+    n, napp = cfg.n_layers, cfg.n_layers // cfg.attn_period
+    prefill, decode = zamba2_inputs(cfg, params, dev)
+    want = dict(decode_attention=0, flash_attention=2 * napp, ssd_scan=2 * n, moe_gmm=0)
+    for part, (what, batch) in zip(("prefill", "prefill_long"), prefill.items()):
+        out[part] = prefill_checks(cfg, params, batch, what, want, flash_attention="mma",
+                                   ssd_scan="chunked")
+    prompt = serve_prompt(cfg)
+    hosted, out["serve"] = serve_task(cfg, params, prompt, napp * (64 + 6))
+    d = decode()
+    out["decode"] = decode_kernel_vs_plain(cfg, params, d["cache"], d["tokens"], d["start"],
+                                           napp * DECODE_STEPS)
+    del d
+    out["profile"] = profile_decode(hosted, torch.as_tensor(prompt, device=dev), dev)
+    return out
+
+
+def whisper_full_width():
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers): prefill over 1,500 stub frames and a 448-token text context;
+    decode from a cross-attention cache seeded from the encoder's output
+    (``whisper_inputs``); one serving task (over a zero cross cache, as the
+    reference's engine decodes).  Flash attention (the encoder's, the
+    decoder's self- and cross-attention) runs on wgmma."""
+    import torch
+
+    dev = torch.device("cuda")
+    cfg, params, out = load_full_width("whisper-medium")
+    n, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    prefill, decode = whisper_inputs(cfg, params, dev)
+    (what, batch), = prefill.items()
+    out["prefill"] = prefill_checks(
+        cfg, params, batch, what,
+        dict(decode_attention=0, flash_attention=2 * (n_enc + 2 * n), ssd_scan=0, moe_gmm=0),
+        flash_attention="wgmma")
+    d = decode()
+    enc = d["encoder"]
+    print(f"whisper encoder over {cfg.n_audio_frames} frames: launches {enc['launches']}; by body "
+          f"{enc['by_body']}", flush=True)
+    if enc["launches"]["flash_attention"] != n_enc \
+            or enc["by_body"]["flash_attention"] != {"wgmma": n_enc}:
+        raise AssertionError(f"whisper encoder: flash launches {enc['by_body']}, "
+                             f"expected {n_enc} on wgmma")
+    out["decode"] = decode_kernel_vs_plain(cfg, params, d["cache"], d["tokens"], d["start"],
+                                           2 * n * DECODE_STEPS)
+    del d
+    prompt = serve_prompt(cfg)
+    hosted, out["serve"] = serve_task(cfg, params, prompt, 2 * n * (64 + 6))
+    out["encoder_launches"], out["encoder_by_body"] = enc["launches"], enc["by_body"]
+    out["profile"] = profile_decode(hosted, torch.as_tensor(prompt, device=dev), dev)
+    return out
+
+
+def qwen2_vl_cut_depth():
+    """qwen2-vl-72b at full width with its depth cut: prefill at B = 2 over
+    1,024 vision embeddings and 2,048 tokens (M-RoPE over the vision grid),
+    decode steps and one serving task (``qwen2_vl_inputs``).  Its forward
+    is not held against its decode: the reference decodes without the
+    vision offset."""
+    import torch
+
+    dev = torch.device("cuda")
+    cfg, params, out = load_full_width("qwen2-vl-72b", QWEN2_VL_LAYERS, QWEN2_VL_CUT)
+    n = cfg.n_layers
+    prefill, decode = qwen2_vl_inputs(cfg, params, dev)
+    (what, batch), = prefill.items()
+    out["prefill"] = prefill_checks(
+        cfg, params, batch, what,
+        dict(decode_attention=0, flash_attention=2 * n, ssd_scan=0, moe_gmm=0),
+        flash_attention="wgmma")
+    d = decode()
+    out["decode"] = decode_kernel_vs_plain(cfg, params, d["cache"], d["tokens"], d["start"],
+                                           n * DECODE_STEPS)
+    del d
+    prompt = serve_prompt(cfg)
+    hosted, out["serve"] = serve_task(cfg, params, prompt, n * (64 + 6))
+    out["profile"] = profile_decode(hosted, torch.as_tensor(prompt, device=dev), dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the reduced fp32 example, kernel path against plain path
 # ---------------------------------------------------------------------------
 def reduced_example():
@@ -1491,6 +1962,12 @@ def main() -> None:
                       qwen3_moe_full_width) if built else None
     deepseek = phases.run("phase 3d: DeepSeek-V2 at full width, 4 layers (bf16)",
                           deepseek_v2_cut_depth) if built else None
+    zamba = phases.run("phase 3e: zamba2-7b at full width and depth (bf16)",
+                       zamba2_full_width) if built else None
+    whisper = phases.run("phase 3f: whisper-medium at full width and depth (bf16)",
+                         whisper_full_width) if built else None
+    vlm = phases.run(f"phase 3g: qwen2-vl-72b at full width, {QWEN2_VL_LAYERS} layers (bf16)",
+                     qwen2_vl_cut_depth) if built else None
     release_models()
     reduced = phases.run("phase 4: reduced fp32 example, kernel against plain", reduced_example) \
         if built else None
@@ -1499,7 +1976,8 @@ def main() -> None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, build=built, kernels=rows, flash=flash_rows, ssd=ssd_rows,
                  gmm=gmm_rows, serving=served, prefill=prefill, qwen3_moe=qwen,
-                 deepseek_v2=deepseek, reduced=reduced,
+                 deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
+                 reduced=reduced,
                  failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))
     if phases.failed or not built:
         die(f"failed phases: {phases.failed}")
@@ -1513,6 +1991,32 @@ def main() -> None:
         return {k: r[k] for k in ("model", "b", "h", "kh", "d", "t", "dtype", "body", "splits",
                                   "max_abs_err", "kernel_ms", "old_body_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}
+
+    def shape_of(r, keys):
+        return {k: r.get(k) for k in keys + ("dtype", "body", "max_abs_err", "kernel_ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    # the shapes the hybrid, audio and VLM paths gave each kernel (bf16), and
+    # each kernel's launches in those phases: prefill (two calls), the
+    # serving task and the decode steps
+    new_models = ("whisper-medium", "zamba2-7b", "qwen2-vl-72b")
+    slice_rows = {
+        "decode_attention": [decode_shape(r) for r in rows if r["model"] in new_models
+                             and r["dtype"] == "bfloat16" and r["t"] != 300],
+        "flash_attention": [shape_of(r, ("model", "b", "s", "sk", "h", "kh", "d", "case"))
+                            for r in flash_rows if r["model"] in new_models
+                            and r["dtype"] == "bfloat16" and r["s"] != 1024],
+        "ssd_scan": [shape_of(r, ("model", "b", "t", "h", "p", "n")) for r in ssd_rows
+                     if r["model"] == "zamba2-7b" and r["dtype"] == "bfloat16"],
+        "moe_gmm": [],
+    }
+    family_phases = {"3e zamba2-7b": zamba, "3f whisper-medium": whisper,
+                     f"3g qwen2-vl-72b@{QWEN2_VL_LAYERS}": vlm}
+
+    def phase_launches(kernel):
+        return {ph: {part: r[part]["launches"][kernel]
+                     for part in ("prefill", "prefill_long", "serve", "decode") if part in r}
+                for ph, r in family_phases.items()}
 
     kernels = [{
         "name": "decode_attention",
@@ -1569,6 +2073,8 @@ def main() -> None:
         "bound_by": gmm_row["bound_by"],
         "library_ms": gmm_row["library_ms"],
     }]
+    for k in kernels:
+        k.update(slice_shapes=slice_rows[k["name"]], launches_by_phase=phase_launches(k["name"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

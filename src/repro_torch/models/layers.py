@@ -11,7 +11,7 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +76,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return _rotate(x, cos, sin)
 
 
+def apply_mrope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    sections: Sequence[int],
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): three position streams (temporal,
+    height, width) drive disjoint frequency sections.
+
+    x: (B, S, H, D); positions: (3, B, S); sum(sections) == D // 2.
+    """
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {d // 2}")
+    inv = rope_inv_freq(d, theta, device=x.device)  # (D/2,)
+    ang_all = positions.float()[..., None] * inv  # (3,B,S,D/2)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[i, :, :, start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)  # (B,S,D/2)
+    return _rotate(x, torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :])
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """For pure-text spans all three M-RoPE streams share the position."""
+    return positions[None].expand((3,) + tuple(positions.shape))
+
+
+def _rope_qk(q, k, positions, theta, mrope_sections, mrope_positions):
+    """RoPE of q and k, or M-RoPE where ``mrope_sections`` is given (with
+    ``mrope_positions`` (3, B, S), or the text positions of ``positions``)."""
+    if mrope_sections is None:
+        return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    pos3 = mrope_positions if mrope_positions is not None else text_mrope_positions(positions)
+    return (apply_mrope(q, pos3, theta, mrope_sections),
+            apply_mrope(k, pos3, theta, mrope_sections))
+
+
 # -- feed-forward --------------------------------------------------------------------
 def swiglu(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
     gate = F.silu(x @ p["wg"])
@@ -94,17 +133,20 @@ def gqa_attention(
     theta: float,
     causal: bool = True,
     window: Optional[int] = None,
+    mrope_sections: Optional[Sequence[int]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence GQA attention (prefill).  x: (B, S, D); positions:
-    (B, S) absolute positions.  Returns (output (B, S, D), (k, v)), k/v
-    (B, S, KH, hd) after RoPE, so a caller can seed a KV cache from them."""
+    (B, S) absolute positions; with ``mrope_sections``, M-RoPE over
+    ``mrope_positions`` (3, B, S) (default: the text positions).  Returns
+    (output (B, S, D), (k, v)), k/v (B, S, KH, hd) after RoPE, so a caller
+    can seed a KV cache from them."""
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    q, k = _rope_qk(q, k, positions, theta, mrope_sections, mrope_positions)
     out = kops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
     out = out.reshape(b, s, n_heads * head_dim) @ p["wo"]
     return out, (k, v)
@@ -123,20 +165,20 @@ def gqa_decode_attention(
     n_kv_heads: int,
     head_dim: int,
     theta: float,
+    mrope_sections: Optional[Sequence[int]] = None,
     impl: str = "auto",
     cache_update: str = "scatter",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One-token decode.  x: (B, D); position: (B,) absolute positions;
-    caches (B, T, KH, hd), written in place at ``write_index`` (ring-buffer
-    slots for sliding windows; == position for full caches).
+    """One-token decode.  x: (B, D); position: (B,) absolute positions
+    (with ``mrope_sections``, M-RoPE over the text positions); caches
+    (B, T, KH, hd), written in place at ``write_index`` (ring-buffer slots
+    for sliding windows; == position for full caches).
     Returns (output (B, D), (k_cache, v_cache))."""
     b = x.shape[0]
     q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, 1, n_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, 1, n_kv_heads, head_dim)
-    pos = position[:, None]
-    q = apply_rope(q, pos, theta)
-    k = apply_rope(k, pos, theta)
+    q, k = _rope_qk(q, k, position[:, None], theta, mrope_sections, None)
     cache_write(k_cache, k[:, 0], write_index, cache_update)
     cache_write(v_cache, v[:, 0], write_index, cache_update)
     out = kops.decode_attention(
@@ -144,3 +186,35 @@ def gqa_decode_attention(
     )
     out = out.reshape(b, n_heads * head_dim) @ p["wo"]
     return out, (k_cache, v_cache)
+
+
+def cross_attention(
+    x: torch.Tensor,
+    p: Mapping[str, torch.Tensor],
+    enc_k: torch.Tensor,
+    enc_v: torch.Tensor,
+    *,
+    n_heads: int,
+    head_dim: int,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Encoder-decoder cross attention (Whisper), bidirectional.  x:
+    (B, S, D); enc_k/enc_v: the projected encoder states (B, T_enc, KH, hd)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    out = kops.flash_attention(q, enc_k, enc_v, causal=False, impl=impl)
+    return out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def project_cross_kv(
+    enc_out: torch.Tensor,
+    p: Mapping[str, torch.Tensor],
+    *,
+    n_kv_heads: int,
+    head_dim: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, T, D) → cross-attention k, v (B, T, KH, hd)."""
+    b, t, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(b, t, n_kv_heads, head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, t, n_kv_heads, head_dim)
+    return k, v

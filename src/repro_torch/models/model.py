@@ -1,6 +1,9 @@
 """Model assembly: parameters, the full-sequence forward and loss, the
 cache and the one-token decode step, mirroring ``repro.models.model`` for
-the ``dense``, ``ssm`` and ``moe`` families (MoE with GQA or MLA).
+every family: ``dense``, ``moe`` (GQA or MLA), ``ssm``, ``hybrid`` (zamba2:
+SSM layers and one shared attention block), ``vlm`` (qwen2-vl: M-RoPE over
+a vision prefix) and ``audio`` (whisper: an encoder over stub frames and a
+decoder with cross-attention).
 
 * ``init_params(cfg, generator, device)`` returns a :class:`ParamTree`, an
   ``nn.Module`` whose parameter names are the JAX param tree's paths
@@ -12,6 +15,8 @@ the ``dense``, ``ssm`` and ``moe`` families (MoE with GQA or MLA).
   ``kops.flash_attention``, ``kops.ssd_scan`` and ``kops.moe_gmm``.
 * ``decode_step`` carries an explicit cache dict (see ``init_cache``) and
   supports sliding-window ring buffers; it updates the cache in place.
+  Attention, cross-attention over the encoder cache included, goes through
+  ``kops.decode_attention``.
 """
 
 from __future__ import annotations
@@ -22,30 +27,21 @@ import torch
 from torch import nn
 
 from repro_torch.device import Device, resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import gqa_attention, gqa_decode_attention, rms_norm, swiglu
+from repro_torch.models.layers import (
+    cross_attention,
+    gqa_attention,
+    gqa_decode_attention,
+    project_cross_kv,
+    rms_norm,
+    swiglu,
+)
 
 Cache = Dict[str, torch.Tensor]
-
-#: Families whose decode and forward are ported, and the ROADMAP items that
-#: bring each of the others.
-PORTED = ("dense", "ssm", "moe")
-LATER = {
-    "hybrid": "ROADMAP Queue 1 items 5-6 (zamba2's shared block)",
-    "vlm": "ROADMAP Queue 1 items 5-6 (M-RoPE)",
-    "audio": "ROADMAP Queue 1 items 5-6 (cross-attention and the audio encoder)",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type!r} family is not ported yet; "
-            f"it comes with {LATER[cfg.arch_type]}"
-        )
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -164,6 +160,21 @@ def _mla_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _audio_decoder_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """A dense layer plus cross-attention over the encoder's output."""
+    d, hd, h, kh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    dt = _dtype(cfg)
+    spec = _dense_layer_spec(cfg)
+    spec["ln_cross"] = ((d,), dt, "ones")
+    spec["cross"] = {
+        "wq": ((d, h * hd), dt, "normal"),
+        "wk": ((d, kh * hd), dt, "normal"),
+        "wv": ((d, kh * hd), dt, "normal"),
+        "wo": ((h * hd, d), dt, "normal"),
+    }
+    return spec
+
+
 def _stack(spec: Dict[str, Any], n: int) -> Dict[str, Any]:
     return {
         k: _stack(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1], v[2])
@@ -173,21 +184,28 @@ def _stack(spec: Dict[str, Any], n: int) -> Dict[str, Any]:
 
 def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """The param tree's layout: nested dict of (shape, dtype, init)."""
-    _require_ported(cfg)
     dt = _dtype(cfg)
+    at = cfg.arch_type
     spec: Dict[str, Any] = {
         "embed": ((cfg.vocab, cfg.d_model), dt, "normal"),
         "final_norm": ((cfg.d_model,), dt, "ones"),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((cfg.d_model, cfg.vocab), dt, "normal")
-    if cfg.arch_type == "dense":
+    if at in ("dense", "vlm"):
         layer = _dense_layer_spec(cfg)
-    elif cfg.arch_type == "ssm":
+    elif at in ("ssm", "hybrid"):
         layer = _ssm_layer_spec(cfg)
-    else:
+    elif at == "moe":
         layer = _mla_layer_spec(cfg) if cfg.use_mla else _moe_layer_spec(cfg)
+    else:
+        layer = _audio_decoder_layer_spec(cfg)
     spec["layers"] = _stack(layer, cfg.n_layers)
+    if at == "hybrid":
+        spec["shared_block"] = _dense_layer_spec(cfg)
+    elif at == "audio":
+        spec["encoder"] = _stack(_dense_layer_spec(cfg), cfg.n_encoder_layers)
+        spec["enc_final_norm"] = ((cfg.d_model,), dt, "ones")
     return spec
 
 
@@ -236,10 +254,14 @@ def _attn_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
     )
 
 
-def _dense_block(h, layer, positions, cfg, *, window, impl):
+def _dense_block(h, layer, positions, cfg, *, window, impl, mrope_positions=None,
+                 causal=True):
+    """Attention (M-RoPE where ``mrope_positions`` is given) and SwiGLU."""
     attn_out, kv = gqa_attention(
         rms_norm(h, layer["ln1"], cfg.norm_eps), layer, positions,
-        causal=True, window=window, impl=impl, **_attn_kwargs(cfg),
+        causal=causal, window=window,
+        mrope_sections=cfg.mrope_sections if mrope_positions is not None else None,
+        mrope_positions=mrope_positions, impl=impl, **_attn_kwargs(cfg),
     )
     h = h + attn_out
     h = h + swiglu(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
@@ -271,6 +293,37 @@ def _ssm_block(h, layer, cfg, *, impl, initial_state=None):
     return h + y, state
 
 
+def _vision_positions(nv: int, s: int, bsz: int, device) -> torch.Tensor:
+    """M-RoPE positions (3, B, nv + s) of a vision prefix and its text: the
+    prefix on a square-ish grid (t = 0, h = row, w = column), the text
+    sequential past it on all three streams."""
+    side = max(1, int(nv ** 0.5))
+    idx = torch.arange(nv, device=device)
+    vis = torch.stack([torch.zeros_like(idx), idx // side, idx % side])  # (3, nv)
+    text = (torch.arange(s, device=device) + nv)[None].expand(3, s)
+    return torch.cat([vis, text], dim=1)[:, None, :].expand(3, bsz, nv + s)
+
+
+def _sinusoidal(n: int, d: int, device) -> torch.Tensor:
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / (10000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encode_audio(params, frames, cfg, *, impl):
+    """Whisper-style encoder over stub frame embeddings (B, T, D): sinusoidal
+    positions added, then bidirectional attention layers (with RoPE, as the
+    reference's) and the encoder's final norm."""
+    bsz, t, _ = frames.shape
+    h = frames + _sinusoidal(t, cfg.d_model, frames.device).to(frames.dtype)[None]
+    positions = torch.arange(t, device=h.device)[None, :].expand(bsz, t)
+    for i in range(cfg.n_encoder_layers):
+        h, _ = _dense_block(h, params["encoder"].layer(i), positions, cfg, window=None,
+                            impl=impl, causal=False)
+    return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
 @torch.no_grad()
 def forward(
     params: ParamTree,
@@ -281,30 +334,58 @@ def forward(
     moe_dispatch: str = "sorted",
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  ``batch["tokens"]``: (B, S) token ids.
+    """Full-sequence forward.  ``batch``:
+      tokens        : (B, S) token ids                   (all families)
+      vision_embeds : (B, n_vis, D)                      (vlm)
+      audio_frames  : (B, n_frames, D)                   (audio)
     Returns (logits (B, S, V), aux loss scalar: the MoE load-balance loss
     summed over the layers, 0 for the other families).  ``impl`` picks the
     kernels' implementation ("auto": the hand-written kernels for CUDA
     tensors, their plain twins for CPU tensors); ``moe_dispatch`` the MoE
-    dispatch ("sorted" or "scan")."""
-    _require_ported(cfg)
+    dispatch ("sorted" or "scan").  ``window`` is the dense layers'
+    attention window; zamba2's shared block always takes the config's."""
+    at = cfg.arch_type
     tokens = batch["tokens"]
     bsz, s = tokens.shape
     h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, S, D)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(s, device=h.device)[None, :].expand(bsz, s)
-    if cfg.arch_type == "dense":
+    layers = params["layers"]
+    if at in ("dense", "vlm"):
+        pos3 = None
+        if at == "vlm":
+            vis = batch["vision_embeds"].to(h.dtype)
+            nv = vis.shape[1]
+            h = torch.cat([vis, h], dim=1)
+            positions = torch.arange(nv + s, device=h.device)[None, :].expand(bsz, nv + s)
+            if cfg.use_mrope:
+                pos3 = _vision_positions(nv, s, bsz, h.device)
         for i in range(cfg.n_layers):
-            h, _ = _dense_block(h, params["layers"].layer(i), positions, cfg,
-                                window=window, impl=impl)
-    elif cfg.arch_type == "moe":
+            h, _ = _dense_block(h, layers.layer(i), positions, cfg, window=window, impl=impl,
+                                mrope_positions=pos3)
+        if at == "vlm":
+            h = h[:, nv:]  # the vision prefix goes before the head
+    elif at == "moe":
         for i in range(cfg.n_layers):
-            h, a = _moe_block(h, params["layers"].layer(i), positions, cfg,
+            h, a = _moe_block(h, layers.layer(i), positions, cfg,
                               window=window, impl=impl, dispatch=moe_dispatch)
             aux = aux + a
-    else:
+    elif at in ("ssm", "hybrid"):
         for i in range(cfg.n_layers):
-            h, _ = _ssm_block(h, params["layers"].layer(i), cfg, impl=impl)
+            h, _ = _ssm_block(h, layers.layer(i), cfg, impl=impl)
+            if at == "hybrid" and (i + 1) % cfg.attn_period == 0:
+                h, _ = _dense_block(h, params["shared_block"], positions, cfg,
+                                    window=cfg.sliding_window, impl=impl)
+    else:  # audio
+        enc = _encode_audio(params, batch["audio_frames"], cfg, impl=impl)
+        for i in range(cfg.n_layers):
+            layer = layers.layer(i)
+            h, _ = _dense_block(h, layer, positions, cfg, window=window, impl=impl)
+            enc_k, enc_v = project_cross_kv(enc, layer["cross"], n_kv_heads=cfg.n_kv_heads,
+                                            head_dim=cfg.hd)
+            h = h + cross_attention(rms_norm(h, layer["ln_cross"], cfg.norm_eps), layer["cross"],
+                                    enc_k, enc_v, n_heads=cfg.n_heads, head_dim=cfg.hd,
+                                    impl=impl)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ head, aux
@@ -321,7 +402,9 @@ def next_token_loss(
     aux_weight: float = 0.01,
 ) -> torch.Tensor:
     """Mean next-token negative log-likelihood over ``batch["tokens"]``
-    (forward only: no gradient yet), plus ``aux_weight`` times the aux loss."""
+    (forward only: no gradient yet), plus ``aux_weight`` times the aux loss.
+    The whole ``batch`` goes to :func:`forward` (a VLM's ``vision_embeds``,
+    an audio model's ``audio_frames``)."""
     logits, aux = forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch)
     targets = batch["tokens"][:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
@@ -337,32 +420,42 @@ def init_cache(
     batch: int,
     capacity: int,
     *,
+    dtype: Optional[torch.dtype] = None,
     device: Device = "cuda",
 ) -> Cache:
-    """Family-specific decode cache.  ``capacity`` is the KV capacity —
-    the sliding window size for windowed archs, the max sequence length
-    otherwise.  SSM caches are O(1) in capacity."""
-    _require_ported(cfg)
+    """Family-specific decode cache, in ``dtype`` (default: the config's;
+    SSM states stay fp32).  ``capacity`` is the KV capacity — the sliding
+    window size for windowed archs, the max sequence length otherwise.
+    SSM caches are O(1) in capacity; zamba2's shared block keeps one ring
+    of ``min(capacity, sliding_window)`` slots per application, and an
+    audio model's cross-attention cache holds ``n_audio_frames`` slots."""
     dev = resolve_device(device)
-    dt = _dtype(cfg)
+    dt = dtype or _dtype(cfg)
     l, kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    cache: Cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if cfg.arch_type == "moe" and cfg.use_mla:
-        cache["ckv"] = torch.zeros((l, batch, capacity, cfg.kv_lora_rank), dtype=dt, device=dev)
-        cache["krope"] = torch.zeros((l, batch, capacity, cfg.rope_head_dim), dtype=dt,
-                                     device=dev)
-    elif cfg.arch_type in ("dense", "moe"):
-        cache["k"] = torch.zeros((l, batch, capacity, kh, hd), dtype=dt, device=dev)
-        cache["v"] = torch.zeros((l, batch, capacity, kh, hd), dtype=dt, device=dev)
-    else:
-        cache["conv"] = torch.zeros(
-            (l, batch, cfg.conv_kernel - 1, ssm_mod.conv_channels(cfg)),
-            dtype=dt, device=dev,
-        )
-        cache["ssm"] = torch.zeros(
-            (l, batch, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-            dtype=torch.float32, device=dev,
-        )
+    at = cfg.arch_type
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    cache: Cache = {"pos": zeros(batch, dtype=torch.int32)}
+    if at == "moe" and cfg.use_mla:
+        cache["ckv"] = zeros(l, batch, capacity, cfg.kv_lora_rank)
+        cache["krope"] = zeros(l, batch, capacity, cfg.rope_head_dim)
+    elif at in ("dense", "vlm", "moe", "audio"):
+        cache["k"] = zeros(l, batch, capacity, kh, hd)
+        cache["v"] = zeros(l, batch, capacity, kh, hd)
+    else:  # ssm, hybrid
+        cache["conv"] = zeros(l, batch, cfg.conv_kernel - 1, ssm_mod.conv_channels(cfg))
+        cache["ssm"] = zeros(l, batch, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                             dtype=torch.float32)
+    if at == "hybrid":
+        napp = cfg.n_layers // cfg.attn_period
+        wcap = min(capacity, cfg.sliding_window or capacity)
+        cache["shared_k"] = zeros(napp, batch, wcap, kh, hd)
+        cache["shared_v"] = zeros(napp, batch, wcap, kh, hd)
+    elif at == "audio":
+        cache["cross_k"] = zeros(l, batch, cfg.n_audio_frames, kh, hd)
+        cache["cross_v"] = zeros(l, batch, cfg.n_audio_frames, kh, hd)
     return cache
 
 
@@ -397,19 +490,28 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B,) → (logits (B, V), cache).
 
-    The cache is updated in place (K/V or latent slots, SSM states and
-    ``pos``), and the same dict is returned.  Attention goes through
-    ``kops.decode_attention`` and the sorted MoE dispatch through
-    ``kops.moe_gmm`` with ``impl`` ("auto": the hand-written kernels for
-    CUDA tensors, their plain twins for CPU tensors); ``moe_dispatch`` is
-    "sorted" (the reference's default) or "scan" (what serving uses)."""
-    _require_ported(cfg)
+    The cache is updated in place (K/V or latent slots, SSM states, the
+    shared block's rings and ``pos``), and the same dict is returned.
+    Attention, an audio model's cross-attention over ``cross_k/v`` included,
+    goes through ``kops.decode_attention`` and the sorted MoE dispatch
+    through ``kops.moe_gmm`` with ``impl`` ("auto": the hand-written kernels
+    for CUDA tensors, their plain twins for CPU tensors); ``moe_dispatch``
+    is "sorted" (the reference's default) or "scan" (what serving uses).
+    A VLM decodes text positions with M-RoPE, with no offset for a vision
+    prefix, as the reference does."""
+    at = cfg.arch_type
     h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, D)
     pos = cache["pos"]
-    if cfg.arch_type in ("dense", "moe"):
-        mla = cfg.arch_type == "moe" and cfg.use_mla
+    kw = dict(impl=impl, cache_update=cache_update, **_attn_kwargs(cfg))
+    if at in ("dense", "vlm", "moe", "audio"):
+        mla = at == "moe" and cfg.use_mla
         capacity = cache["ckv" if mla else "k"].shape[2]
         write_idx, cache_len = _ring(pos, capacity, cfg.sliding_window is not None)
+        mrope = cfg.mrope_sections if at == "vlm" and cfg.use_mrope else None
+        if at == "audio":
+            b = h.shape[0]
+            enc_len = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
+                                 device=h.device)
         for i in range(cfg.n_layers):
             layer = params["layers"].layer(i)
             x = rms_norm(h, layer["ln1"], cfg.norm_eps)
@@ -423,17 +525,28 @@ def decode_step(
             else:
                 attn_out, _ = gqa_decode_attention(
                     x, layer, pos, cache["k"][i], cache["v"][i], cache_len, write_idx,
-                    impl=impl, cache_update=cache_update, **_attn_kwargs(cfg),
+                    mrope_sections=mrope, **kw,
                 )
             h = h + attn_out
+            if at == "audio":  # cross-attention over the (static) encoder K/V
+                cross = layer["cross"]
+                xq = rms_norm(h, layer["ln_cross"], cfg.norm_eps)
+                q = (xq @ cross["wq"]).reshape(b, cfg.n_heads, cfg.hd)
+                out = kops.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i],
+                                            enc_len, impl=impl)
+                h = h + out.reshape(b, -1) @ cross["wo"]
             x2 = rms_norm(h, layer["ln2"], cfg.norm_eps)
-            if cfg.arch_type == "moe":
+            if at == "moe":
                 ffn, _ = moe_mod.moe_ffn(x2[:, None, :], layer["moe"], top_k=cfg.top_k,
                                          dispatch=moe_dispatch, impl=impl)
                 h = h + ffn[:, 0]
             else:
                 h = h + swiglu(x2, layer["mlp"])
-    else:
+    else:  # ssm, hybrid
+        if at == "hybrid":
+            shared = params["shared_block"]
+            # the shared block's cache always rings over its window
+            write_idx, cache_len = _ring(pos, cache["shared_k"].shape[2], True)
         for i in range(cfg.n_layers):
             layer = params["layers"].layer(i)
             y, _, _ = ssm_mod.mamba2_decode(
@@ -441,6 +554,14 @@ def decode_step(
                 cache["conv"][i], cache["ssm"][i],
             )
             h = h + y
+            if at == "hybrid" and (i + 1) % cfg.attn_period == 0:
+                app = (i + 1) // cfg.attn_period - 1
+                attn_out, _ = gqa_decode_attention(
+                    rms_norm(h, shared["ln1"], cfg.norm_eps), shared, pos,
+                    cache["shared_k"][app], cache["shared_v"][app], cache_len, write_idx, **kw,
+                )
+                h = h + attn_out
+                h = h + swiglu(rms_norm(h, shared["ln2"], cfg.norm_eps), shared["mlp"])
     pos.add_(1)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

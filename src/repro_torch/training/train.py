@@ -25,8 +25,10 @@ def make_prefill_step(
     device: Device = "cuda",
 ) -> Callable[[ParamTree, Mapping[str, torch.Tensor]], torch.Tensor]:
     """Full-sequence forward (inference prefill) on ``device``:
-    ``step(params, batch) → logits (B, S, V)``.  ``batch["tokens"]`` (B, S)
-    is moved to the device; the params must already be there.  With
+    ``step(params, batch) → logits (B, S, V)``.  Every entry of ``batch``
+    (``tokens`` (B, S), and a VLM's ``vision_embeds`` or an audio model's
+    ``audio_frames``) is moved to the device and handed to ``forward``; the
+    params must already be there.  With
     ``impl="auto"`` attention, the SSD scan and the sorted MoE dispatch's
     grouped matmul run the hand-written kernels on a card and their plain
     twins on the CPU.  Asking for a card where there is none raises."""
@@ -36,9 +38,8 @@ def make_prefill_step(
         where = params["embed"].device
         if where != dev:
             raise ValueError(f"params are on {where}, the step runs on {dev}")
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        logits, _ = forward(params, {"tokens": tokens}, cfg, impl=impl,
-                            moe_dispatch=moe_dispatch)
+        on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        logits, _ = forward(params, on_dev, cfg, impl=impl, moe_dispatch=moe_dispatch)
         return logits
 
     return step

@@ -53,6 +53,7 @@ def card():
         (2, 32, 32, 112, 96),   # zamba2's head dim
         (2, 16, 2, 192, 80),    # MLA's hd + rope dim
         (2, 48, 1, 128, 70),    # granite's MQA: two row chunks per CTA grid
+        (2, 16, 16, 64, 1500),  # whisper's cross-attention over 1,500 encoder frames
     ],
 )
 def test_kernel_matches_plain_on_card(card, b, h, kh, d, t, dtype):
@@ -110,6 +111,9 @@ def test_serve_example_through_the_kernel(card):
         (1, 150, 150, 4, 4, 192, True, None, 0),     # MLA's hd + rope dim
         (1, 130, 130, 2, 1, 256, True, None, 0),     # the largest head dim taken
         (2, 100, 100, 4, 2, 64, True, None, -30),    # rows 0..29 see no key
+        (2, 64, 1500, 16, 16, 64, False, None, 0),   # whisper's cross-attention
+        (2, 1500, 1500, 16, 16, 64, False, None, 0),  # whisper's encoder
+        (2, 448, 448, 16, 16, 64, True, None, 0),    # whisper's decoder: 3.5 wgmma tiles
     ],
 )
 def test_flash_kernel_matches_plain_on_card(card, b, sq, sk, h, kh, d, causal, window,
@@ -224,6 +228,56 @@ def test_prefill_step_through_the_kernels(card, name):
     assert counter.launches == before + cfg.n_layers
     want = make_prefill_step(cfg, impl="ref_chunked", device=card)(params, {"tokens": tokens})
     torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+
+
+# the hybrid, VLM and audio families at reduced depth: zamba2 at its head
+# dim 112 with two applications of the shared block over an 8-slot window
+FAMILY_CFGS = {
+    "zamba2-7b": dict(n_layers=4, attn_period=2, sliding_window=8, head_dim=112),
+    "qwen2-vl-72b": {},
+    "whisper-medium": {},
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_CFGS))
+def test_family_prefill_and_decode_through_the_kernels(card, name):
+    """A reduced fp32 model of each family: its prefill launches flash
+    attention once per attention layer (whisper: the encoder's, and the
+    decoder's self- and cross-attention) and the SSD scan once per SSM
+    layer, and 20 decode steps (zamba2's ring wraps twice) launch decode
+    attention once per attention layer; both agree with the plain path."""
+    import dataclasses
+
+    cfg = dataclasses.replace(ARCHS[name].reduced(dtype="float32"), **FAMILY_CFGS[name])
+    params = tm.init_params(cfg, torch.Generator(device=card).manual_seed(0), card)
+    g = torch.Generator(device=card).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=g, device=card)}
+    n, attn = cfg.n_layers, cfg.n_layers
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.randn(2, 16, cfg.d_model, generator=g, device=card) * 0.02
+    if cfg.arch_type == "audio":
+        batch["audio_frames"] = torch.randn(2, cfg.n_audio_frames, cfg.d_model, generator=g,
+                                            device=card) * 0.02
+        attn = 2 * n
+    if cfg.arch_type == "hybrid":
+        attn = n // cfg.attn_period
+    flash = attn + cfg.n_encoder_layers
+    before = (fa.launches, ssd.launches)
+    logits = make_prefill_step(cfg, device=card)(params, batch)
+    torch.cuda.synchronize()
+    assert (fa.launches, ssd.launches) == (before[0] + flash,
+                                           before[1] + (n if cfg.arch_type == "hybrid" else 0))
+    want = make_prefill_step(cfg, impl="ref_chunked", device=card)(params, batch)
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    caches = {impl: tm.init_cache(cfg, 2, 24, device=card) for impl in ("auto", "ref")}
+    for i in range(20):
+        before = da.launches
+        got, _ = tm.decode_step(params, caches["auto"], batch["tokens"][:, i], cfg)
+        assert da.launches == before + attn
+        plain, _ = tm.decode_step(params, caches["ref"], batch["tokens"][:, i], cfg, impl="ref")
+        torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+    for key in caches["ref"]:
+        torch.testing.assert_close(caches["auto"][key], caches["ref"][key], atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: neither ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+"""The PyTorch port stands alone: neither ``src/repro_torch``, nor
+``chip_smoke.py``, nor the port's card tools under ``tools/`` import JAX
+or the JAX package ``repro``."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_variants.py",
+    ROOT / "tools" / "plant_faults.py", ROOT / "tools" / "logit_agreement.py"]
 BANNED = {"jax", "jaxlib", "repro"}
 
 
@@ -29,7 +32,7 @@ def banned_imports(source: str):
 
 
 def test_port_files_exist():
-    assert (ROOT / "chip_smoke.py").exists()
+    assert all(f.exists() for f in FILES)
     assert len(FILES) > 20
 
 

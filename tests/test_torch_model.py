@@ -21,7 +21,8 @@ from repro_torch.models.model import param_spec  # noqa: E402
 
 TRIO = ["mamba2-780m", "mistral-nemo-12b", "granite-20b"]
 MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]  # GQA and MLA; decode parity: test_torch_moe.py
-PORTED = sorted(n for n, c in ARCHS.items() if c.arch_type in ("dense", "ssm", "moe"))
+# hybrid, VLM and audio; decode parity: test_torch_families.py
+FAMILIES = ["zamba2-7b", "qwen2-vl-72b", "whisper-medium"]
 # fp32 logits agree to ~1e-6; 1e-4 leaves room for the two packages'
 # different summation orders in the matmuls.
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -110,7 +111,7 @@ def _leaves(tree, prefix=""):
             yield path, v
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", sorted(ARCHS))
 def test_full_size_param_layout_and_bytes(name):
     """Names, shapes, dtypes and bytes of every leaf equal the reference's
     at full size (abstract shapes on both sides, nothing allocated): fetch
@@ -132,7 +133,7 @@ def test_full_size_param_layout_and_bytes(name):
         assert got["layers.moe.router"][1] == torch.float32
 
 
-@pytest.mark.parametrize("name", TRIO + MOE)
+@pytest.mark.parametrize("name", TRIO + MOE + FAMILIES)
 def test_param_tree_paths_and_size_bytes(name):
     from repro.serving import HostedModel as RefHosted
     from repro_torch.serving import HostedModel
@@ -165,15 +166,6 @@ def test_ssm_fp32_leaves_stay_fp32():
     for key in ("dt_bias", "a_log", "d_skip"):
         assert p["layers"][key].dtype == torch.float32
     assert p["layers"]["w_in"].dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("name", sorted(set(ARCHS) - set(PORTED)))
-def test_other_families_name_their_roadmap_item(name):
-    cfg = ARCHS[name].reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_cache(cfg, 1, 4, device="cpu")
 
 
 def test_convert_rejects_a_mismatched_tree():

@@ -175,6 +175,26 @@ def test_moe_ffn_matches_reference(dispatch, shared, ref_impl):
     np.testing.assert_allclose(float(aux), float(auxe), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("ref_impl", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("shared", [0, 2])
+def test_moe_scan_matches_reference_in_bf16(shared, ref_impl):
+    """The scan dispatch, which serving decodes with, in bf16 at the
+    reference's bf16 tolerance.  The reference adds the experts one by one
+    in x's dtype; the port sums them in fp32 and rounds once, which moves
+    outputs by about one bf16 ulp."""
+    b, s, d, e, f, k = 2, 9, 32, 8, 24, 2
+    jp, tp = _ffn_params(d, e, f, shared)
+    jp = {n: w if n == "router" else w.astype(jnp.bfloat16) for n, w in jp.items()}
+    tp = {n: w if n == "router" else w.to(torch.bfloat16) for n, w in tp.items()}
+    (x,) = draw(3, (b, s, d))
+    y, aux = tmoe.moe_ffn(torch.from_numpy(x).to(torch.bfloat16), tp, top_k=k, dispatch="scan")
+    ye, auxe = jmoe.moe_ffn(jnp.asarray(x, jnp.bfloat16), jp, top_k=k, dispatch="scan",
+                            impl=ref_impl)
+    assert y.dtype == torch.bfloat16
+    close(y, ye, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(float(aux), float(auxe), atol=1e-6, rtol=1e-6)
+
+
 def test_moe_dispatches_agree_and_ep_names_its_roadmap_item():
     jp, tp = _ffn_params(16, 4, 8, 1)
     (tx,) = [torch.from_numpy(x) for x in draw(4, (1, 5, 16))]

@@ -2,8 +2,9 @@
 and ``mamba2_block`` on the same numpy inputs, and ``forward`` logits and
 ``next_token_loss`` of the reduced fp32 serve-example trio with
 JAX-initialised weights carried over by ``params_from_numpy``; plus the
-port's own forward against its teacher-forced decode, ``make_prefill_step``
-on the CPU, and the families not yet ported."""
+port's own forward against its teacher-forced decode, and
+``make_prefill_step`` on the CPU.  The hybrid, VLM and audio families are
+held in ``test_torch_families.py``."""
 
 import dataclasses
 
@@ -27,7 +28,6 @@ from repro_torch.training import make_prefill_step  # noqa: E402
 
 TRIO = ["mamba2-780m", "mistral-nemo-12b", "granite-20b"]
 MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]  # forward parity: test_torch_moe.py
-PORTED = sorted(n for n, c in ARCHS.items() if c.arch_type in ("dense", "ssm", "moe"))
 # fp32 logits agree to ~1e-6; 1e-4 (as the decode tests use) leaves room
 # for the two packages' different summation orders in the matmuls.
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -168,13 +168,3 @@ def test_prefill_step_refuses_a_missing_card_and_misplaced_params():
     step = make_prefill_step(cfg, device="meta")
     with pytest.raises(ValueError, match="params are on"):
         step(params, {"tokens": np.zeros((1, 4), np.int32)})
-
-
-@pytest.mark.parametrize("name", sorted(set(ARCHS) - set(PORTED)))
-def test_forward_of_other_families_names_their_roadmap_item(name):
-    cfg = ARCHS[name].reduced(dtype="float32")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward({}, batch, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.next_token_loss({}, batch, cfg)
