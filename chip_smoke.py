@@ -28,8 +28,16 @@ any phase fails.  Phases:
 3. the decode path at full width in bf16: a 3-worker ServingCluster on one
    card serving 10 pipeline requests (prompts (2, 64)) over
    mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
-   width, depth cut to fit beside NeMo), with kernel launch counts (every
-   decode launch on the split body) read around the run; then NeMo's
+   width, depth cut to fit beside NeMo), every decode step a replay of the
+   engine's CUDA graph of that model, batch and capacity (each graph's
+   capture time and pool printed), with kernel launch counts (every decode
+   launch on the split body) read around the run: the replays' and the
+   warm-up step's before each capture; the same requests on a fresh
+   cluster whose engine runs each task eagerly (equal assignments, hit
+   rate and tokens); each model's decode step, graph against eager in
+   turns, with the device's busy share of each under the profiler and the
+   graphed task's decode kernels counted on the card against the
+   engine's count; then NeMo's
    logits, kernel path against plain path; then four NeMo decode steps at
    B = 2 from a 32,768-slot cache of seeded K/V (long-context decode),
    kernel path against plain path, every attention call of one more pass
@@ -41,13 +49,19 @@ any phase fails.  Phases:
    and loss, and the last position's logits, kernel path against plain
    path; then NeMo's forward over phase 3's prompt against its decode path,
    within ``LOGIT_BOUND`` with equal argmax;
+3h. phase 3's requests on phase 3's models once more, with the cluster's
+   four options on (gossip, prefetch, the flight recorder, the health
+   plane): the health summary and the recorder's Chrome trace held to
+   their schemas, one completed span per task, the decode launches held
+   as in phase 3;
 3c. once phase 3's models are released: Qwen3-MoE at full width and depth
    in bf16: ``make_prefill_step`` over B = 2, S = 2048 twice with the flash
    and grouped-matmul launch counts (every one on the wgmma bodies), the
    loss, one MoE layer and the whole
    model held kernel path against plain path (with the tokens whose expert
    set differs between the two counted per layer), one serving task
-   (``ExecutionEngine.run_task``, scan dispatch) and sorted against scan
+   (``ExecutionEngine.run_task``, scan dispatch, through a graph; then
+   graph against eager in turns, tokens equal) and sorted against scan
    decode from one cache;
 3d. the same for DeepSeek-V2 (MLA, shared experts) at full width with its
    depth cut to 4 layers;
@@ -68,9 +82,12 @@ any phase fails.  Phases:
    phase 2's check), one serving task, a decode profile;
 3g. qwen2-vl-72b (VLM, M-RoPE) at full width with its depth cut to 32
    layers: the same prefill over 1,024 vision embeddings and 2,048 tokens,
-   decode steps, one serving task, a decode profile;
+   decode steps, one serving task, a decode profile (every serving task of
+   3e-3g through a graph, then graph against eager in turns);
 4. the reduced fp32 serve example, kernel path against plain path: equal
-   assignments and tokens.
+   assignments and tokens; then with all four options on and each task's
+   wall time pinned: equal assignments, tokens, SST rows, prefetch stats,
+   health summaries and flight-recorder JSONL.
 
 It prints, in order: the card line, per-phase results, one JSON line with
 every kernel's numbers (with the shapes phases 3e-3g gave it and its
@@ -82,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -138,8 +156,17 @@ VLM_VISION = 1024
 ZAMBA_LONG_S = 8192
 # Qwen3-MoE's prefill: B·S·top_k = 32768 rows over 128 experts, 2048 -> 768
 GMM_MAIN = dict(model="qwen3 prefill", d_in=2048, d_out=768, dtype="bfloat16")
-# what phase 3 hands to phase 3b: the hosted models and NeMo's prompt and logits
+# what phase 3 hands to phases 3b and 3h: the hosted models, NeMo's prompt
+# and logits, the serving run's requests, launches and wall time
 SHARED = {}
+# every execution engine a phase builds: release_models drops their graphs
+# and caches with the models
+ENGINES = []
+#: The task wall time of phase 4's runs with all four options on.
+PINNED_WALL_S = 0.05
+#: Prompt tokens of the tasks timed graph against eager, and of the
+#: tasks profiled: with 6 decoded tokens, tasks of 22 and 14 steps.
+TURN_PROMPT, PROFILE_PROMPT = 16, 8
 
 
 def die(msg: str) -> None:
@@ -817,11 +844,10 @@ def gmm_vs_plain():
 def serve_full_width():
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.core import ClusterSpec, GB
     from repro_torch.examples import serve_cluster as ex
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models import decode_step, init_cache, init_params
-    from repro_torch.serving import HostedModel, ServingCluster
+    from repro_torch.serving import HostedModel
 
     dev = torch.device("cuda")
     granite_layers = 12
@@ -854,26 +880,11 @@ def serve_full_width():
     decode_tokens, prompt_len = 6, 64
     requests = ex.make_requests(n=10, prompt_len=prompt_len)
     spec, summ = ex.build_pipelines()
-    sc = ServingCluster(ClusterSpec(n_workers=3, gpu_capacity_bytes=80 * GB), hosted,
-                        scheduler="navigator", decode_tokens=decode_tokens, device=dev)
-    sc.register_pipeline(spec)
-    sc.register_pipeline(summ)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    da.launches = 0
-    da.launches_by_body.clear()
-    t0 = time.perf_counter()
-    for i, (kind, prompt) in enumerate(requests):
-        dfg, entry = (spec, "draft") if kind == 0 else (summ, "perceive")
-        sc.submit(dfg, {entry: prompt}, origin=i % 3)
-    wall = time.perf_counter() - t0
-    launches = da.launches
-    launches_by_body = dict(da.launches_by_body)
 
     # what the requests ran: prefill + decode steps of each task, times its layers
-    expected, tokens_out, steps, by_model = 0, 0, {}, {}
-    for r in sc.results:
-        dfg = spec if r.dfg_name == spec.name else summ
+    expected, steps, by_model = 0, {}, {}
+    for kind, _ in requests:
+        dfg = spec if kind == 0 else summ
         for tid, task in dfg.tasks.items():
             n_in = prompt_len if not dfg.preds[tid] else decode_tokens * len(dfg.preds[tid])
             cfg = cfgs[task.model_id]
@@ -881,7 +892,18 @@ def serve_full_width():
             if cfg.arch_type == "dense":
                 expected += cfg.n_layers * (n_in + decode_tokens)
                 by_model[cfg.name] = by_model.get(cfg.name, 0) + cfg.n_layers * (n_in + decode_tokens)
-            tokens_out += r.outputs[tid].size
+
+    # the main path: the serving run, every decode step a graph replay
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc, wall = serve_requests(hosted, requests, decode_tokens)
+    warm = da.launches  # eager launches: one warm-up step before each capture
+    replayed = sc.engine.replayed_launches["decode_attention"]
+    launches = warm + replayed
+    launches_by_body = bodies(sc.engine)["decode_attention"]
+    tokens_out = sum(o.size for r in sc.results for o in r.outputs.values())
+    graphs = graph_rows(sc.engine)
+    want_warm = sum(g["launches"]["decode_attention"] for g in graphs)
     for r in sc.results:
         print(f"  job {r.job_id} {r.dfg_name:20s} assign={r.assignment} "
               f"wall={r.latency_s:.3f} s")
@@ -891,21 +913,48 @@ def serve_full_width():
         decoded_tokens_per_s=tokens_out / wall, steps=steps,
         cache_hit_rate=sc.cache_hit_rate(), workers_used=sc.workers_used(),
         max_memory_allocated=peak, launches=launches, expected_launches=expected,
+        replayed_launches=replayed, warmup_launches=warm,
         launches_by_body=launches_by_body, launches_by_model=by_model,
-        granite_layers=granite_layers,
+        granite_layers=granite_layers, graphs=graphs,
         latencies_s=[r.latency_s for r in sc.results],
         assignments=[r.assignment for r in sc.results],
     )
-    print(f"decoded tokens/s: {tokens_out / wall:.1f} ({tokens_out} tokens in {wall:.2f} s)")
+    print(f"decoded tokens/s (graphs): {tokens_out / wall:.1f} ({tokens_out} tokens in "
+          f"{wall:.2f} s)")
     print(f"cache hit rate: {sc.cache_hit_rate():.3f}; workers used: {sc.workers_used()}")
     print(f"torch.cuda.max_memory_allocated: {peak / 1e9:.2f} GB")
-    print(f"decode_attention launches: {launches} (expected {expected}; by model {by_model}); "
-          f"by body {launches_by_body}")
-    if launches != expected or launches == 0:
-        raise AssertionError(f"decode_attention launched {launches} times, expected {expected}")
+    print(f"decode_attention launches: {launches} = {replayed} replayed (expected {expected}; "
+          f"by model {by_model}) + {warm} warm-up (expected {want_warm}); by body "
+          f"{launches_by_body}")
+    if replayed != expected or warm != want_warm or expected == 0:
+        raise AssertionError(f"decode_attention launched {replayed} times in replays and {warm} "
+                             f"in warm-ups, expected {expected} and {want_warm}")
     if launches_by_body != {"split": launches}:
         raise AssertionError(f"decode_attention launches by body {launches_by_body}, "
                              "expected every one on the split body")
+
+    # the same requests on a fresh cluster whose engine runs each task eagerly
+    eager, eager_wall = serve_requests(hosted, requests, decode_tokens, eager=True)
+    eager_launches = da.launches
+    same = dict(assignments=[r.assignment for r in eager.results] == summary["assignments"],
+                cache_hit_rate=eager.cache_hit_rate() == sc.cache_hit_rate(),
+                tokens=all((a.outputs[t] == b.outputs[t]).all()
+                           for a, b in zip(sc.results, eager.results) for t in b.outputs))
+    summary.update(eager_wall_s=eager_wall, eager_decoded_tokens_per_s=tokens_out / eager_wall,
+                   eager_launches=eager_launches, graph_vs_eager_equal=same)
+    print(f"decoded tokens/s (eager): {tokens_out / eager_wall:.1f} ({tokens_out} tokens in "
+          f"{eager_wall:.2f} s); decode_attention launches {eager_launches}")
+    print(f"graphs against eager: equal {same}")
+    if not all(same.values()) or eager_launches != expected:
+        raise AssertionError(f"the eager run differs from the graphed one ({same}; launches "
+                             f"{eager_launches})")
+    SHARED.update(requests=requests, serve_wall=wall, expected_launches=expected)
+
+    # each model's decode step, graph against eager, in turns, and the
+    # device's busy share of each under the profiler
+    prompt_np = requests[0][1]
+    summary["step_graph_vs_eager"] = {
+        h.cfg.name: graph_vs_eager(sc.engine, h.model_id, prompt_np) for h in hosted}
 
     # NeMo after a 64-token teacher-forced prefill: the kernel path against
     # the plain paths.  "ref_grouped" does the kernel's arithmetic in PyTorch
@@ -961,6 +1010,168 @@ def serve_full_width():
             raise AssertionError(f"NeMo logits ({name}): kernel path and plain path disagree")
     summary["long_context"] = long_context_decode(nemo, dev, compare)
     return summary
+
+
+def serve_requests(hosted, requests, decode_tokens, eager=False, **planes):
+    """The serving run of phases 3 and 3h: a 3-worker cluster (80 GB each)
+    on the card serving ``requests`` through the serve example's two
+    pipelines, with the cluster options ``planes``; with ``eager``, its
+    engine runs each task through ``eager_task`` instead of its graphs.
+    The kernel counts are set to 0 just before the requests.  Returns the
+    cluster and the wall time of the requests."""
+    import torch
+    from repro_torch.core import ClusterSpec, GB
+    from repro_torch.examples import serve_cluster as ex
+    from repro_torch.serving import ServingCluster
+
+    sc = ServingCluster(ClusterSpec(n_workers=3, gpu_capacity_bytes=80 * GB), hosted,
+                        scheduler="navigator", decode_tokens=decode_tokens, **planes,
+                        device=torch.device("cuda"))
+    track(sc.engine)
+    if eager:
+        sc.engine.run_task = functools.partial(eager_task, sc.engine)
+    spec, summ = ex.build_pipelines()
+    sc.register_pipeline(spec)
+    sc.register_pipeline(summ)
+    torch.cuda.synchronize()
+    counts_zeroed(sc.engine)
+    t0 = time.perf_counter()
+    for i, (kind, prompt) in enumerate(requests):
+        dfg, entry = (spec, "draft") if kind == 0 else (summ, "perceive")
+        sc.submit(dfg, {entry: prompt}, origin=i % 3)
+    return sc, time.perf_counter() - t0
+
+
+def track(engine):
+    """Keep ``engine`` for ``release_models``."""
+    ENGINES.append(engine)
+    return engine
+
+
+def graph_rows(engine):
+    """Each graph of ``engine``: its key, capture time, pool bytes, replays
+    and launches per replay (printed)."""
+    rows = []
+    for (mid, b, capacity), g in engine.graphs.items():
+        rows.append(dict(model=engine.models[mid].cfg.name, b=b, capacity=capacity,
+                         capture_s=g.capture_s, pool_bytes=g.pool_bytes, replays=g.replays,
+                         launches=g.launches))
+        print(f"  graph {engine.models[mid].cfg.name} B={b} capacity={capacity}: capture "
+              f"{g.capture_s * 1e3:.1f} ms, pool {g.pool_bytes / 1e6:.1f} MB, "
+              f"{g.replays} replays", flush=True)
+    return rows
+
+
+def eager_loop(engine, mid, prompt):
+    """``engine``'s task without its graphs: the loop ``run_task`` ran
+    before the engine captured its decode step (a fresh cache, eager
+    ``decode_step`` calls with the engine's impl and the scan dispatch).
+    Returns (tokens (B, decode_tokens) int32, wall seconds, the last
+    step's logits)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, init_cache
+
+    hosted = engine.models[mid]
+    t0 = time.perf_counter()
+    b, s = prompt.shape
+    kw = dict(impl=engine.impl, moe_dispatch="scan")
+    with torch.inference_mode():
+        cache = init_cache(hosted.cfg, b, s + engine.decode_tokens + 1, device=engine.device)
+        toks = torch.as_tensor(prompt, device=engine.device)
+        for i in range(s):
+            logits, cache = decode_step(hosted.params, cache, toks[:, i], hosted.cfg, **kw)
+        nxt, out = torch.argmax(logits, dim=-1), []
+        for _ in range(engine.decode_tokens):
+            out.append(nxt)
+            logits, cache = decode_step(hosted.params, cache, nxt, hosted.cfg, **kw)
+            nxt = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        tokens = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+    return tokens, time.perf_counter() - t0, logits
+
+
+def eager_task(engine, mid, prompt):
+    """``eager_loop`` as ``run_task`` returns: (tokens, wall seconds)."""
+    return eager_loop(engine, mid, prompt)[:2]
+
+
+def graph_vs_eager(engine, mid, prompt):
+    """One task of model ``mid`` over the first ``TURN_PROMPT`` tokens of
+    ``prompt`` through ``engine``'s graph (captured by one untimed task)
+    and through ``eager_loop``, in turns (graph, eager, eager, graph): the
+    ms per decode step of each, the tokens held equal, the last step's
+    logits compared (the largest difference printed); then one task of
+    each under the profiler over the first ``PROFILE_PROMPT`` tokens,
+    with the device's busy share."""
+    import numpy as np
+
+    name = engine.models[mid].cfg.name
+    short = prompt[:, :TURN_PROMPT]
+    steps = short.shape[1] + engine.decode_tokens
+    want, _ = engine.run_task(mid, short)
+    g = engine.graphs[(mid, short.shape[0], steps + 1)]
+    turns, equal, logits = [], True, {}
+    for run in ("graph", "eager", "eager", "graph"):
+        if run == "graph":
+            got, wall = engine.run_task(mid, short)
+            logits[run] = g.logits.float().clone()
+        else:
+            got, wall, last = eager_loop(engine, mid, short)
+            logits[run] = last.float()
+        turns.append(wall / steps * 1e3)
+        equal = equal and bool(np.array_equal(got, want))
+    diff = float((logits["graph"] - logits["eager"]).abs().max())
+    prof = prompt[:, :PROFILE_PROMPT]
+    engine.run_task(mid, prof)  # captures at the profile's capacity, untimed
+    profiles = {run: profile_task(fn, engine, mid, prof, f"{name} task ({run})")
+                for run, fn in (("graph", engine.run_task),
+                                ("eager", functools.partial(eager_task, engine)))}
+    print(f"{name} decode step (B={short.shape[0]}, {steps} steps a task), in turns (graph, "
+          f"eager, eager, graph): {', '.join(f'{t:.2f}' for t in turns)} ms; tokens equal "
+          f"{equal}; last logits graph vs eager max |diff| {diff:.3e}", flush=True)
+    if not equal:
+        raise AssertionError(f"{name}: graph and eager tokens differ")
+    return dict(steps=steps, turns_ms=turns, graph_ms=[turns[0], turns[3]],
+                eager_ms=[turns[1], turns[2]], tokens_equal=equal, logits_max_abs_diff=diff,
+                profile=profiles)
+
+
+def profile_task(fn, engine, mid, prompt, what):
+    """Device time of one task ``fn(mid, prompt)`` (the profiler's device
+    events) against its wall time, and the decode-attention kernels the
+    card ran, by name: for a graphed task their main kernels must equal
+    the launches the engine counts for its replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.reset_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(mid, prompt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    by_name = {k: sum(e.count for e in events if k in e.key) for k in DECODE_KERNELS}
+    main = by_name["decode_attention_kernel"] + by_name["decode_split"]
+    replayed = engine.replayed_launches["decode_attention"]
+    kernels = sum(e.count for e in events)
+    print(f"profile of one {what}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms wall "
+          f"({100 * device_ms / wall_ms:.1f} %), {kernels} kernels; decode-attention kernels "
+          f"{by_name}, the engine's replayed launches {replayed}", flush=True)
+    if engine.replays and main != replayed:
+        raise AssertionError(f"{what}: the card ran {main} decode-attention kernels, the "
+                             f"engine counted {replayed} launches in its replays")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+                kernels=kernels, decode_kernels=by_name, replayed_launches=replayed,
+                replays=engine.replays)
 
 
 LONG_CONTEXT = 32768  # cache slots of the long-context decode
@@ -1231,14 +1442,92 @@ def prefill_full_width():
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: the serving run with the cluster's four options on
+# ---------------------------------------------------------------------------
+def serve_with_planes():
+    """Phase 3's 10 requests on phase 3's models again, with gossip (the
+    paper's 200 ms rounds), prefetch, the flight recorder and the health
+    plane on: the assignments, hit rate and prefetch stats; the health
+    summary and the recorder's Chrome trace held to their schemas; the
+    recorder's events by kind; the spans ``build_spans`` stitches, one
+    completed span per model task; the decode launches held as phase 3
+    holds them; the wall time beside phase 3's.  Placements follow the
+    wall clock here (gossip rounds run up to the virtual clock, which adds
+    each task's measured wall time), so they are printed, not compared."""
+    import collections
+
+    from repro_torch.core import GossipConfig, PrefetchConfig, validate_schema
+    from repro_torch.core.telemetry import build_spans
+    from repro_torch.kernels import decode_attention as da
+
+    if "requests" not in SHARED:
+        raise RuntimeError("phase 3 did not leave its models and requests")
+    requests = SHARED["requests"]
+    sc, wall = serve_requests(SHARED["hosted"], requests, 6, gossip=GossipConfig(),
+                              prefetch=PrefetchConfig(), trace=True, health=True)
+    warm = da.launches
+    replayed = sc.engine.replayed_launches["decode_attention"]
+    by_body = bodies(sc.engine)["decode_attention"]
+    graphs = graph_rows(sc.engine)
+    want_warm = sum(g["launches"]["decode_attention"] for g in graphs)
+    tokens_out = sum(o.size for r in sc.results for o in r.outputs.values())
+    for r in sc.results:
+        print(f"  job {r.job_id} {r.dfg_name:20s} assign={r.assignment} "
+              f"virtual={r.virtual_latency_s:.3f} s wall={r.latency_s:.3f} s")
+    stats = dataclasses.asdict(sc.prefetch_plane.stats)
+    print(f"wall {wall:.2f} s ({tokens_out / wall:.1f} decoded tokens/s; phase 3: "
+          f"{SHARED['serve_wall']:.2f} s); cache hit rate {sc.cache_hit_rate():.3f}; workers "
+          f"used {sc.workers_used()}; gossip messages {sc.sst.messages_sent}", flush=True)
+    print(f"prefetch stats: {stats}")
+    summary = sc.health.summary()
+    validate_schema(summary, json.loads((ROOT / "schemas" / "health.schema.json").read_text()))
+    print(f"health summary: valid against schemas/health.schema.json; detectors "
+          f"{summary['detectors']}; fleet job latency {summary['fleet_job_latency']}")
+    kinds = collections.Counter(e[2] for e in sc.recorder.events())
+    print(f"recorder events by kind: {dict(sorted(kinds.items()))}; dropped "
+          f"{sc.recorder.dropped}")
+    chrome = json.loads(json.dumps(sc.recorder.to_chrome_trace()))
+    validate_schema(chrome, json.loads((ROOT / "schemas" / "trace.schema.json").read_text()))
+    print(f"Chrome trace: {len(chrome['traceEvents'])} events, valid against "
+          "schemas/trace.schema.json")
+    spans = build_spans(sc.recorder.events())
+    done = [x for x in spans.values() if x.t_done is not None]
+    tasks = sum(len(r.outputs) for r in sc.results)
+    print(f"spans: {len(done)} completed of {len(spans)} (model tasks: {tasks})")
+    print(f"decode_attention launches: {replayed} replayed (expected "
+          f"{SHARED['expected_launches']}) + {warm} warm-up (expected {want_warm}); by body "
+          f"{by_body}", flush=True)
+    out = dict(wall_s=wall, phase3_wall_s=SHARED["serve_wall"], decoded_tokens=tokens_out,
+               decoded_tokens_per_s=tokens_out / wall, cache_hit_rate=sc.cache_hit_rate(),
+               workers_used=sc.workers_used(), assignments=[r.assignment for r in sc.results],
+               virtual_latencies_s=[r.virtual_latency_s for r in sc.results],
+               gossip_messages=sc.sst.messages_sent, prefetch_stats=stats,
+               health_detectors=summary["detectors"], events_by_kind=dict(kinds),
+               trace_events=len(chrome["traceEvents"]), spans_done=len(done), tasks=tasks,
+               replayed_launches=replayed, warmup_launches=warm, graphs=graphs)
+    if len(done) != tasks or any(x.t_start is None or x.t_done < x.t_start for x in done):
+        raise AssertionError(f"{len(done)} completed spans for {tasks} model tasks")
+    if replayed != SHARED["expected_launches"] or warm != want_warm \
+            or by_body != {"split": replayed + warm}:
+        raise AssertionError(f"decode launches {replayed} + {warm} ({by_body})")
+    if sc.recorder.dropped or not stats["prefetches_completed"] or not sc.sst.messages_sent:
+        raise AssertionError("the recorder dropped events, or no prefetch or gossip ran")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3c and 3d: the MoE family at full width
 # ---------------------------------------------------------------------------
 def release_models():
-    """Drop every model an earlier phase left, and hand its memory back."""
+    """Drop every model an earlier phase left, with every engine's graphs
+    and caches, and hand their memory back."""
     import gc
     import torch
 
     SHARED.clear()
+    for e in ENGINES:
+        e.close()
+    ENGINES.clear()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"device memory in use after release: {torch.cuda.memory_allocated() / 1e9:.2f} GB",
@@ -1295,7 +1584,11 @@ def compare_logits(what, x, y):
     return dict(max_abs_diff=err, max_abs_logit=scale, ratio=err / scale, argmax_equal=same)
 
 
-def counts_zeroed():
+def counts_zeroed(*engines):
+    """Set every kernel's launch counts, and the replay counts of
+    ``engines``, to 0; returns a function that reads each kernel's
+    launches since: the wrapper's count (eager calls, a capture's warm-up
+    step among them) plus the launches of the engines' graph replays."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
@@ -1304,19 +1597,35 @@ def counts_zeroed():
     da.launches = fa.launches = ssd.launches = gmm.launches = 0
     for mod in (da, fa, ssd, gmm):
         mod.launches_by_body.clear()
-    return lambda: dict(decode_attention=da.launches, flash_attention=fa.launches,
-                        ssd_scan=ssd.launches, moe_gmm=gmm.launches)
+    for e in engines:
+        e.reset_counts()
+
+    def read():
+        out = dict(decode_attention=da.launches, flash_attention=fa.launches,
+                   ssd_scan=ssd.launches, moe_gmm=gmm.launches)
+        for e in engines:
+            for k, n in e.replayed_launches.items():
+                out[k] += n
+        return out
+
+    return read
 
 
-def bodies():
-    """Launches by body of each kernel since ``counts_zeroed``."""
+def bodies(*engines):
+    """Launches by body of each kernel since ``counts_zeroed``, the
+    replays of ``engines`` included."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ssd_scan as ssd
 
-    return {name: dict(mod.launches_by_body) for name, mod in (
+    out = {name: dict(mod.launches_by_body) for name, mod in (
         ("decode_attention", da), ("flash_attention", fa), ("ssd_scan", ssd), ("moe_gmm", gmm))}
+    for e in engines:
+        for name, by in e.replayed_by_body.items():
+            for body, n in by.items():
+                out[name][body] = out[name].get(body, 0) + n
+    return out
 
 
 def on_bodies(launches, **body):
@@ -1432,23 +1741,13 @@ def moe_full_width(name, layers=None, reason=None):
     out["kernel_vs_plain"] = cmp
     del rk, rp, kernel_last, plain_last
 
-    # 3. one serving task, as the reference serves it (scan dispatch)
+    # 3. one serving task, as the reference serves it (scan dispatch),
+    # through a graph, then graph against eager
     hosted = HostedModel(0, cfg, params, dev)
-    engine = ExecutionEngine({0: hosted}, decode_tokens=6, device=dev)
+    engine = track(ExecutionEngine({0: hosted}, decode_tokens=6, device=dev))
     prompt = np.random.default_rng(6).integers(0, cfg.vocab, size=(2, 64)).astype(np.int32)
-    serve = []
-    for _ in range(2):
-        read = counts_zeroed()
-        generated, wall = engine.run_task(0, prompt)
-        got = read()
-        steps = prompt.shape[1] + 6
-        serve.append(dict(wall_s=wall, step_ms=wall / steps * 1e3, launches=got,
-                          tokens=generated.tolist()))
-        print(f"{name} serving task (B=2, 64-token prompt, 6 tokens, scan): {wall:.3f} s, "
-              f"{wall / steps * 1e3:.2f} ms per decode step; launches {got}", flush=True)
-        if got["decode_attention"] != n * steps or got["moe_gmm"] != 0:
-            raise AssertionError(f"{name}: serving launches {got}")
-    out["serve"] = serve
+    out["serve"] = graphed_task(engine, prompt, n * (prompt.shape[1] + 6), moe=True)
+    out["serve"]["graph_vs_eager"] = graph_vs_eager(engine, 0, prompt)
 
     # 4. sorted against scan decode from one cache (moe_gmm at 16 rows a layer)
     prompt_t = torch.as_tensor(prompt, device=dev)
@@ -1616,28 +1915,49 @@ def profile_call(fn, what):
 
 
 def serve_task(cfg, params, prompt, want_decode):
-    """One ``ExecutionEngine.run_task`` (a 64-token prompt, 6 tokens): the
-    main path of serving, with its launches read around it and held to
-    ``want_decode`` decode launches, every one on the split body."""
+    """``ExecutionEngine.run_task`` (a 64-token prompt, 6 tokens), the
+    main path of serving, through a new engine: its first task captures
+    the step, and its launches are held to ``want_decode`` decode launches
+    in the replays plus one warm-up step's, every one on the split body;
+    then the step, graph against eager, in turns (``graph_vs_eager``).
+    Returns the hosted model and the readings."""
     import torch
     from repro_torch.serving import ExecutionEngine, HostedModel
 
     dev = torch.device("cuda")
     hosted = HostedModel(0, cfg, params, dev)
-    engine = ExecutionEngine({0: hosted}, decode_tokens=6, device=dev)
-    read = counts_zeroed()
+    engine = track(ExecutionEngine({0: hosted}, decode_tokens=6, device=dev))
+    out = graphed_task(engine, prompt, want_decode)
+    out["graph_vs_eager"] = graph_vs_eager(engine, 0, prompt)
+    return hosted, out
+
+
+def graphed_task(engine, prompt, want_decode, moe=False):
+    """The first task of model 0 on ``engine``, which captures its step:
+    the launches held to ``want_decode`` decode launches in the replays
+    and one step's in the warm-up (every one on the split body), no other
+    kernel; the tokens, the wall time, the graph's capture."""
+    from repro_torch.kernels import decode_attention as da
+
+    cfg = engine.models[0].cfg
+    read = counts_zeroed(engine)
     generated, wall = engine.run_task(0, prompt)
-    launches, by_body = read(), bodies()
-    steps = prompt.shape[1] + 6
-    print(f"{cfg.name} serving task (B=2, {prompt.shape[1]}-token prompt, 6 tokens): "
-          f"{wall:.3f} s, {wall / steps * 1e3:.2f} ms per decode step; launches {launches}; "
-          f"by body {by_body}", flush=True)
-    want = dict(decode_attention=want_decode, flash_attention=0, ssd_scan=0, moe_gmm=0)
-    if launches != want or by_body != on_bodies(want, decode_attention="split"):
-        raise AssertionError(f"{cfg.name}: serving launches {launches} ({by_body}), "
-                             f"expected {want}")
-    return hosted, dict(wall_s=wall, step_ms=wall / steps * 1e3, launches=launches,
-                        by_body=by_body, tokens=generated.tolist())
+    launches, by_body = read(), bodies(engine)
+    steps = prompt.shape[1] + engine.decode_tokens
+    warm = da.launches
+    (graph,) = graph_rows(engine)
+    print(f"{cfg.name} serving task (B=2, {prompt.shape[1]}-token prompt, 6 tokens"
+          f"{', scan' if moe else ''}): {wall:.3f} s with the capture, {wall / steps * 1e3:.2f} "
+          f"ms per decode step; launches {launches} ({warm} decode in the warm-up); by body "
+          f"{by_body}", flush=True)
+    want = dict(decode_attention=want_decode + want_decode // steps, flash_attention=0,
+                ssd_scan=0, moe_gmm=0)
+    if launches != want or by_body != on_bodies(want, decode_attention="split") \
+            or warm != want_decode // steps:
+        raise AssertionError(f"{cfg.name}: serving launches {launches} ({by_body}; warm-up "
+                             f"{warm}), expected {want}")
+    return dict(wall_s=wall, step_ms=wall / steps * 1e3, launches=launches,
+                warmup_launches=warm, by_body=by_body, graph=graph, tokens=generated.tolist())
 
 
 def decode_logits(cfg, params, cache, tokens, start, impl):
@@ -1902,7 +2222,16 @@ def qwen2_vl_cut_depth():
 # phase 4: the reduced fp32 example, kernel path against plain path
 # ---------------------------------------------------------------------------
 def reduced_example():
+    """The serve example reduced in fp32, kernel path against plain path:
+    as it runs, and with all four options on, with each task's wall time
+    pinned (``PINNED_WALL_S``) so that both paths' virtual clocks, and so
+    their gossip rounds, are the same: then the placements, tokens, SST
+    rows, prefetch stats, health summaries and the recorders' JSONL must
+    be equal."""
+    import numpy as np
+    from repro_torch.core import ClusterSpec, GB, GossipConfig, PrefetchConfig
     from repro_torch.examples import serve_cluster as ex
+    from repro_torch.serving import ServingCluster
 
     requests = ex.make_requests()
     out = {}
@@ -1911,6 +2240,7 @@ def reduced_example():
         for impl in ("auto", "ref"):
             sc, _, _ = ex.run(sched, requests, lambda: ex.reduced_hosted("cuda"),
                               device="cuda", impl=impl)
+            track(sc.engine)
             runs[impl] = sc
         k, p = runs["auto"], runs["ref"]
         for rk, rp in zip(k.results, p.results):
@@ -1922,6 +2252,45 @@ def reduced_example():
         print(f"{sched}: 10 requests, equal assignments and tokens; cache hit rate "
               f"{k.cache_hit_rate():.3f}, workers used {k.workers_used()}")
         out[sched] = dict(cache_hit_rate=k.cache_hit_rate(), workers_used=k.workers_used())
+
+        planes = {}
+        for impl in ("auto", "ref"):
+            sc = ServingCluster(ClusterSpec(n_workers=3, gpu_capacity_bytes=1 * GB),
+                                ex.reduced_hosted("cuda"), scheduler=sched, decode_tokens=6,
+                                gossip=GossipConfig(period_s=0.05), prefetch=PrefetchConfig(),
+                                trace=True, health=True, device="cuda", impl=impl)
+            track(sc.engine)
+            real = sc.engine.run_task
+            sc.engine.run_task = lambda mid, prompt, real=real: (real(mid, prompt)[0],
+                                                                 PINNED_WALL_S)
+            spec, summ = ex.build_pipelines()
+            sc.register_pipeline(spec)
+            sc.register_pipeline(summ)
+            for i, (kind, prompt) in enumerate(requests):
+                dfg, entry = (spec, "draft") if kind == 0 else (summ, "perceive")
+                sc.submit(dfg, {entry: prompt}, origin=i % 3)
+            planes[impl] = sc
+        k, p = planes["auto"], planes["ref"]
+        same = dict(
+            assignments=[r.assignment for r in k.results] == [r.assignment for r in p.results],
+            tokens=all(np.array_equal(a.outputs[t], b.outputs[t])
+                       for a, b in zip(k.results, p.results) for t in b.outputs),
+            sst=[dataclasses.asdict(r) for r in k.sst.view(None, 1e9)]
+            == [dataclasses.asdict(r) for r in p.sst.view(None, 1e9)],
+            prefetch=k.prefetch_plane.stats == p.prefetch_plane.stats,
+            health=k.health.summary() == p.health.summary(),
+            trace=k.recorder.to_jsonl() == p.recorder.to_jsonl())
+        print(f"{sched} with gossip, prefetch, trace and health (task wall pinned to "
+              f"{PINNED_WALL_S} s), kernel vs plain path: equal {same}; cache hit rate "
+              f"{k.cache_hit_rate():.3f}; gossip messages {k.sst.messages_sent}; prefetches "
+              f"{k.prefetch_plane.stats.prefetches_completed}; trace events "
+              f"{len(k.recorder.events())}", flush=True)
+        out[sched]["planes"] = dict(equal=same, cache_hit_rate=k.cache_hit_rate(),
+                                    gossip_messages=k.sst.messages_sent,
+                                    prefetch_stats=dataclasses.asdict(k.prefetch_plane.stats))
+        if not all(same.values()):
+            raise AssertionError(f"{sched} with all four options: kernel and plain path differ "
+                                 f"({same})")
     return out
 
 
@@ -1958,6 +2327,8 @@ def main() -> None:
     served = phases.run("phase 3: serving at full width (bf16)", serve_full_width) if built else None
     prefill = phases.run("phase 3b: prefill at full width (bf16)", prefill_full_width) \
         if built else None
+    planes = phases.run("phase 3h: serving with gossip, prefetch, trace and health (bf16)",
+                        serve_with_planes) if built else None
     qwen = phases.run("phase 3c: Qwen3-MoE at full width and depth (bf16)",
                       qwen3_moe_full_width) if built else None
     deepseek = phases.run("phase 3d: DeepSeek-V2 at full width, 4 layers (bf16)",
@@ -1975,7 +2346,8 @@ def main() -> None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, build=built, kernels=rows, flash=flash_rows, ssd=ssd_rows,
-                 gmm=gmm_rows, serving=served, prefill=prefill, qwen3_moe=qwen,
+                 gmm=gmm_rows, serving=served, prefill=prefill, planes=planes,
+                 qwen3_moe=qwen,
                  deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
                  reduced=reduced,
                  failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))

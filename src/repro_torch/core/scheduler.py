@@ -33,7 +33,11 @@ from repro_torch.core import bitmaps
 from repro_torch.core.packed import PackedViews
 from repro_torch.core.profiles import ProfileRepository
 from repro_torch.core.state import DEAD, SSTRow, SUSPECT
-from repro_torch.core.telemetry import CandidateCost, PlacementDecision
+from repro_torch.core.telemetry import (
+    CandidateCost,
+    FlightRecorder,
+    PlacementDecision,
+)
 from repro_torch.core.types import ADFG, DFG, Job, TaskSpec
 
 
@@ -110,7 +114,7 @@ class Scheduler:
         # Flight-recorder hook: the engine attaches its recorder when
         # tracing is on; schedulers that price state (Navigator, JIT)
         # record a PlacementDecision per choice.  None ⇒ zero overhead.
-        self.recorder = None
+        self.recorder: Optional[FlightRecorder] = None
 
     # Planning at job arrival.  Returns None for per-task schedulers (JIT).
     def plan(

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-serve example and the prefill step through them.  These need a card (the kernels have no CPU
-mode) and skip without one; they import no JAX, so they run as they are
-on a machine with a card:
+"""The port's CUDA kernels against their plain PyTorch versions, the
+serve example and the prefill step through them, and the execution
+engine's CUDA graphs of the decode step against the eager loop.  These
+need a card (the kernels have no CPU mode) and skip without one; they
+import no JAX, so they run as they are on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -630,3 +631,113 @@ def test_named_split_and_chunked_bodies_raise_where_they_cannot_take_the_shape(c
     with pytest.raises(ValueError, match="chunked"):
         ssd.ssd_scan(x, dt, a, bb, bb, chunk=256, body="chunked")
     assert (da.launches, ssd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the execution engine's CUDA graphs (the counterpart of jax.jit)
+# ---------------------------------------------------------------------------
+# one reduced config of each family that serving decodes; zamba2's shared
+# block rings over 8 slots, so a 10-step task wraps it
+GRAPH_CFGS = {
+    "mistral-nemo-12b": {},
+    "mamba2-780m": {},
+    "qwen3-moe-30b-a3b": {},
+    "deepseek-v2-236b": {},
+    "zamba2-7b": FAMILY_CFGS["zamba2-7b"],
+    "whisper-medium": {},
+    "qwen2-vl-72b": {},
+}
+
+
+def graph_engine(card, name, dtype, decode_tokens=4):
+    import dataclasses
+
+    from repro_torch.serving import ExecutionEngine, HostedModel
+
+    cfg = dataclasses.replace(ARCHS[name].reduced(dtype=dtype), **GRAPH_CFGS[name])
+    params = tm.init_params(cfg, torch.Generator(device=card).manual_seed(3), card)
+    engine = ExecutionEngine({0: HostedModel(0, cfg, params, card)},
+                             decode_tokens=decode_tokens, device=card)
+    return cfg, params, engine
+
+
+def eager_task(cfg, params, prompt, decode_tokens, card):
+    """The engine's loop without a graph: a fresh cache, eager steps."""
+    b, s = prompt.shape
+    cache = tm.init_cache(cfg, b, s + decode_tokens + 1, device=card)
+    toks = torch.as_tensor(prompt, device=card)
+    for i in range(s):
+        logits, cache = tm.decode_step(params, cache, toks[:, i], cfg, moe_dispatch="scan")
+    nxt, out = torch.argmax(logits, dim=-1), []
+    for _ in range(decode_tokens):
+        out.append(nxt)
+        logits, cache = tm.decode_step(params, cache, nxt, cfg, moe_dispatch="scan")
+        nxt = torch.argmax(logits, dim=-1)
+    return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(GRAPH_CFGS))
+def test_graphed_run_task_gives_the_eager_tokens(card, name, dtype):
+    """A task replayed from the engine's graph gives the eager loop's
+    tokens, and a second task of the same shape replays the same graph."""
+    cfg, params, engine = graph_engine(card, name, dtype)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
+    got, _ = engine.run_task(0, prompt)
+    np.testing.assert_array_equal(got, eager_task(cfg, params, prompt, 4, card))
+    assert engine.captures == 1 and engine.replays == 6 + 4
+    other = rng.integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
+    got, _ = engine.run_task(0, other)
+    np.testing.assert_array_equal(got, eager_task(cfg, params, other, 4, card))
+    assert engine.captures == 1 and engine.replays == 2 * (6 + 4)
+    assert list(engine.graphs) == [(0, 2, 11)]
+    engine.close()
+    assert engine.graphs == {} and engine.caches == {}
+
+
+def test_replayed_launches_are_the_cards(card):
+    """The launches the engine counts under replay are the decode kernels
+    the profiler sees on the card: one main kernel per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, params, engine = graph_engine(card, "mistral-nemo-12b", "bfloat16")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
+    before = da.launches
+    engine.run_task(0, prompt)  # captures: one eager warm-up step
+    assert da.launches == before + cfg.n_layers
+    assert engine.graphs[(0, 2, 11)].launches["decode_attention"] == cfg.n_layers
+    engine.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.run_task(0, prompt)
+    torch.cuda.synchronize()
+    assert da.launches == before + cfg.n_layers  # replays do not touch the wrapper's count
+    seen = sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and ("decode_split" in e.key or "decode_attention_kernel" in e.key))
+    assert seen == engine.replayed_launches["decode_attention"] == (6 + 4) * cfg.n_layers
+    assert engine.replayed_by_body["decode_attention"] == {"split": (6 + 4) * cfg.n_layers}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_CFGS))
+def test_decode_step_captures_under_sync_debug_error(card, name):
+    """Nothing on a captured decode step waits for the card: with
+    PyTorch's sync debug mode set to raise, the capture goes through."""
+    cfg, params, _ = graph_engine(card, name, "bfloat16")
+    cache = tm.init_cache(cfg, 2, 12, device=card)
+    tokens = torch.ones(2, dtype=torch.long, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tm.decode_step(params, cache, tokens, cfg, moe_dispatch="scan")  # builds and loads
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = tm.decode_step(params, cache, tokens, cfg, moe_dispatch="scan")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits.float()).all())
