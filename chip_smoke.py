@@ -88,6 +88,20 @@ any phase fails.  Phases:
    assignments and tokens; then with all four options on and each task's
    wall time pinned: equal assignments, tokens, SST rows, prefetch stats,
    health summaries and flight-recorder JSONL.
+5. Compass on the card: (5a) in a fresh process, the vectorized
+   Navigator planner on ``H100_CLUSTER`` at W = 5, 250 and 1,000 (four
+   racks, 80 and 94 GB cards) plans seeded jobs of the four paper and four
+   arch DFGs with every lane on, through its CUDA graphs and eagerly on
+   the card and on the CPU: assignments equal the Python Navigator's,
+   planned finish times within rel 1e-5, graph and eager bit for bit, the
+   recorder's provenance for one DFG; the median plan time of each way;
+   (5b) the card's pinned host->device rate, small-copy latencies
+   (``repro_torch.probe``, a fresh process), idle power.draw (read before
+   phase 1) and power limit, and NeMo's bf16 prefill rate (phase 3b),
+   each within 25 % of the constant of ``H100_CLUSTER`` or the arch
+   pipelines that it set; (5c) the port's quickstart comparison, and the
+   arch pipelines under Navigator and Hash (every job completes,
+   Navigator's hit rate above Hash's).
 
 It prints, in order: the card line, per-phase results, one JSON line with
 every kernel's numbers (with the shapes phases 3e-3g gave it and its
@@ -101,6 +115,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2294,6 +2309,280 @@ def reduced_example():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: Compass on the card
+# ---------------------------------------------------------------------------
+#: Phase 5a's cluster sizes and the jobs planned for each DFG at each.
+PLAN_JOBS = {5: 200, 250: 200, 1000: 50}
+#: Every lane of the planner on: a fixed eviction penalty (the vectorized
+#: planner's surrogate otherwise differs from the Python planner's by
+#: design), intents priced at 70 %, the anti-herd margin, suspect rows
+#: priced; the speculative cache is on by default.
+PLAN_CONFIG = dict(eviction_penalty_s=1.5, intent_confidence=0.7, intent_herd_margin=0.15,
+                   suspect_penalty_s=3.0)
+#: A phase 5b reading may stray this far from its constant.
+CONSTANT_TOL = 0.25
+
+
+def plan_cluster(n):
+    """``H100_CLUSTER`` at ``n`` workers over four racks (two for five
+    workers), every third card an H100 NVL's 94 GB."""
+    from repro_torch.core import H100_CLUSTER, rack_topology
+
+    racks = [n // 4] * 3 + [n - 3 * (n // 4)] if n >= 8 else [n // 2, n - n // 2]
+    return dataclasses.replace(
+        H100_CLUSTER, n_workers=n, topology=rack_topology(racks),
+        worker_gpu_capacity={w: 94e9 if w % 3 == 0 else H100_CLUSTER.gpu_capacity_bytes
+                             for w in range(n)})
+
+
+def plan_rows(n, n_models, rng):
+    """Seeded SST rows: cache and intent bits, free cache, intents fresh
+    and stale, in-flight fetches with their ETAs, dead and suspect rows."""
+    import numpy as np
+    from repro_torch.core import SSTRow
+
+    bits = rng.random((n, n_models)) < 0.25
+    intent = bits | (rng.random((n, n_models)) < 0.25)
+    weights = 1 << np.arange(n_models)
+    fetch = rng.integers(-1, n_models, n)
+    live = rng.choice(["alive"] * 6 + ["suspect", "dead"], n)
+    return [SSTRow(ft_estimate_s=float(rng.uniform(0, 5)),
+                   cache_bitmap=int(bits[w] @ weights), free_cache_bytes=float(rng.uniform(0, 80e9)),
+                   pushed_at=float(rng.choice([1.0, -30.0])), intent_bitmap=int(intent[w] @ weights),
+                   liveness=str(live[w]), fetch_model_id=int(fetch[w]),
+                   fetch_eta_s=float(rng.uniform(0.5, 3.0)) if fetch[w] >= 0 else 0.0)
+            for w in range(n)]
+
+
+def same_ft(a, b, rel):
+    return a == b if math.isinf(a) or math.isinf(b) else abs(a - b) <= rel * abs(b)
+
+
+def in_fresh_process(call: str):
+    """``call()`` of this script run by a new Python process on the card,
+    its output passed through; returns what it returns.  Phase 5 times in
+    a process that never ran the profiler: after phases 1-4 had run it in
+    this process, a 4 KiB copy took 30.5 µs here against 11-18 µs in fresh
+    processes, and the card's plans 1.4-1.6x as long."""
+    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.{call}(), default=str))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    lines = out.stdout.rstrip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if out.returncode != 0:
+        print(out.stderr, file=sys.stderr)
+        raise AssertionError(f"{call} in a fresh process exited with {out.returncode}")
+    return json.loads(lines[-1])
+
+
+def planner_on_card():
+    """Phase 5a: the vectorized planner through its CUDA graphs and
+    eagerly on the card, torch on the CPU and the Python Navigator plan
+    the same seeded jobs of the four paper and four arch DFGs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (FlightRecorder, Job, NavigatorConfig, NavigatorScheduler,
+                                  ProfileRepository)
+    from repro_torch.core.packed import PackedViews
+    from repro_torch.core.torch_planner import TorchNavigatorPlanner
+    from repro_torch.workflows import MODELS, paper_dfgs
+    from repro_torch.workflows.arch_pipelines import arch_dfgs, arch_models
+
+    cfg = NavigatorConfig(**PLAN_CONFIG)
+    ways = ("python", "torch_cpu", "card_eager", "card_graph")
+    out = {}
+    for n, n_jobs in PLAN_JOBS.items():
+        cluster = plan_cluster(n)
+        rng = np.random.default_rng(n)
+        times = {w: [] for w in ways}
+        tasks = infeasible = captures = 0
+        capture_ms = []
+        for models, dfgs in ((MODELS, paper_dfgs()), (arch_models(), arch_dfgs())):
+            profiles = ProfileRepository(cluster, models)
+            for d in dfgs:
+                profiles.register(d)
+            py = NavigatorScheduler(profiles, cfg)
+            cpu = TorchNavigatorPlanner(profiles, cfg, device="cpu")
+            graphed = TorchNavigatorPlanner(profiles, cfg, device="cuda")
+            # the same planner running its task loop eagerly on the card
+            eager = TorchNavigatorPlanner(profiles, cfg, device="cuda")
+            eager._outputs = lambda name, static, comps, p=eager: p._plan(static, comps)
+            for d in dfgs:
+                # the flight recorder on for one DFG: provenance from every planner
+                traced = d.name == "translation"
+                planners = (py, cpu, eager, graphed)
+                for p in planners:
+                    p.recorder = FlightRecorder(n) if traced else None
+                for j in range(n_jobs):
+                    rows = plan_rows(n, len(models), rng)
+                    origin = int(rng.integers(n))
+                    # every other job as the indexed engine's packed views (the
+                    # Python planner records no provenance from those)
+                    packed = j % 2 and not traced
+                    sst = PackedViews.from_rows(rows, reader=origin) if packed else rows
+                    job = Job(j, d, 1.0)
+                    got = {}
+                    for way, fn in (("python", lambda: py.plan(job, 1.0, origin, sst)),
+                                    ("torch_cpu", lambda: cpu.plan(job, 1.0, origin, sst)),
+                                    ("card_eager", lambda: eager.plan(job, 1.0, origin, sst)),
+                                    ("card_graph", lambda: graphed.plan(job, 1.0, origin,
+                                                                        sst))):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        got[way] = fn()
+                        times[way].append(time.perf_counter() - t0)
+                    want = got["python"]
+                    for way in ways[1:]:
+                        if got[way].assignment != want.assignment:
+                            raise AssertionError(f"W={n} {d.name} job {j}: {way} assigns "
+                                                 f"{got[way].assignment}, python "
+                                                 f"{want.assignment}")
+                        for t, ft in got[way].planned_ft.items():
+                            if not same_ft(ft, want.planned_ft[t], 1e-5):
+                                raise AssertionError(f"W={n} {d.name} job {j} {t}: {way} "
+                                                     f"planned_ft {ft}, python "
+                                                     f"{want.planned_ft[t]}")
+                    if got["card_graph"].planned_ft != got["card_eager"].planned_ft:
+                        raise AssertionError(f"W={n} {d.name} job {j}: graph and eager differ")
+                    tasks += len(want.assignment)
+                    infeasible += sum(math.isinf(ft) for ft in want.planned_ft.values())
+                if traced:
+                    check_provenance(n, d.name, *(p.recorder for p in planners))
+                    for p in planners:
+                        p.recorder = None
+            captures += len(graphed.graphs)
+            capture_ms += [g.capture_s * 1e3 for g in graphed.graphs.values()]
+            if eager.graphs:
+                raise AssertionError("the eager planner captured a graph")
+        med = {w: statistics.median(times[w]) * 1e3 for w in ways}
+        out[n] = dict(jobs=n_jobs * 8, tasks=tasks, infeasible_tasks=infeasible,
+                      graphs=captures, capture_ms=capture_ms, median_ms=med)
+        print(f"W={n}: {n_jobs} jobs x 8 DFGs, {tasks} tasks ({infeasible} fit no worker), "
+              f"{captures} graphs (capture {min(capture_ms):.1f}-{max(capture_ms):.1f} ms); "
+              f"median plan ms: "
+              + ", ".join(f"{w} {med[w]:.3f}" for w in ways), flush=True)
+    return out
+
+
+def check_provenance(n, name, py, cpu, eager, card):
+    """The recorded Eq. 2 candidates: the torch planners' JSONL equal (CPU,
+    card eager, card graph), their totals within 1e-3 s of the Python
+    planner's (as ``tests/test_telemetry.py`` holds the JAX planner's)."""
+    if not cpu.to_jsonl() == eager.to_jsonl() == card.to_jsonl():
+        raise AssertionError(f"W={n} {name}: the card's provenance differs from the CPU's")
+    decisions = 0
+    for dp, dc in zip(py.placements, card.placements):
+        if (dp.job_id, dp.task_id, dp.chosen) != (dc.job_id, dc.task_id, dc.chosen):
+            raise AssertionError(f"W={n} {name}: provenance of {dp.task_id} differs")
+        for cp, cc in zip(dp.candidates, dc.candidates):
+            if not (cp.worker == cc.worker and (cp.total_s == cc.total_s
+                                                or abs(cp.total_s - cc.total_s) <= 1e-3)):
+                raise AssertionError(f"W={n} {name} {dp.task_id} worker {cp.worker}: "
+                                     f"total {cc.total_s} against python {cp.total_s}")
+        decisions += 1
+    if decisions != len(py.placements) or not decisions:
+        raise AssertionError(f"W={n} {name}: {decisions} decisions recorded")
+    print(f"W={n} {name}: {decisions} recorded decisions agree", flush=True)
+
+
+def profiles_on_card(prefill, idle_w):
+    """Phase 5b: the readings behind ``H100_CLUSTER`` and the arch
+    pipelines' rate, beside the constants; a constant more than
+    ``CONSTANT_TOL`` from this run's reading fails."""
+    from repro_torch import probe
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import H100_CLUSTER
+    from repro_torch.workflows import arch_pipelines
+
+    link = probe.fresh_readings()
+    nemo = next(v for k, v in prefill.items() if k.startswith("mistral-nemo-12b"))
+    n = ARCHS["mistral-nemo-12b"].param_count()
+    flops = 2.0 * n * PREFILL_B * PREFILL_S
+    rate = flops / nemo["wall_s"][-1]  # the second call: the first builds and loads
+    rows = [
+        ("host->device rate (B/s)", link["bandwidth_bytes_per_s"],
+         H100_CLUSTER.link.bandwidth_bytes_per_s),
+        ("host->device 4 KiB latency (s)", link["delta_s"], H100_CLUSTER.link.delta_s),
+        ("device->device 4 KiB latency (s)", link["d2d_delta_s"], H100_CLUSTER.network.delta_s),
+        ("idle power.draw (W)", idle_w, H100_CLUSTER.gpu_power_idle_w),
+        ("power.limit (W)", probe.power_limit_w(), H100_CLUSTER.gpu_power_active_w),
+        ("bf16 prefill rate (FLOP/s)", rate, arch_pipelines._UTILIZED_FLOPS),
+    ]
+    out, bad = {}, []
+    for what, reading, constant in rows:
+        off = abs(constant - reading) / reading
+        print(f"{what}: read {reading!r}, constant {constant!r} ({off:.1%} apart)")
+        out[what] = dict(reading=reading, constant=constant, apart=off)
+        if off > CONSTANT_TOL:
+            bad.append(what)
+    print(f"NeMo prefill: {flops:.4e} FLOP in {nemo['wall_s'][-1]!r} s")
+    if bad:
+        raise AssertionError(f"constants more than {CONSTANT_TOL:.0%} from this card: {bad}")
+    return out
+
+
+def compass_simulator():
+    """Phase 5c: the port's quickstart comparison (the paper's four
+    workflows on five workers, Poisson 2 jobs/s for 300 s, seed 7), then
+    the arch pipelines under Navigator and Hash.  ``H100_CLUSTER``'s
+    workers are single 80 GB cards, which hold none of the four arch
+    pipelines (llama3-405b alone needs 1.30 TB with its cached copy): the
+    simulator refuses them there, so they run on eight pods of 24 cards
+    (three HGX nodes, 1.92 TB), each fed by 24 of the card's host links."""
+    from repro_torch.core import H100_CLUSTER, AcceleratorLink, ClusterSpec, ProfileRepository
+    from repro_torch.sim import Simulation, poisson_workload
+    from repro_torch.workflows import MODELS, paper_dfgs
+    from repro_torch.workflows.arch_pipelines import arch_dfgs, arch_models
+
+    def run(cluster, models, dfgs, sched, rate, duration, seed, sim_seed):
+        profiles = ProfileRepository(cluster, models)
+        for d in dfgs:
+            profiles.register(d)
+        jobs = poisson_workload(dfgs, rate, duration, seed=seed)
+        t0 = time.perf_counter()
+        res = Simulation(cluster, profiles, models, scheduler=sched, seed=sim_seed).run(jobs)
+        if len(res.records) != len(jobs):
+            raise AssertionError(f"{sched}: {len(res.records)} of {len(jobs)} jobs completed")
+        return res, time.perf_counter() - t0
+
+    def table(title, cluster, models, dfgs, scheds, rate, duration, seed, sim_seed):
+        print(title)
+        print(f"{'scheduler':>10} | {'mean lat':>8} | {'slowdown':>8} | {'hit rate':>8} | "
+              f"{'GPU util':>8} | {'jobs':>5} | {'host s':>6}")
+        rows = {}
+        for sched in scheds:
+            res, wall = run(cluster, models, dfgs, sched, rate, duration, seed, sim_seed)
+            rows[sched] = dict(mean_latency=res.mean_latency, slowdown=res.mean_slowdown,
+                               hit_rate=res.cache_hit_rate, gpu_util=res.gpu_utilization,
+                               jobs=len(res.records), host_s=wall)
+            print(f"{sched:>10} | {res.mean_latency:7.2f}s | {res.mean_slowdown:8.2f} | "
+                  f"{res.cache_hit_rate * 100:7.1f}% | {res.gpu_utilization * 100:7.1f}% | "
+                  f"{len(res.records):5d} | {wall:6.2f}", flush=True)
+        return rows
+
+    quick = table("quickstart: 5 workers, Poisson 2 jobs/s for 300 s, seed 7",
+                  ClusterSpec(n_workers=5), MODELS, paper_dfgs(),
+                  ("navigator", "jit", "heft", "hash"), 2.0, 300.0, 7, 1)
+    try:
+        run(H100_CLUSTER, arch_models(), arch_dfgs(), "navigator", 1.2, 10.0, 5, 1)
+    except ValueError as e:
+        print(f"arch pipelines on H100_CLUSTER, refused as expected: {e}")
+    else:
+        raise AssertionError("H100_CLUSTER ran the arch pipelines on single cards")
+    cards = 24
+    pods = dataclasses.replace(
+        H100_CLUSTER, gpu_capacity_bytes=cards * H100_CLUSTER.gpu_capacity_bytes,
+        link=AcceleratorLink(cards * H100_CLUSTER.link.bandwidth_bytes_per_s,
+                             H100_CLUSTER.link.delta_s))
+    arch = table(f"arch pipelines: 8 pods of {cards} H100s, Poisson 1.2 jobs/s for 300 s, seed 5",
+                 pods, arch_models(), arch_dfgs(), ("navigator", "hash"), 1.2, 300.0, 5, 1)
+    if not arch["navigator"]["hit_rate"] > arch["hash"]["hit_rate"]:
+        raise AssertionError(f"Navigator's hit rate {arch['navigator']['hit_rate']} does not "
+                             f"exceed Hash's {arch['hash']['hit_rate']}")
+    return dict(quickstart=quick, arch=arch)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--out", type=Path, default=None,
@@ -2315,6 +2604,14 @@ def main() -> None:
 
     card = card_line()
     print(card)
+    from repro_torch import probe
+
+    # the idle card, with this process's context open and before any load
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    time.sleep(1.0)
+    idle_w = probe.idle_power_w()
+    print(f"idle power.draw: {idle_w} W")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phases = Phases()
@@ -2342,6 +2639,11 @@ def main() -> None:
     release_models()
     reduced = phases.run("phase 4: reduced fp32 example, kernel against plain", reduced_example) \
         if built else None
+    planner = phases.run("phase 5a: the Navigator planner on the card", in_fresh_process,
+                         "planner_on_card")
+    constants = phases.run("phase 5b: the card's readings against the H100 constants",
+                           profiles_on_card, prefill or {}, idle_w)
+    simulated = phases.run("phase 5c: the simulator on the card's host", compass_simulator)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
@@ -2349,7 +2651,8 @@ def main() -> None:
                  gmm=gmm_rows, serving=served, prefill=prefill, planes=planes,
                  qwen3_moe=qwen,
                  deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
-                 reduced=reduced,
+                 reduced=reduced, planner=planner, constants=constants,
+                 simulator=simulated, idle_power_w=idle_w,
                  failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))
     if phases.failed or not built:
         die(f"failed phases: {phases.failed}")

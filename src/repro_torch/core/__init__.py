@@ -3,8 +3,11 @@ alone: DFG/ADFG types, the profile repository and upward ranks (Eq. 1),
 the four schedulers (Navigator, JIT, HEFT, Hash), the GPU memory manager,
 the shared state table and its gossip plane, the prefetch plane, the
 flight recorder and the health plane.  Everything here is plain Python
-and numpy.  The reference's ``TPU_V5E_CLUSTER`` has no copy: it describes
-a TPU, and an H100 cluster spec takes its place in a later slice.
+and numpy, but ``torch_planner`` (the vectorized Navigator planner, the
+counterpart of the reference's ``jax_planner``), which is not imported
+here.  The reference's ``TPU_V5E_CLUSTER`` has no copy: it describes a
+TPU; ``H100_CLUSTER`` (one HGX H100 node, its link and power read on the
+card) takes its place.
 """
 
 from repro_torch.core.healthplane import (
@@ -19,6 +22,7 @@ from repro_torch.core.memory import CacheStats, GpuMemoryManager
 from repro_torch.core.netmodel import (
     AcceleratorLink,
     ClusterSpec,
+    H100_CLUSTER,
     LinkSpec,
     NetworkModel,
     NetworkState,
@@ -85,6 +89,7 @@ __all__ = [
     "GossipConfig",
     "GossipPlane",
     "GpuMemoryManager",
+    "H100_CLUSTER",
     "HEFTScheduler",
     "HashScheduler",
     "HealthConfig",

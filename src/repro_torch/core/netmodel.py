@@ -324,3 +324,26 @@ class ClusterSpec:
         if self.topology is None:
             return self.network.transfer_time(nbytes)
         return self.topology.transfer_time(nbytes, src, dst)
+
+
+#: One HGX H100 node: eight H100 SXM cards as Navigator workers.  The
+#: link, the latencies and the idle power were read by ``chip_smoke.py``
+#: (phase 5b, through ``repro_torch.probe``) on an "NVIDIA H100 80GB HBM3,
+#: 700.00 W" card; phase 5b and ``tests/test_torch_cuda.py`` fail when a
+#: reading strays more than 25 % from its constant.
+H100_CLUSTER = ClusterSpec(
+    n_workers=8,  # one HGX H100 node
+    gpu_capacity_bytes=80e9,  # HBM3 per card, 80 GB (data sheet)
+    # NVLink 4: 900 GB/s per card both ways, 450 GB/s a direction (data
+    # sheet); latency: the host-clock time of a 4 KiB device→device copy on
+    # one card (``repro_torch.probe``: the least median over host cores and
+    # rounds; the hop between two cards was not read: one card)
+    network=NetworkModel(bandwidth_bytes_per_s=450e9, delta_s=1.2e-5),
+    # pinned host→device copy: the rate of a 1 GiB copy (50 GB/s, PCIe
+    # Gen5 x16) and the host-clock time of a 4 KiB copy (the least median
+    # over host cores and rounds)
+    link=AcceleratorLink(bandwidth_bytes_per_s=5.05e10, delta_s=1.15e-5),
+    gpu_power_active_w=700.0,  # nvidia-smi power.limit
+    # nvidia-smi power.draw of the idle card with a CUDA context open
+    gpu_power_idle_w=128.0,
+)

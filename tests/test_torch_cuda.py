@@ -741,3 +741,121 @@ def test_decode_step_captures_under_sync_debug_error(card, name):
     graph.replay()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(logits.float()).all())
+
+
+# ---------------------------------------------------------------------------
+# the vectorized Navigator planner on the card, and the H100 constants
+# ---------------------------------------------------------------------------
+def planner_setup(n):
+    """The paper's workflows on ``H100_CLUSTER`` at ``n`` workers over four
+    racks, every third card with 94 GB, and seeded SST rows with every
+    lane on: dead and suspect rows, fresh and stale intents, in-flight
+    fetches with their ETAs."""
+    import dataclasses
+
+    from repro_torch.core import (H100_CLUSTER, NavigatorConfig, ProfileRepository, SSTRow,
+                                  rack_topology)
+    from repro_torch.workflows import MODELS, paper_dfgs
+
+    cluster = dataclasses.replace(
+        H100_CLUSTER, n_workers=n, topology=rack_topology([n // 4] * 3 + [n - 3 * (n // 4)]),
+        worker_gpu_capacity={w: 94e9 if w % 3 == 0 else 80e9 for w in range(n)})
+    profiles = ProfileRepository(cluster, MODELS)
+    for d in paper_dfgs():
+        profiles.register(d)
+    cfg = NavigatorConfig(eviction_penalty_s=1.5, intent_confidence=0.7, intent_herd_margin=0.15,
+                          suspect_penalty_s=3.0)
+    rng = np.random.default_rng(n)
+
+    def rows():
+        bits = rng.random((n, 8)) < 0.25
+        intent = bits | (rng.random((n, 8)) < 0.25)
+        weights = 1 << np.arange(8)
+        fetch = rng.integers(-1, 8, n)
+        live = rng.choice(["alive"] * 6 + ["suspect", "dead"], n)
+        return [SSTRow(ft_estimate_s=float(rng.uniform(0, 5)), cache_bitmap=int(bits[w] @ weights),
+                       free_cache_bytes=float(rng.uniform(0, 80e9)),
+                       pushed_at=float(rng.choice([1.0, -30.0])),
+                       intent_bitmap=int(intent[w] @ weights), liveness=str(live[w]),
+                       fetch_model_id=int(fetch[w]),
+                       fetch_eta_s=float(rng.uniform(0.5, 3.0)) if fetch[w] >= 0 else 0.0)
+                for w in range(n)]
+
+    return profiles, cfg, rows, paper_dfgs()
+
+
+def test_planner_graph_equals_eager_at_1000_workers(card):
+    """Through its CUDA graphs the planner gives the eager loop's plans bit
+    for bit, and the Python Navigator's assignments, at W = 1,000 with
+    every lane on and the recorder on and off."""
+    from repro_torch.core import FlightRecorder, Job, NavigatorScheduler
+    from repro_torch.core.torch_planner import TorchNavigatorPlanner
+
+    n = 1000
+    profiles, cfg, rows, dfgs = planner_setup(n)
+    graphed = TorchNavigatorPlanner(profiles, cfg, device=card)
+    eager = TorchNavigatorPlanner(profiles, cfg, device=card)
+    eager._outputs = lambda name, static, comps: eager._plan(static, comps)  # the eager loop
+    py = NavigatorScheduler(profiles, cfg)
+    for traced in (False, True):
+        for p in (eager, graphed):
+            p.recorder = FlightRecorder(n) if traced else None
+        for j in range(12):
+            d = dfgs[j % len(dfgs)]
+            sst, origin, job = rows(), (97 * j) % n, Job(j, d, 1.0)
+            a = eager.plan(job, 1.0, origin, sst)
+            b = graphed.plan(job, 1.0, origin, sst)
+            assert a.assignment == b.assignment == py.plan(job, 1.0, origin, sst).assignment
+            assert a.planned_ft == b.planned_ft
+        if traced:
+            assert eager.recorder.to_jsonl() == graphed.recorder.to_jsonl()
+    assert eager.graphs == {} and len(graphed.graphs) == 2 * len(dfgs)
+    assert all(g.replays >= 1 for g in graphed.graphs.values())
+
+
+def test_planner_captures_under_sync_debug_error(card):
+    """Nothing on a captured plan waits for the card: ``_graph`` captures
+    under sync debug mode "error", and a replay between two loads of the
+    feed needs no synchronize of its own."""
+    from repro_torch.core import Job
+    from repro_torch.core.torch_planner import TorchNavigatorPlanner, build_static_inputs
+
+    profiles, cfg, rows, dfgs = planner_setup(64)
+    planner = TorchNavigatorPlanner(profiles, cfg, device=card)
+    d = dfgs[0]
+    static = build_static_inputs(profiles, d)
+    planner._feed.load(planner._pack_feed(rows(), 1.0, 64), 1.0, 3)
+    g = planner._graph(d.name, static, False)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = g.replay()
+        planner._feed.load(planner._pack_feed(rows(), 2.0, 64), 2.0, 5)
+        out = g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = planner._plan(static, False)
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    adfg = planner.plan(Job(0, d, 2.0), 2.0, 5, rows())
+    assert set(adfg.assignment) == set(d.tasks)
+
+
+def test_h100_cluster_matches_the_card(card):
+    """``H100_CLUSTER``'s link, latencies and power are this card's, within
+    phase 5b's 25 % (``chip_smoke.py``)."""
+    import time
+
+    from repro_torch import probe
+    from repro_torch.core import H100_CLUSTER
+
+    torch.cuda.synchronize()
+    time.sleep(2.0)  # let the card settle after the earlier tests
+    link = probe.fresh_readings()  # a process that never ran the profiler
+    readings = {
+        "rate": (link["bandwidth_bytes_per_s"], H100_CLUSTER.link.bandwidth_bytes_per_s),
+        "delta": (link["delta_s"], H100_CLUSTER.link.delta_s),
+        "d2d": (link["d2d_delta_s"], H100_CLUSTER.network.delta_s),
+        "idle": (link["idle_power_w"], H100_CLUSTER.gpu_power_idle_w),
+        "limit": (probe.power_limit_w(), H100_CLUSTER.gpu_power_active_w),
+    }
+    for what, (reading, constant) in readings.items():
+        assert abs(constant - reading) <= 0.25 * reading, (what, reading, constant)
