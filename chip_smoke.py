@@ -24,7 +24,15 @@ any phase fails.  Phases:
    the new body and the body it replaced are timed in turns (new, old,
    old, new) in the same run: decode's split against single (2), flash's
    and the grouped matmul's wgmma against mma.sync (2b, 2d), the SSD
-   scan's chunked against serial (2c);
+   scan's chunked against serial (2c); then (2e) the flash backward
+   kernel against ``flash_attention_bwd_plain`` at the training shapes
+   (NeMo's B = 2, S = 2048; granite's MQA; whisper's 1,500-frame encoder;
+   zamba2's window at D = 112; NeMo's in fp32), on the forward kernel's
+   output and LSE, held as phase 2 holds decode (bf16 errors scaled to
+   each row), with its time, its bound (10·H·D flops a visible pair),
+   the plain version's and the backward of
+   ``scaled_dot_product_attention``, and the forward with and without
+   its LSE store, in turns;
 3. the decode path at full width in bf16: a 3-worker ServingCluster on one
    card serving 10 pipeline requests (prompts (2, 64)) over
    mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
@@ -102,6 +110,18 @@ any phase fails.  Phases:
    pipelines that it set; (5c) the port's quickstart comparison, and the
    arch pipelines under Navigator and Hash (every job completes,
    Navigator's hit rate above Hash's).
+6. training at full width: mistral-nemo-12b at its full width and 8 of
+   its 40 layers (3.52 B parameters; 6 where 8 pass 70 GB at their peak,
+   printed as a cut), bf16 params and fp32 AdamW moments, through
+   ``make_train_step`` (remat) over the synthetic pipeline at B = 2,
+   S = 2048: one warm-up and five timed steps with the counts set to 0
+   just before them (every flash forward on wgmma, layers × 2 a step
+   with remat's recomputation; every backward on mma, layers × 1),
+   finite losses, moved params, the step time, tokens/s, 6·N·tokens over
+   the step time, the peak memory, the busy share and the top kernels of
+   one more step under the profiler; then one step at 2 layers, kernel
+   path against plain path (``impl="ref"``): loss, grad norm and every
+   leaf's gradient (cosine, and max error against the leaf's largest).
 
 It prints, in order: the card line, per-phase results, one JSON line with
 every kernel's numbers (with the shapes phases 3e-3g gave it and its
@@ -850,6 +870,144 @@ def gmm_vs_plain():
                   f"(oracle {oracle_err:.2e}) {times} "
                   f"bound={bound_ms:.4f} ms ({bound_by})", flush=True)
             del x, w
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the flash backward kernel against its plain twin
+# ---------------------------------------------------------------------------
+# (model, B, Sq, Sk, H, KH, D, case, causal, window, q_offset, dtype): the
+# training shapes of the zoo's attention: NeMo's (phase 6's), granite's
+# MQA, whisper's bidirectional encoder, zamba2's windowed shared block,
+# and NeMo's in fp32
+BWD_SHAPES = [
+    ("mistral-nemo-12b", 2, 2048, 2048, 32, 8, 128, "causal", True, None, 0, "bfloat16"),
+    ("granite-20b", 2, 2048, 2048, 48, 1, 128, "causal", True, None, 0, "bfloat16"),
+    ("whisper-medium", 2, 1500, 1500, 16, 16, 64, "encoder", False, None, 0, "bfloat16"),
+    ("zamba2-7b", 2, 2048, 2048, 32, 32, 112, "window 4096", True, 4096, 0, "bfloat16"),
+    ("mistral-nemo-12b", 2, 2048, 2048, 32, 8, 128, "causal", True, None, 0, "float32"),
+]
+BWD_MAIN = dict(model="mistral-nemo-12b", case="causal", dtype="bfloat16")
+#: The backward's operations per visible (query, key) pair and head, against
+#: the forward's 4·D: S and dP (recomputed), dV, dK and dQ, about 2.5 times
+#: the forward's (the second S and dP of the dQ pass are the price of no
+#: atomics and are not counted in the least work).
+BWD_FLOPS_PER_PAIR_D = 10
+
+
+def grad_close(got, want, dtype):
+    """Phase 2e's check of a gradient, scaled to each row (over the head
+    dim) as phase 2 scales decode's.  bf16: the error within 2e-2 of the
+    row's largest |want|, floored at 1e-3 of the tensor's largest (a row
+    whose gradient cancels to ~0, such as a causal query's first, is held
+    to the tensor's scale).  fp32: the reference's atol = rtol = 2e-5, the
+    atol times the row's largest |want| where that passes 1 (dk and dv sum
+    G·Sq terms, and fp32 rounds the sum to its own scale).  Returns (ok,
+    max error, max error over its row's scale)."""
+    tol = TOL[dtype]
+    got, want = got.float(), want.float()
+    rowmax = want.abs().amax(dim=-1, keepdim=True)
+    row = rowmax.clamp(min=1e-3 * float(want.abs().max()))
+    err = (got - want).abs()
+    if dtype == "float32":
+        ok = bool((err <= tol * rowmax.clamp(min=1.0) + tol * want.abs()).all())
+    else:
+        ok = bool((err <= tol * row).all())
+    return ok, float(err.max()), float((err / row).max())
+
+
+def flash_bwd_bound(b, sq, sk, h, kh, d, causal, window, q_offset, dtype, itemsize):
+    """Least time (ms) of the backward: q, k, v, o, dO and lse read once,
+    dq, dk, dv written once, against 10·H·D flops per visible pair."""
+    nbytes = (4 * b * sq * h * d + 4 * b * sk * kh * d) * itemsize + 4 * b * h * sq
+    flops = BWD_FLOPS_PER_PAIR_D * b * h * d * visible_pairs(sq, sk, causal, window, q_offset)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window, q_offset, flush, reps):
+    """The backward of ``scaled_dot_product_attention`` on the same inputs
+    (timed only): ``torch.autograd.grad`` through SDPA, less SDPA's forward."""
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lib = flash_library_call(*leaves, causal, window, q_offset)
+    dos = do.transpose(1, 2).contiguous()
+
+    def both():
+        out = lib()
+        torch.autograd.grad(out, leaves, dos)
+
+    def forward_only():
+        with torch.no_grad():
+            lib()
+
+    return cuda_time_ms(both, flush, reps=reps) - cuda_time_ms(forward_only, flush, reps=reps)
+
+
+def flash_bwd_vs_plain():
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for model, b, sq, sk, h, kh, d, case, causal, window, q_offset, dtype in BWD_SHAPES:
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        tdt = getattr(torch, dtype)
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev, dtype=tdt)
+        k = torch.randn(b, sk, kh, d, generator=gen, device=dev, dtype=tdt)
+        v = torch.randn(b, sk, kh, d, generator=gen, device=dev, dtype=tdt)
+        do = torch.randn(b, sq, h, d, generator=gen, device=dev, dtype=tdt)
+        # the training path's inputs: the forward kernel's output and LSE
+        out, lse = fa._launch(q, k, v, causal, window, q_offset, None, True)
+        _, plain_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        lse_err = float((lse - plain_lse).abs().nan_to_num(0.0).max())
+        if lse_err > 1e-3 or not torch.equal(torch.isneginf(lse), torch.isneginf(plain_lse)):
+            raise AssertionError(f"flash forward LSE {model} {dtype}: max err {lse_err}")
+        body = fb.body_for(tdt, d)
+        got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+        errs = {}
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            ok, err, rel = grad_close(x, w, dtype)
+            errs[name] = dict(max_abs_err=err, max_row_rel_err=rel)
+            if not ok:
+                raise AssertionError(f"flash backward {model} {dtype} {case} {name}: max err "
+                                     f"{err} ({rel:.3e} of its row) outside {TOL[dtype]}")
+        del got, want
+        reps = 10 if sq * sk <= 2048 * 2048 else 5
+        kernel_ms = cuda_time_ms(lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+                                 flush, reps=reps)
+        plain_ms = cuda_time_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw),
+                                flush, reps=3, warmup=1)
+        library_ms = sdpa_backward_ms(q, k, v, do, causal, window, q_offset, flush, reps)
+        # the forward with and without its LSE store, in turns
+        with_lse_ms, without_lse_ms, lse_turns = in_turns(
+            lambda: fa._launch(q, k, v, causal, window, q_offset, None, True),
+            lambda: fa._launch(q, k, v, causal, window, q_offset, None, False), flush, reps)
+        bound_ms, nbytes, flops, bound_by = flash_bwd_bound(b, sq, sk, h, kh, d, causal, window,
+                                                            q_offset, dtype, q.element_size())
+        row = dict(model=model, b=b, s=sq, sk=sk, h=h, kh=kh, d=d, case=case, dtype=dtype,
+                   body=body, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   errors=errs, lse_err=lse_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes, flops=flops,
+                   bound_by=bound_by, kernel_tflops=flops / kernel_ms / 1e9,
+                   forward_body=fa.body_for(tdt, d), forward_with_lse_ms=with_lse_ms,
+                   forward_without_lse_ms=without_lse_ms, forward_lse_turns_ms=lse_turns)
+        rows.append(row)
+        err_txt = "/".join(f"{e['max_abs_err']:.2e}" for e in errs.values())
+        print(f"{model:18s} {dtype:8s} B={b} S={sq:5d}x{sk:5d} H={h:3d} KH={kh:3d} D={d:3d} "
+              f"{case:12s} {body} err dq/dk/dv={err_txt} "
+              f"kernel={kernel_ms:.4f} ms plain={plain_ms:.4f} ms library (SDPA backward)="
+              f"{library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+              f"{row['kernel_tflops']:.1f} TFLOP/s; forward ({row['forward_body']}) with LSE "
+              f"{with_lse_ms:.4f} ms, without {without_lse_ms:.4f} ms; LSE err {lse_err:.1e}",
+              flush=True)
+        del q, k, v, do, out, lse, plain_lse
     return rows
 
 
@@ -1606,11 +1764,13 @@ def counts_zeroed(*engines):
     step among them) plus the launches of the engines' graph replays."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ssd_scan as ssd
 
-    da.launches = fa.launches = ssd.launches = gmm.launches = 0
-    for mod in (da, fa, ssd, gmm):
+    # the backward's count is zeroed too, and read by phase 6 alone
+    da.launches = fa.launches = fb.launches = ssd.launches = gmm.launches = 0
+    for mod in (da, fa, fb, ssd, gmm):
         mod.launches_by_body.clear()
     for e in engines:
         e.reset_counts()
@@ -1908,9 +2068,10 @@ def argmax_agreement(x, y, x_last, y_last):
                 last_top2=(top2(x_last), top2(y_last)))
 
 
-def profile_call(fn, what):
+def profile_call(fn, what, top=0):
     """Device time of one call of ``fn`` (the profiler's device events)
-    against its wall time, which ends in a synchronise."""
+    against its wall time, which ends in a synchronise; with ``top``, also
+    the ``top`` kernels that took the most device time, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1926,7 +2087,16 @@ def profile_call(fn, what):
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3
     print(f"profile of {what}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms wall "
           f"({100 * device_ms / wall_ms:.1f} %)", flush=True)
-    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms)
+    out = dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms)
+    if top:
+        rows = sorted(((getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        out["top"] = [dict(ms=ms, count=n, kernel=k) for ms, n, k in rows[::-1][:top]]
+        for r in out["top"]:
+            print(f"  {r['ms']:9.3f} ms  x{r['count']:5d}  {r['kernel'][:110]}")
+    return out
 
 
 def serve_task(cfg, params, prompt, want_decode):
@@ -2583,6 +2753,177 @@ def compass_simulator():
     return dict(quickstart=quick, arch=arch)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training at full width
+# ---------------------------------------------------------------------------
+TRAIN_MODEL = "mistral-nemo-12b"
+TRAIN_LAYERS = 8          # of NeMo's 40: 3.52 B parameters
+TRAIN_LAYERS_CUT = 6      # where 8 layers pass TRAIN_PEAK_BYTES
+TRAIN_PEAK_BYTES = 70e9
+TRAIN_STEPS = 5           # timed, after one warm-up step
+TRAIN_COMPARE_LAYERS = 2  # the kernel path against the plain path
+# the 2-layer step held kernel path against plain path: each leaf's
+# gradient at cosine >= 0.99 and max error within this share of the leaf's
+# largest |gradient| (bf16 rounds the two paths' products differently)
+TRAIN_COS = 0.99
+TRAIN_LEAF_TOL = 0.05
+
+
+def train_step_run(cfg, steps):
+    """``make_train_step`` (remat, fp32 AdamW moments) on NeMo's width at
+    ``cfg``'s depth over the synthetic pipeline: one warm-up step, then
+    ``steps`` timed steps, the counts set to 0 just before them and read
+    just after."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models import init_params
+    from repro_torch.training import make_train_step, optimizer as opt
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(17), dev)
+    state = opt.init(params)
+    n = cfg.param_count()
+    step = make_train_step(cfg, opt.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100),
+                           device=dev)
+    data = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=PREFILL_S, global_batch=PREFILL_B,
+                                    seed=3))
+    probe_leaf = params["layers"]["wq"][0, :64, :64].detach().clone()
+    params, state, metrics = step(params, state, next(data))  # warm-up
+    torch.cuda.synchronize()
+    warm_loss = float(metrics["loss"])
+    batches = [next(data) for _ in range(steps)]
+    read = counts_zeroed()
+    walls, losses, norms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = read()
+    fwd_by_body, bwd_launches = dict(fa.launches_by_body), fb.launches
+    bwd_by_body = dict(fb.launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    moved = float((params["layers"]["wq"][0, :64, :64].detach() - probe_leaf).abs().max())
+    out = dict(layers=cfg.n_layers, params=n, steps=steps, wall_s=walls, losses=losses,
+               grad_norms=norms, warm_up_loss=warm_loss, launches=launches,
+               flash_by_body=fwd_by_body, bwd_launches=bwd_launches, bwd_by_body=bwd_by_body,
+               peak_bytes=peak, moved=moved)
+    return params, state, step, data, out
+
+
+def train_full_width():
+    """Phase 6: NeMo at full width and 8 of its 40 layers, bf16 params and
+    fp32 AdamW moments, B = 2, S = 2048 of the synthetic pipeline, through
+    ``make_train_step`` with remat: one warm-up step and five timed steps,
+    every flash forward on wgmma and every backward on mma, the counts per
+    step, finite losses, moved params, the step time, tokens/s, 6·N·tokens
+    over the step time, the peak memory and the device's busy share; then
+    one step's loss, grad-norm and per-leaf gradients at 2 layers, kernel
+    path against plain path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models import init_params, next_token_loss
+
+    release_models()
+    dev = torch.device("cuda")
+    base = ARCHS[TRAIN_MODEL]
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS)
+    print(f"{TRAIN_MODEL} depth cut: {base.n_layers} -> {TRAIN_LAYERS} layers "
+          f"({cfg.param_count() / 1e9:.2f} B parameters; bf16 params and grads, fp32 AdamW "
+          f"moments)", flush=True)
+    params, state, step, data, out = train_step_run(cfg, TRAIN_STEPS)
+    cut = None
+    if out["peak_bytes"] > TRAIN_PEAK_BYTES:
+        cut = (f"{TRAIN_LAYERS} layers peaked at {out['peak_bytes'] / 1e9:.1f} GB, above "
+               f"{TRAIN_PEAK_BYTES / 1e9:.0f} GB: {TRAIN_LAYERS_CUT} layers")
+        print(f"cut: {cut}", flush=True)
+        del params, state, step, data
+        release_models()
+        cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS_CUT)
+        params, state, step, data, out = train_step_run(cfg, TRAIN_STEPS)
+    out["cut"] = cut
+    layers, steps = cfg.n_layers, TRAIN_STEPS
+    want_fwd, want_bwd = steps * layers * 2, steps * layers
+    tokens = PREFILL_B * PREFILL_S
+    med = statistics.median(out["wall_s"])
+    out.update(step_s=med, tokens_per_s=tokens / med,
+               tflops=6.0 * out["params"] * tokens / med / 1e12)
+    print(f"{TRAIN_MODEL}@{layers}: {out['params'] / 1e9:.3f} B params; steps "
+          f"{', '.join(f'{w:.4f}' for w in out['wall_s'])} s (median {med:.4f} s), "
+          f"{out['tokens_per_s']:.0f} tokens/s, 6·N·tokens/step time = {out['tflops']:.1f} "
+          f"TFLOP/s; peak {out['peak_bytes'] / 1e9:.2f} GB; losses "
+          f"{', '.join(f'{x:.4f}' for x in out['losses'])} (warm-up {out['warm_up_loss']:.4f}); "
+          f"grad norms {', '.join(f'{x:.3f}' for x in out['grad_norms'])}; "
+          f"flash launches {out['launches']['flash_attention']} (expected {want_fwd}) by body "
+          f"{out['flash_by_body']}; backward launches {out['bwd_launches']} (expected "
+          f"{want_bwd}) by body {out['bwd_by_body']}; params moved by {out['moved']:.3e}",
+          flush=True)
+    if not all(np.isfinite(out["losses"])) or not all(np.isfinite(out["grad_norms"])):
+        raise AssertionError("non-finite training loss or grad norm")
+    if not out["moved"] > 0:
+        raise AssertionError("the params did not move")
+    if out["launches"]["flash_attention"] != want_fwd or out["flash_by_body"] != {"wgmma": want_fwd}:
+        raise AssertionError(f"flash forward launches {out['flash_by_body']}, expected "
+                             f"{want_fwd} on wgmma")
+    if out["bwd_launches"] != want_bwd or out["bwd_by_body"] != {"mma": want_bwd}:
+        raise AssertionError(f"flash backward launches {out['bwd_by_body']}, expected "
+                             f"{want_bwd} on mma")
+    others = {k: v for k, v in out["launches"].items() if k != "flash_attention" and v}
+    if others:
+        raise AssertionError(f"training launched other kernels: {others}")
+    batch = next(data)
+    out["profile"] = profile_call(lambda: step(params, state, batch),
+                                  f"one {TRAIN_MODEL}@{layers} train step", top=15)
+    del params, state, step, data
+    release_models()
+
+    # the kernel path against the plain path, at 2 layers
+    cfg2 = dataclasses.replace(base, n_layers=TRAIN_COMPARE_LAYERS)
+    params = init_params(cfg2, torch.Generator(device=dev).manual_seed(19), dev)
+    params.requires_grad_(True)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    runs = {}
+    for impl in ("auto", "ref"):
+        loss = next_token_loss(params, {"tokens": toks}, cfg2, impl=impl, remat=True)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in params.named_parameters()}
+        norm = float(torch.sqrt(sum((g * g).sum() for g in grads.values())))
+        runs[impl] = (float(loss), norm, grads)
+        params.zero_grad(set_to_none=True)
+    (la, na, ga), (lr_, nr, gr) = runs["auto"], runs["ref"]
+    leaves = {}
+    for n, g in gr.items():
+        cos = float(torch.nn.functional.cosine_similarity(ga[n].flatten(), g.flatten(), dim=0))
+        rel = float((ga[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+        leaves[n] = dict(cosine=cos, max_err_share=rel)
+    worst_cos = min(v["cosine"] for v in leaves.values())
+    worst_rel = max(v["max_err_share"] for v in leaves.values())
+    print(f"{TRAIN_MODEL}@{TRAIN_COMPARE_LAYERS} one step, kernel path against plain path: "
+          f"loss {la:.5f} / {lr_:.5f}, grad norm {na:.5f} / {nr:.5f}; per leaf: lowest cosine "
+          f"{worst_cos:.5f}, largest max error {worst_rel:.4f} of the leaf's largest", flush=True)
+    for n, v in sorted(leaves.items()):
+        print(f"  {n}: cosine {v['cosine']:.5f}, max err {v['max_err_share']:.4f}")
+    out["compare"] = dict(layers=TRAIN_COMPARE_LAYERS, loss=(la, lr_), grad_norm=(na, nr),
+                          leaves=leaves)
+    if not (abs(la - lr_) <= TOL["bfloat16"] * abs(lr_) and abs(na - nr) <= TOL["bfloat16"] * nr):
+        raise AssertionError("the kernel path's loss or grad norm differs from the plain path's")
+    if worst_cos < TRAIN_COS or worst_rel > TRAIN_LEAF_TOL:
+        raise AssertionError(f"gradients differ: cosine {worst_cos}, max err {worst_rel}")
+    del params, runs, ga, gr, grads, loss, g
+    release_models()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--out", type=Path, default=None,
@@ -2621,6 +2962,8 @@ def main() -> None:
         if built else None
     ssd_rows = phases.run("phase 2c: ssd_scan against plain", ssd_vs_plain) if built else None
     gmm_rows = phases.run("phase 2d: moe_gmm against plain", gmm_vs_plain) if built else None
+    bwd_rows = phases.run("phase 2e: flash_attention backward against plain", flash_bwd_vs_plain) \
+        if built else None
     served = phases.run("phase 3: serving at full width (bf16)", serve_full_width) if built else None
     prefill = phases.run("phase 3b: prefill at full width (bf16)", prefill_full_width) \
         if built else None
@@ -2644,11 +2987,13 @@ def main() -> None:
     constants = phases.run("phase 5b: the card's readings against the H100 constants",
                            profiles_on_card, prefill or {}, idle_w)
     simulated = phases.run("phase 5c: the simulator on the card's host", compass_simulator)
+    training = phases.run(f"phase 6: {TRAIN_MODEL} training at full width, {TRAIN_LAYERS} layers "
+                          f"(bf16)", train_full_width) if built else None
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, build=built, kernels=rows, flash=flash_rows, ssd=ssd_rows,
-                 gmm=gmm_rows, serving=served, prefill=prefill, planes=planes,
+                 gmm=gmm_rows, flash_bwd=bwd_rows, training=training, serving=served, prefill=prefill, planes=planes,
                  qwen3_moe=qwen,
                  deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
                  reduced=reduced, planner=planner, constants=constants,
@@ -2661,6 +3006,7 @@ def main() -> None:
     ssd_row = next(r for r in ssd_rows if all(r[k] == SSD_MAIN[k] for k in SSD_MAIN))
     gmm_row = next(r for r in gmm_rows if all(r[k] == GMM_MAIN[k] for k in GMM_MAIN))
     granite_row = next(r for r in rows if all(r[k] == GRANITE_SHAPE[k] for k in GRANITE_SHAPE))
+    bwd_row = next(r for r in bwd_rows if all(r[k] == BWD_MAIN[k] for k in BWD_MAIN))
 
     def decode_shape(r):
         return {k: r[k] for k in ("model", "b", "h", "kh", "d", "t", "dtype", "body", "splits",
@@ -2684,6 +3030,8 @@ def main() -> None:
         "ssd_scan": [shape_of(r, ("model", "b", "t", "h", "p", "n")) for r in ssd_rows
                      if r["model"] == "zamba2-7b" and r["dtype"] == "bfloat16"],
         "moe_gmm": [],
+        "flash_attention_bwd": [shape_of(r, ("model", "b", "s", "sk", "h", "kh", "d", "case"))
+                                for r in bwd_rows],
     }
     family_phases = {"3e zamba2-7b": zamba, "3f whisper-medium": whisper,
                      f"3g qwen2-vl-72b@{QWEN2_VL_LAYERS}": vlm}
@@ -2747,9 +3095,27 @@ def main() -> None:
         "bound_ms": gmm_row["bound_ms"],
         "bound_by": gmm_row["bound_by"],
         "library_ms": gmm_row["library_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "body": bwd_row["body"],
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # the gradient of the TPU kernel (XLA's, as the Pallas kernel has no custom_vjp)
+        "replaces": "src/repro/kernels/flash_attention.py:130",
+        "launches": training["bwd_launches"],
+        "max_abs_err": bwd_row["max_abs_err"],
+        "ms": bwd_row["kernel_ms"],
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
     }]
     for k in kernels:
-        k.update(slice_shapes=slice_rows[k["name"]], launches_by_phase=phase_launches(k["name"]))
+        k.update(slice_shapes=slice_rows[k["name"]],
+                 launches_by_phase=phase_launches(k["name"]) if k["name"] != "flash_attention_bwd"
+                 else {f"6 {TRAIN_MODEL}@{training['layers']}": training["bwd_launches"]})
+    kernels[1]["launches_by_phase"][f"6 {TRAIN_MODEL}@{training['layers']} (training)"] = \
+        training["launches"]["flash_attention"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,11 @@
 // kernel's NEG_INF = -1e30 lets a fully masked tile add exp(0) = 1 for
 // every masked key; here masked scores are a true -inf and never count).
 //
+// Given an lse pointer (the training path), every body also writes each
+// query's log-sum-exp of its scaled scores, lse[b, h, i] (fp32, natural
+// log; -inf where the query sees no key), which the backward kernel
+// (flash_attention_bwd.cu) reads; serving and prefill pass null.
+//
 // What bounds it: operations.  Causal prefill does 4 * B * H * D flops per
 // visible (query, key) pair, about Sq / 2 pairs per query, against reading
 // q, k, v and writing out once: at Sq = 2048 and D = 128 that is some 500
@@ -85,6 +90,7 @@ constexpr int QS = BQ + 4;      // row stride of the transposed Q tile (keeps fl
 constexpr int KS = BK + 4;      // row stride of the transposed K tile
 constexpr int PS = BQ + 4;      // row stride of the transposed P tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // One 16-byte vector of T, widened to floats.
 template <typename T> struct Vec;
@@ -138,8 +144,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int DV>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Sq, int Sk, int H, int KH, int D, int causal,
-    int has_window, int window, int q_offset, float qscale) {
+    T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int KH, int D,
+    int causal, int has_window, int window, int q_offset, float qscale) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;          // D x QS: the scaled query tile, transposed
   float* Kt = Qt + D * QS;   // D x KS: the key tile, transposed
@@ -303,6 +309,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // no key seen: 0
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + r] = l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : -INFINITY;
     T* ob = out + ((size_t)b * Sq + r) * q_stride + (size_t)h * D;
 #pragma unroll
     for (int dv = 0; dv < DV; ++dv) {
@@ -332,8 +340,9 @@ using hopper::pack_bf16;
 template <int D>
 __global__ void __launch_bounds__(TC_NT) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-    int H, int KH, int causal, int has_window, int window, int q_offset, float qscale) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KH, int causal, int has_window,
+    int window, int q_offset, float qscale) {
   constexpr int RS = D + 8;  // row stride in elements: a 16-byte pad keeps ldmatrix conflict-free
   constexpr int NV = D / 8;  // 16-byte vectors per row
   constexpr int ND = D / 8;  // 8-wide column tiles of the output
@@ -476,6 +485,8 @@ __global__ void __launch_bounds__(TC_NT) flash_attention_mma_kernel(
     const int r = row0 + 8 * hf;
     if (r >= Sq) continue;
     const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;  // no key seen: 0
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)b * H + h) * Sq + r] = l[hf] > 0.f ? (m[hf] + log2f(l[hf])) * LN2 : -INFINITY;
     __nv_bfloat16* ob = out + ((size_t)b * Sq + r) * q_stride + (size_t)h * D;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
@@ -485,8 +496,8 @@ __global__ void __launch_bounds__(TC_NT) flash_attention_mma_kernel(
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                       int Sk, int H, int KH, int causal, int has_window, int window,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                       int Sq, int Sk, int H, int KH, int causal, int has_window, int window,
                        int q_offset, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(TC_BQ + 2 * TC_BK) * (D + 8);
   auto kernel = flash_attention_mma_kernel<D>;
@@ -499,16 +510,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
   kernel<<<grid, TC_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KH,
-      causal, has_window, window, q_offset, qscale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H,
+      KH, causal, has_window, window, q_offset, qscale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma_dim(const void* q, const void* k, const void* v, void* out, int B,
-                           int Sq, int Sk, int H, int KH, int D, int causal, int has_window,
-                           int window, int q_offset, cudaStream_t s) {
+cudaError_t launch_mma_dim(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int B, int Sq, int Sk, int H, int KH, int D, int causal,
+                           int has_window, int window, int q_offset, cudaStream_t s) {
 #define FA_MMA_CASE(DD) \
-  case DD: return launch_mma<DD>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+  case DD: return launch_mma<DD>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
   switch (D) {
     FA_MMA_CASE(16) FA_MMA_CASE(32) FA_MMA_CASE(48) FA_MMA_CASE(64)
     FA_MMA_CASE(80) FA_MMA_CASE(96) FA_MMA_CASE(112) FA_MMA_CASE(128)
@@ -541,8 +552,9 @@ struct Cfg {
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-    int H, int KH, int causal, int has_window, int window, int q_offset, float qscale) {
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KH, int causal, int has_window,
+    int window, int q_offset, float qscale) {
   using C = Cfg<D>;
   constexpr int BKV = C::BKV, NB = C::NB;
   extern __shared__ __align__(16) uint8_t wg_smem[];  // aligned here to 1024 bytes
@@ -708,6 +720,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_wgmma_kernel(
       const int r = q0 + row0 + 8 * hf;
       if (r >= Sq) continue;
       const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;  // no key seen: 0
+      if (lse != nullptr && c4 == 0)
+        lse[((size_t)b * H + h) * Sq + r] = l[hf] > 0.f ? (m[hf] + log2f(l[hf])) * LN2 : -INFINITY;
       __nv_bfloat16* ob = out + (((size_t)b * Sq + r) * H + h) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -718,10 +732,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_wgmma_kernel(
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                   int H, int KH, int causal, int has_window, int window, int q_offset,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Sk, int H, int KH, int causal, int has_window, int window,
+                   int q_offset, cudaStream_t stream) {
   using C = Cfg<D>;
+  if (Sk == 0 && lse != nullptr) return cudaErrorInvalidValue;  // the wrapper fills it
   if (Sk == 0)  // no key: every query gives 0
     return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, stream);
   CUtensorMap qmap, kmap, vmap;
@@ -743,19 +758,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const float qscale = LOG2E / sqrtf((float)D);
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
-                                             Sq, Sk, H, KH, causal, has_window, window, q_offset,
-                                             qscale);
+                                             lse, Sq, Sk, H, KH, causal, has_window, window,
+                                             q_offset, qscale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                       int Sk, int H, int KH, int D, int causal, int has_window, int window,
-                       int q_offset, cudaStream_t s) {
+cudaError_t launch_dim(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                       int Sq, int Sk, int H, int KH, int D, int causal, int has_window,
+                       int window, int q_offset, cudaStream_t s) {
   switch (D) {
-    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
-    case 192: return launch<192>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 64: return launch<64>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 128: return launch<128>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 192: return launch<192>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
+    case 256: return launch<256>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, has_window, window, q_offset, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -767,8 +782,8 @@ size_t smem_bytes(int D) {
 }
 
 template <typename T, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Sk, int H, int KH, int D, int causal, int has_window, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Sk, int H, int KH, int D, int causal, int has_window, int window,
                    int q_offset, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   auto kernel = flash_attention_kernel<T, DV>;
@@ -781,19 +796,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, KH, D, causal, has_window, window, q_offset, qscale);
+      static_cast<T*>(out), lse, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, qscale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out, int B,
+cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                          int Sq, int Sk, int H, int KH, int D, int causal, int has_window,
                          int window, int q_offset, cudaStream_t s) {
   switch ((D + 63) / 64) {
-    case 1: return launch<T, 1>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
-    case 2: return launch<T, 2>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
-    case 3: return launch<T, 3>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
-    default: return launch<T, 4>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    case 1: return launch<T, 1>(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    case 2: return launch<T, 2>(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    case 3: return launch<T, 3>(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    default: return launch<T, 4>(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   }
 }
 
@@ -813,14 +828,15 @@ extern "C" int flash_attention_wgmma_smem_bytes(int D) {
 }
 
 // q (B, Sq, H, D), k/v (B, Sk, KH, D), out (B, Sq, H, D): contiguous, of one
-// dtype (0 = fp32, 1 = bf16).  D at most 256 and a whole number of 16-byte
-// vectors; H a multiple of KH.  body: 0 = fp32, 1 = mma, 2 = wgmma (see the
-// note at the top); a body that cannot take these inputs is refused.
-// Returns a cudaError_t code, 0 on success.
+// dtype (0 = fp32, 1 = bf16).  lse: null, or (B, H, Sq) fp32 for each
+// query's log-sum-exp (with Sk > 0).  D at most 256 and a whole number of
+// 16-byte vectors; H a multiple of KH.  body: 0 = fp32, 1 = mma, 2 = wgmma
+// (see the note at the top); a body that cannot take these inputs is
+// refused.  Returns a cudaError_t code, 0 on success.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int Sq, int Sk, int H, int KH, int D, int causal,
-                                      int has_window, int window, int q_offset, int dtype,
-                                      int body, void* stream) {
+                                      float* lse, int B, int Sq, int Sk, int H, int KH, int D,
+                                      int causal, int has_window, int window, int q_offset,
+                                      int dtype, int body, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0 || D <= 0 || D > 256 ||
       (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1))
@@ -835,12 +851,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (body == 2)
-    e = wg::launch_dim(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    e = wg::launch_dim(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   else if (body == 1)
-    e = launch_mma_dim(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    e = launch_mma_dim(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   else if (dtype == 0)
-    e = launch_dtype<float>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    e = launch_dtype<float>(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   else
-    e = launch_dtype<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
+    e = launch_dtype<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, KH, D, causal, has_window, window, q_offset, s);
   return (int)e;
 }

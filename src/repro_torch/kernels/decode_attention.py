@@ -17,7 +17,9 @@ a caller may name one with ``body=`` to time or test it.
 call in the module-level ``launches`` (one per call, whatever the body
 launches) and, by body, in ``launches_by_body``; for CPU tensors it runs
 ``decode_attention_plain``.  There is no fallback: a CUDA input that the
-kernel does not take, or a named body that cannot take it, raises.
+kernel does not take, or a named body that cannot take it, raises, and so
+does a CUDA call under grad mode with an input that requires grad (decode
+is not differentiated).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import refuse_grad
 from repro_torch.kernels import ref as _ref
 
 #: Kernel calls since import (or since the caller last reset it).
@@ -201,6 +204,7 @@ def decode_attention(
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA or CPU, not {q.device}")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, cache_len)
     b, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]

@@ -19,7 +19,9 @@ the expert count; a caller may name one with ``body=`` to time or test it.
 ``moe_gmm`` launches the kernel for CUDA tensors and counts each launch in
 the module-level ``launches`` and, by body, in ``launches_by_body``; for CPU
 tensors it runs ``moe_gmm_plain``.  There is no fallback: a CUDA input that
-no body takes, or a named body that cannot take it, raises.
+no body takes, or a named body that cannot take it, raises, and so does a
+CUDA call under grad mode with an input that requires grad (no backward
+kernel yet).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import refuse_grad
 from repro_torch.kernels.ref import grouped_product
 
 #: Kernel launches since import (or since the caller last reset it).
@@ -126,6 +129,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         return moe_gmm_plain(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm runs on CUDA or CPU, not {x.device}")
+    refuse_grad("moe_gmm", x, w)
     _check(x, w, group_sizes)
     t, d_in = x.shape
     e, _, d_out = w.shape

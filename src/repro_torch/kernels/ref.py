@@ -75,10 +75,13 @@ def attention_chunked_ref(
     q_offset: int = 0,
     scale: Optional[float] = None,
     chunk_k: int = 1024,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Flash-style attention in plain PyTorch: a loop over KV chunks with
     an online-softmax accumulator, all in fp32, so the (Sq × Sk) score
-    matrix is never held whole.  A query that sees no key gives 0."""
+    matrix is never held whole.  A query that sees no key gives 0.  With
+    ``return_lse`` it returns (out, lse): lse (B, H, Sq) fp32 is each
+    query's log-sum-exp of its scaled scores, -inf where it sees no key."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
@@ -100,8 +103,10 @@ def attention_chunked_ref(
         l = alpha * l + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_i)
         m = m_new
+    lse = m + torch.log(l)  # -inf + -inf where no key was seen
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_ref(

@@ -21,7 +21,9 @@ may name one with ``body=``.
 the module-level ``launches`` (one per call, whatever the body launches)
 and, by body, in ``launches_by_body``; for CPU tensors it runs
 ``ssd_scan_plain``.  There is no fallback: a CUDA input that the kernel
-does not take, or a named body that cannot take it, raises.
+does not take, or a named body that cannot take it, raises, and so does a
+CUDA call under grad mode with an input that requires grad (the kernel
+has no backward yet).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import refuse_grad
 from repro_torch.kernels import ref as _ref
 
 #: Kernel calls since import (or since the caller last reset it).
@@ -229,6 +232,7 @@ def ssd_scan(
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU, not {x.device}")
+    refuse_grad("ssd_scan", x, dt, a, b, c, initial_state)
     _check(x, dt, a, b, c, chunk, initial_state)
     bs, t, h, p = x.shape
     n = b.shape[3]

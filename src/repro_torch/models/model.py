@@ -13,6 +13,9 @@ decoder with cross-attention).
   the layers, in place of the reference's ``lax.scan``; attention, the
   SSD scan and the sorted MoE dispatch's grouped matmul go through
   ``kops.flash_attention``, ``kops.ssd_scan`` and ``kops.moe_gmm``.
+  ``forward`` and ``next_token_loss`` are differentiable (the params train
+  once ``requires_grad_(True)``); with ``remat=True`` each layer is
+  recomputed in the backward pass, the matmuls' outputs excepted.
 * ``decode_step`` carries an explicit cache dict (see ``init_cache``) and
   supports sliding-window ring buffers; it updates the cache in place.
   Attention, cross-attention over the encoder cache included, goes through
@@ -21,10 +24,11 @@ decoder with cross-attention).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels import ops as kops
@@ -51,8 +55,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 class ParamTree(nn.Module):
     """A nested parameter dict as an ``nn.Module``: ``tree["layers"]["wq"]``
     reads like the JAX pytree, and ``state_dict()`` keys are its paths.
-    Parameters are frozen (``requires_grad=False``): this is the decode
-    path."""
+    Parameters are frozen (``requires_grad=False``), as serving wants them;
+    training turns them on with ``requires_grad_(True)``."""
 
     def __init__(self, tree: Mapping[str, Any]) -> None:
         super().__init__()
@@ -70,6 +74,16 @@ class ParamTree(nn.Module):
         out: Dict[str, Any] = {k: p[i] for k, p in self._parameters.items()}
         out.update({k: m.layer(i) for k, m in self._modules.items()})
         return out
+
+    def unstack(self) -> List[Dict[str, Any]]:
+        """``layer(i)`` for every i, from one ``unbind`` per stacked leaf.
+        Under autograd each leaf then gets one stack of its per-layer
+        gradients, where each ``layer(i)`` view would add a zero-padded
+        copy of the whole stack to it."""
+        parts = {k: torch.unbind(p) for k, p in self._parameters.items()}
+        parts.update({k: m.unstack() for k, m in self._modules.items()})
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 # ===========================================================================
@@ -245,6 +259,24 @@ def init_params(
 # ===========================================================================
 # Forward (prefill) and loss
 # ===========================================================================
+#: The ops whose outputs a rematerialised layer keeps: the matmuls, as the
+#: reference's ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)``
+#: keeps its dots; the rest of the layer, attention included, runs again in
+#: the backward pass.
+SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default)
+
+
+def _block(fn, remat: bool, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under a per-layer checkpoint that saves
+    :data:`SAVED_OPS` when ``remat`` and autograd is recording."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(list(SAVED_OPS)),
+                      **kwargs)
+
+
 def _attn_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
     return dict(
         n_heads=cfg.n_heads,
@@ -311,20 +343,28 @@ def _sinusoidal(n: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _encode_audio(params, frames, cfg, *, impl):
+def _encode_audio(params, frames, cfg, *, impl, remat=False):
     """Whisper-style encoder over stub frame embeddings (B, T, D): sinusoidal
     positions added, then bidirectional attention layers (with RoPE, as the
     reference's) and the encoder's final norm."""
     bsz, t, _ = frames.shape
     h = frames + _sinusoidal(t, cfg.d_model, frames.device).to(frames.dtype)[None]
     positions = torch.arange(t, device=h.device)[None, :].expand(bsz, t)
-    for i in range(cfg.n_encoder_layers):
-        h, _ = _dense_block(h, params["encoder"].layer(i), positions, cfg, window=None,
-                            impl=impl, causal=False)
+    for layer in params["encoder"].unstack():
+        h, _ = _block(_dense_block, remat, h, layer, positions, cfg, window=None,
+                      impl=impl, causal=False)
     return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
-@torch.no_grad()
+def _audio_decoder_block(h, enc, layer, positions, cfg, *, window, impl):
+    """A dense block, then cross-attention over the encoder's output."""
+    h, _ = _dense_block(h, layer, positions, cfg, window=window, impl=impl)
+    enc_k, enc_v = project_cross_kv(enc, layer["cross"], n_kv_heads=cfg.n_kv_heads,
+                                    head_dim=cfg.hd)
+    return h + cross_attention(rms_norm(h, layer["ln_cross"], cfg.norm_eps), layer["cross"],
+                               enc_k, enc_v, n_heads=cfg.n_heads, head_dim=cfg.hd, impl=impl)
+
+
 def forward(
     params: ParamTree,
     batch: Mapping[str, torch.Tensor],
@@ -333,6 +373,7 @@ def forward(
     impl: str = "auto",
     moe_dispatch: str = "sorted",
     window: Optional[int] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  ``batch``:
       tokens        : (B, S) token ids                   (all families)
@@ -343,14 +384,16 @@ def forward(
     kernels' implementation ("auto": the hand-written kernels for CUDA
     tensors, their plain twins for CPU tensors); ``moe_dispatch`` the MoE
     dispatch ("sorted" or "scan").  ``window`` is the dense layers'
-    attention window; zamba2's shared block always takes the config's."""
+    attention window; zamba2's shared block always takes the config's.
+    ``remat``: under autograd, checkpoint each layer (see :func:`_block`).
+    Differentiable: run it under ``torch.no_grad()`` to build no graph."""
     at = cfg.arch_type
     tokens = batch["tokens"]
     bsz, s = tokens.shape
     h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, S, D)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(s, device=h.device)[None, :].expand(bsz, s)
-    layers = params["layers"]
+    layers = params["layers"].unstack()
     if at in ("dense", "vlm"):
         pos3 = None
         if at == "vlm":
@@ -360,38 +403,32 @@ def forward(
             positions = torch.arange(nv + s, device=h.device)[None, :].expand(bsz, nv + s)
             if cfg.use_mrope:
                 pos3 = _vision_positions(nv, s, bsz, h.device)
-        for i in range(cfg.n_layers):
-            h, _ = _dense_block(h, layers.layer(i), positions, cfg, window=window, impl=impl,
-                                mrope_positions=pos3)
+        for layer in layers:
+            h, _ = _block(_dense_block, remat, h, layer, positions, cfg, window=window,
+                          impl=impl, mrope_positions=pos3)
         if at == "vlm":
             h = h[:, nv:]  # the vision prefix goes before the head
     elif at == "moe":
-        for i in range(cfg.n_layers):
-            h, a = _moe_block(h, layers.layer(i), positions, cfg,
-                              window=window, impl=impl, dispatch=moe_dispatch)
+        for layer in layers:
+            h, a = _block(_moe_block, remat, h, layer, positions, cfg,
+                          window=window, impl=impl, dispatch=moe_dispatch)
             aux = aux + a
     elif at in ("ssm", "hybrid"):
-        for i in range(cfg.n_layers):
-            h, _ = _ssm_block(h, layers.layer(i), cfg, impl=impl)
+        for i, layer in enumerate(layers):
+            h, _ = _block(_ssm_block, remat, h, layer, cfg, impl=impl)
             if at == "hybrid" and (i + 1) % cfg.attn_period == 0:
-                h, _ = _dense_block(h, params["shared_block"], positions, cfg,
-                                    window=cfg.sliding_window, impl=impl)
+                h, _ = _block(_dense_block, remat, h, params["shared_block"], positions, cfg,
+                              window=cfg.sliding_window, impl=impl)
     else:  # audio
-        enc = _encode_audio(params, batch["audio_frames"], cfg, impl=impl)
-        for i in range(cfg.n_layers):
-            layer = layers.layer(i)
-            h, _ = _dense_block(h, layer, positions, cfg, window=window, impl=impl)
-            enc_k, enc_v = project_cross_kv(enc, layer["cross"], n_kv_heads=cfg.n_kv_heads,
-                                            head_dim=cfg.hd)
-            h = h + cross_attention(rms_norm(h, layer["ln_cross"], cfg.norm_eps), layer["cross"],
-                                    enc_k, enc_v, n_heads=cfg.n_heads, head_dim=cfg.hd,
-                                    impl=impl)
+        enc = _encode_audio(params, batch["audio_frames"], cfg, impl=impl, remat=remat)
+        for layer in layers:
+            h = _block(_audio_decoder_block, remat, h, enc, layer, positions, cfg,
+                       window=window, impl=impl)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ head, aux
 
 
-@torch.no_grad()
 def next_token_loss(
     params: ParamTree,
     batch: Mapping[str, torch.Tensor],
@@ -400,12 +437,14 @@ def next_token_loss(
     impl: str = "auto",
     moe_dispatch: str = "sorted",
     aux_weight: float = 0.01,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Mean next-token negative log-likelihood over ``batch["tokens"]``
-    (forward only: no gradient yet), plus ``aux_weight`` times the aux loss.
-    The whole ``batch`` goes to :func:`forward` (a VLM's ``vision_embeds``,
-    an audio model's ``audio_frames``)."""
-    logits, aux = forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch)
+    """Mean next-token negative log-likelihood over ``batch["tokens"]``,
+    plus ``aux_weight`` times the aux loss; differentiable, as
+    :func:`forward` is.  The whole ``batch`` goes to :func:`forward` (a
+    VLM's ``vision_embeds``, an audio model's ``audio_frames``)."""
+    logits, aux = forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch,
+                          remat=remat)
     targets = batch["tokens"][:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]

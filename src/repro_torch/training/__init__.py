@@ -1,5 +1,7 @@
-"""Step factories of the port, mirroring ``repro.training``: so far the
-inference prefill step on one device."""
-from repro_torch.training.train import make_prefill_step
+"""Training on one device, mirroring ``repro.training``: AdamW, checkpoints
+in the reference's layout, and the train, serve and prefill step
+factories."""
+from repro_torch.training import checkpoint, optimizer
+from repro_torch.training.train import make_prefill_step, make_serve_step, make_train_step
 
-__all__ = ["make_prefill_step"]
+__all__ = ["checkpoint", "make_prefill_step", "make_serve_step", "make_train_step", "optimizer"]

@@ -859,3 +859,222 @@ def test_h100_cluster_matches_the_card(card):
     }
     for what, (reading, constant) in readings.items():
         assert abs(constant - reading) <= 0.25 * reading, (what, reading, constant)
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel, the forward's LSE, train steps
+# ---------------------------------------------------------------------------
+def grad_close(got, want, dtype):
+    """The flash backward's check, chip_smoke.py's phase 2e: scaled to each
+    row.  bf16: the error within 2e-2 of the row's largest |want|, floored
+    at 1e-3 of the tensor's largest (a row whose gradient cancels to ~0 is
+    held to the tensor's scale).  fp32: atol = rtol = 2e-5, the atol times
+    the row's largest |want| where that passes 1 (dk and dv sum G·Sq
+    terms, and fp32 rounds the sum to its own scale)."""
+    tol = TOL[dtype]
+    got, want = got.float(), want.float()
+    rowmax = want.abs().amax(dim=-1, keepdim=True)
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        return bool((err <= tol * rowmax.clamp(min=1.0) + tol * want.abs()).all())
+    return bool((err <= tol * rowmax.clamp(min=1e-3 * float(want.abs().max()))).all())
+
+
+# (b, sq, sk, h, kh, d, causal, window, q_offset): phase 2e's shapes, then
+# ragged and offset ones
+BWD_SHAPES = [
+    (2, 2048, 2048, 32, 8, 128, True, None, 0),     # mistral-nemo-12b's training shape
+    (2, 1024, 1024, 48, 1, 128, True, None, 0),     # granite's MQA
+    (2, 1500, 1500, 16, 16, 64, False, None, 0),    # whisper's encoder
+    (2, 2048, 2048, 32, 32, 112, True, 4096, 0),    # zamba2's shared block, its window
+    (1, 300, 300, 8, 2, 128, True, 100, 0),         # a window inside the band
+    (2, 77, 200, 4, 2, 64, True, None, 123),        # ragged Sq != Sk with q_offset
+    (2, 100, 100, 4, 2, 64, True, None, -30),       # rows 0..29 see no key
+    (1, 130, 130, 2, 1, 256, True, None, 0),        # the widest head dim: fp32 body in bf16
+    (2, 65, 65, 4, 4, 32, False, None, 0),          # small head dim, one ragged tile
+]
+
+
+def bwd_inputs(card, shape, dtype):
+    b, sq, sk, h, kh, d, causal, window, q_offset = shape
+    g = torch.Generator(device=card).manual_seed(sq + 7 * h + d)
+    q = torch.randn(b, sq, h, d, generator=g, device=card, dtype=dtype)
+    k = torch.randn(b, sk, kh, d, generator=g, device=card, dtype=dtype)
+    v = torch.randn(b, sk, kh, d, generator=g, device=card, dtype=dtype)
+    do = torch.randn(b, sq, h, d, generator=g, device=card, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    return q, k, v, out.contiguous(), do, lse, kw
+
+
+@pytest.mark.parametrize("body", ["mma", "fp32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain_on_card(card, shape, dtype, body):
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    d = shape[5]
+    if body not in fb.bodies_for(dtype, d):
+        pytest.skip(f"the {body} body does not take {dtype} at D={d}")
+    if body == "fp32" and shape[1] * shape[2] * shape[3] > 2048 * 2048 * 16:
+        pytest.skip("the CUDA-core body is held at the smaller shapes")
+    q, k, v, out, do, lse, kw = bwd_inputs(card, shape, dtype)
+    before, by_body = fb.launches, fb.launches_by_body.get(body, 0)
+    got = fb.flash_attention_bwd(q, k, v, out, do, lse, body=body, **kw)
+    torch.cuda.synchronize()
+    assert fb.launches == before + 1 and fb.launches_by_body[body] == by_body + 1
+    want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        assert grad_close(x, w, dtype), f"{name}: max err {float((x.float() - w.float()).abs().max())}"
+    if kw["q_offset"] < 0:
+        assert not got[0][:, :-kw["q_offset"]].any()  # a query that sees no key: dq = 0
+
+
+def test_flash_bwd_takes_a_strided_grad_and_repeats_bit_for_bit(card):
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v, out, do, lse, kw = bwd_inputs(card, BWD_SHAPES[4], torch.bfloat16)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)  # same values, other strides
+    assert not strided.is_contiguous()
+    a = fb.flash_attention_bwd(q, k, v, out, strided, lse, **kw)
+    b = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("body", ["wgmma", "mma", "fp32"])
+@pytest.mark.parametrize("shape", [BWD_SHAPES[0], BWD_SHAPES[2], BWD_SHAPES[5], BWD_SHAPES[6]])
+def test_flash_forward_lse_matches_plain_on_card(card, shape, body):
+    """Every body writes the LSE when given a pointer, and the same output
+    as without one."""
+    dtype = torch.bfloat16
+    q, k, v, _, _, _, kw = bwd_inputs(card, shape, dtype)
+    if body not in fa.bodies_for(dtype, q.shape[3], True):
+        pytest.skip(f"the {body} body does not take D={q.shape[3]}")
+    out, lse = fa._launch(q, k, v, kw["causal"], kw["window"], kw["q_offset"], body, True)
+    plain_out, plain_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa.flash_attention(q, k, v, body=body, **kw))
+    unseen = torch.isneginf(plain_lse)
+    assert torch.equal(torch.isneginf(lse), unseen)
+    torch.testing.assert_close(lse[~unseen], plain_lse[~unseen], atol=2e-4, rtol=2e-4)
+
+
+def test_flash_function_launches_forward_and_backward(card):
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v, _, do, _, kw = bwd_inputs(card, BWD_SHAPES[5], torch.bfloat16)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0, b0 = fa.launches, fb.launches
+    out = fa.flash_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa.launches == f0 + 1 and fb.launches == b0 + 1
+    for leaf, want in zip(leaves, fb.flash_attention_bwd_plain(
+            q, k, v, out.detach(), do, fa.flash_attention_plain(q, k, v, return_lse=True,
+                                                                **kw)[1], **kw)):
+        assert grad_close(leaf.grad, want, torch.bfloat16)
+
+
+TRAIN_CARD = ["mistral-nemo-12b", "qwen2-vl-72b", "whisper-medium"]
+
+
+def train_batch(cfg, b=2, s=24, seed=0):
+    rs = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab, (b, s)).astype(np.int32))}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(
+            (rs.standard_normal((b, 9, cfg.d_model)) * 0.02).astype(np.float32))
+    if cfg.arch_type == "audio":
+        batch["audio_frames"] = torch.from_numpy(
+            (rs.standard_normal((b, cfg.n_audio_frames, cfg.d_model)) * 0.02).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", TRAIN_CARD)
+def test_train_step_on_card_equals_the_cpus(card, name, dtype):
+    """The dense, VLM and audio train steps on the card (flash forward and
+    backward kernels) against the CPU's (the plain twins): loss, grad norm
+    and per-leaf gradients."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.training import make_train_step, optimizer as opt
+
+    cfg = ARCHS[name].reduced(dtype=dtype)
+    cpu = tm.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    gpu = tm.init_params(cfg, torch.Generator().manual_seed(4), "cpu").to(card)
+    batch = train_batch(cfg)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    grads = {}
+    for where, params in (("cpu", cpu), ("card", gpu)):
+        params.requires_grad_(True)
+        on = {k: v.to(params["embed"].device) if k == "tokens" else
+              v.to(params["embed"].device, getattr(torch, dtype)) for k, v in batch.items()}
+        tm.next_token_loss(params, on, cfg, remat=True).backward()
+        grads[where] = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+    for n, want in grads["cpu"].items():
+        got = grads["card"][n]
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+        assert float(cos) >= 1 - tol, f"{n}: cosine {float(cos)}"
+    f0, b0 = fa.launches, fb.launches
+    metrics = {}
+    for where, params in (("cpu", cpu), ("card", gpu)):
+        step = make_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1),
+                               device=params["embed"].device)
+        _, state, m = step(params, opt.init(params), {k: v.to(getattr(torch, dtype))
+                                                       if k != "tokens" else v
+                                                       for k, v in batch.items()})
+        assert int(state.step) == 1
+        metrics[where] = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    attn_layers = cfg.n_layers + (cfg.n_layers + cfg.n_encoder_layers if cfg.arch_type == "audio"
+                                  else 0)
+    assert fa.launches - f0 == 2 * attn_layers  # forward, and again under remat
+    assert fb.launches - b0 == attn_layers
+    for key in ("loss", "grad_norm", "lr"):
+        assert metrics["card"][key] == pytest.approx(metrics["cpu"][key], rel=tol)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b", "qwen3-moe-30b-a3b"])
+def test_families_without_a_card_backward_raise(card, name):
+    from repro_torch.training import make_train_step
+
+    cfg = ARCHS[name].reduced(dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        make_train_step(cfg, device=card)
+    make_train_step(cfg, impl="ref", device=card)  # the caller's choice: plain PyTorch
+
+
+def test_ssd_and_gmm_wrappers_raise_under_grad(card):
+    x = torch.zeros(1, 8, 2, 64, device=card, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(1, 8, 2, 16, device=card, dtype=torch.bfloat16)
+    dt = torch.zeros(1, 8, 2, device=card)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        ssd.ssd_scan(x, dt, torch.zeros(2, device=card), b, b)
+    with torch.no_grad():
+        ssd.ssd_scan(x, dt, torch.zeros(2, device=card), b, b)
+    w = torch.zeros(2, 64, 32, device=card, dtype=torch.bfloat16, requires_grad=True)
+    sizes = torch.tensor([4, 4], dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        gmm.moe_gmm(torch.zeros(8, 64, device=card, dtype=torch.bfloat16), w, sizes)
+    with torch.no_grad():
+        gmm.moe_gmm(torch.zeros(8, 64, device=card, dtype=torch.bfloat16), w, sizes)
+
+
+def test_prefill_and_decode_graphs_build_no_graph(card):
+    """With trainable params, the prefill step and the engine's captured
+    decode step still build no autograd graph and launch as before."""
+    cfg, params, engine = graph_engine(card, "mistral-nemo-12b", "bfloat16")
+    params.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 16), device=card)
+    before = fa.launches
+    logits = make_prefill_step(cfg, device=card)(params, {"tokens": toks})
+    assert logits.grad_fn is None and not logits.requires_grad
+    assert fa.launches == before + cfg.n_layers
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
+    got, _ = engine.run_task(0, prompt)
+    np.testing.assert_array_equal(got, eager_task(cfg, params, prompt, 4, card))
+    assert engine.captures == 1
+    engine.close()

@@ -69,7 +69,7 @@ TIMED = {"flash_attention": ("wgmma",), "moe_gmm": ("wgmma",),
          "ssd_scan": ("ssd_chunk", "ssd_state_pass")}
 # the C entry's integer arguments after its pointers
 NINTS = {"flash_attention": 12, "moe_gmm": 6, "decode_attention": 9, "ssd_scan": 8}
-NPTRS = {"flash_attention": 4, "moe_gmm": 4, "decode_attention": 8, "ssd_scan": 11}
+NPTRS = {"flash_attention": 5, "moe_gmm": 4, "decode_attention": 8, "ssd_scan": 11}
 
 
 def build(kernel: str, name: str, text: str) -> tuple:
@@ -125,9 +125,9 @@ def cases(kernel: str, gen):
             want = fa.flash_attention_plain(q, k, v).float()
 
             def launch(fn, out, q=q, k=k, v=v):
-                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
-                          q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], 1, 0, 0, 0,
-                          1, fa.BODIES["wgmma"], stream())
+                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                          q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                          1, 0, 0, 0, 1, fa.BODIES["wgmma"], stream())
             yield name, torch.empty_like(q), want, launch
     elif kernel == "decode_attention":
         from repro_torch.kernels import decode_attention as da
