@@ -10,7 +10,8 @@ any phase fails.  Phases:
 1. the card (name and power limit) and the build of every kernel under
    ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all at once,
    with ptxas's registers and spills of the wgmma, split and chunked
-   bodies and the shared memory of the wgmma bodies;
+   bodies (the flash backward's wgmma kernels too) and the shared memory
+   of the forward wgmma bodies;
 2. each kernel against its plain PyTorch version on the card, at the zoo's
    shapes and the reference tolerances (decode attention's bf16 absolute
    tolerance scaled to each output row's largest value where that is
@@ -29,7 +30,10 @@ any phase fails.  Phases:
    (NeMo's B = 2, S = 2048; granite's MQA; whisper's 1,500-frame encoder;
    zamba2's window at D = 112; NeMo's in fp32), on the forward kernel's
    output and LSE, held as phase 2 holds decode (bf16 errors scaled to
-   each row), with its time, its bound (10·H·D flops a visible pair),
+   each row), the wgmma body and the mma body it replaced (timed in turns
+   where both take the shape; the split count, the dK/dV pass's CTAs and
+   each pass's time by the profiler printed), with its time, its bound
+   (10·H·D flops a visible pair),
    the plain version's and the backward of
    ``scaled_dot_product_attention``, and the forward with and without
    its LSE store, in turns;
@@ -116,7 +120,7 @@ any phase fails.  Phases:
    ``make_train_step`` (remat) over the synthetic pipeline at B = 2,
    S = 2048: one warm-up and five timed steps with the counts set to 0
    just before them (every flash forward on wgmma, layers × 2 a step
-   with remat's recomputation; every backward on mma, layers × 1),
+   with remat's recomputation; every backward on wgmma, layers × 1),
    finite losses, moved params, the step time, tokens/s, 6·N·tokens over
    the step time, the peak memory, the busy share and the top kernels of
    one more step under the profiler; then one step at 2 layers, kernel
@@ -258,7 +262,8 @@ def build_kernels():
     report = wgmma_report(_build.build_logs)
     report["new_bodies"] = ptxas_rows(_build.build_logs, {
         "decode_attention": ("decode_split", "decode_combine"),
-        "ssd_scan": ("ssd_chunk", "ssd_state_pass")})
+        "ssd_scan": ("ssd_chunk", "ssd_state_pass"),
+        "flash_attention_bwd": ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_split_sum")})
     return {"build_wall_s": wall, "build_s": dict(_build.build_seconds),
             "ptxas": dict(_build.build_logs), "wgmma_bodies": report}
 
@@ -888,6 +893,8 @@ BWD_SHAPES = [
     ("mistral-nemo-12b", 2, 2048, 2048, 32, 8, 128, "causal", True, None, 0, "float32"),
 ]
 BWD_MAIN = dict(model="mistral-nemo-12b", case="causal", dtype="bfloat16")
+#: The wgmma body's kernels by name: δ, dK/dV, the split's sum, dQ
+BWD_PASSES = ("bwd_delta", "bwd_dkdv", "bwd_split_sum", "bwd_dq")
 #: The backward's operations per visible (query, key) pair and head, against
 #: the forward's 4·D: S and dP (recomputed), dV, dK and dQ, about 2.5 times
 #: the forward's (the second S and dP of the dQ pass are the price of no
@@ -968,20 +975,39 @@ def flash_bwd_vs_plain():
         if lse_err > 1e-3 or not torch.equal(torch.isneginf(lse), torch.isneginf(plain_lse)):
             raise AssertionError(f"flash forward LSE {model} {dtype}: max err {lse_err}")
         body = fb.body_for(tdt, d)
-        got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
-        torch.cuda.synchronize()
+        old_body = "mma" if body == "wgmma" and "mma" in fb.bodies_for(tdt, d) else None
+        splits = fb.splits_for(b, sk, kh, h // kh, fb.sm_count(dev)) if body == "wgmma" else 1
+        # the dK/dV pass's CTAs: the wgmma body's (key tile, KV head, split,
+        # batch row), the older bodies' (key tile, KV head, batch row)
+        ctas = (fb.dkdv_ctas(b, sk, kh, splits) if body == "wgmma"
+                else -(-sk // (64 if dtype == "bfloat16" else 32)) * kh * b)
         want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
         errs = {}
-        for name, x, w in zip(("dq", "dk", "dv"), got, want):
-            ok, err, rel = grad_close(x, w, dtype)
-            errs[name] = dict(max_abs_err=err, max_row_rel_err=rel)
-            if not ok:
-                raise AssertionError(f"flash backward {model} {dtype} {case} {name}: max err "
-                                     f"{err} ({rel:.3e} of its row) outside {TOL[dtype]}")
-        del got, want
+        for which in (body, old_body) if old_body else (body,):
+            got = fb.flash_attention_bwd(q, k, v, out, do, lse, body=which, **kw)
+            torch.cuda.synchronize()
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                ok, err, rel = grad_close(x, w, dtype)
+                if which == body:
+                    errs[name] = dict(max_abs_err=err, max_row_rel_err=rel)
+                if not ok:
+                    raise AssertionError(f"flash backward ({which}) {model} {dtype} {case} "
+                                         f"{name}: max err {err} ({rel:.3e} of its row) outside "
+                                         f"{TOL[dtype]}")
+            del got
+        del want
         reps = 10 if sq * sk <= 2048 * 2048 else 5
-        kernel_ms = cuda_time_ms(lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, **kw),
-                                 flush, reps=reps)
+        turns = old_body_ms = None
+        if old_body:  # the new body against the one it replaces, in turns
+            kernel_ms, old_body_ms, turns = in_turns(
+                lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, body=body, **kw),
+                lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, body=old_body, **kw),
+                flush, reps)
+        else:
+            kernel_ms = cuda_time_ms(lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+                                     flush, reps=reps)
+        passes = kernel_split(lambda: fb.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+                              BWD_PASSES) if body == "wgmma" else None
         plain_ms = cuda_time_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw),
                                 flush, reps=3, warmup=1)
         library_ms = sdpa_backward_ms(q, k, v, do, causal, window, q_offset, flush, reps)
@@ -992,21 +1018,27 @@ def flash_bwd_vs_plain():
         bound_ms, nbytes, flops, bound_by = flash_bwd_bound(b, sq, sk, h, kh, d, causal, window,
                                                             q_offset, dtype, q.element_size())
         row = dict(model=model, b=b, s=sq, sk=sk, h=h, kh=kh, d=d, case=case, dtype=dtype,
-                   body=body, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
-                   errors=errs, lse_err=lse_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   body=body, splits=splits, dkdv_ctas=ctas,
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   errors=errs, lse_err=lse_err, kernel_ms=kernel_ms, old_body=old_body,
+                   old_body_ms=old_body_ms, turns_ms=turns, passes_ms=passes, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes, flops=flops,
                    bound_by=bound_by, kernel_tflops=flops / kernel_ms / 1e9,
                    forward_body=fa.body_for(tdt, d), forward_with_lse_ms=with_lse_ms,
                    forward_without_lse_ms=without_lse_ms, forward_lse_turns_ms=lse_turns)
         rows.append(row)
         err_txt = "/".join(f"{e['max_abs_err']:.2e}" for e in errs.values())
+        old_txt = (f" ({old_body} {old_body_ms:.4f} ms in turns, "
+                   f"{old_body_ms / kernel_ms:.2f}x; turns {turns})" if old_body else "")
+        pass_txt = (" passes " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()) + " ms;"
+                    if passes else "")
         print(f"{model:18s} {dtype:8s} B={b} S={sq:5d}x{sk:5d} H={h:3d} KH={kh:3d} D={d:3d} "
-              f"{case:12s} {body} err dq/dk/dv={err_txt} "
-              f"kernel={kernel_ms:.4f} ms plain={plain_ms:.4f} ms library (SDPA backward)="
-              f"{library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
-              f"{row['kernel_tflops']:.1f} TFLOP/s; forward ({row['forward_body']}) with LSE "
-              f"{with_lse_ms:.4f} ms, without {without_lse_ms:.4f} ms; LSE err {lse_err:.1e}",
-              flush=True)
+              f"{case:12s} {body} splits={splits} dK/dV CTAs={ctas} err dq/dk/dv={err_txt} "
+              f"kernel={kernel_ms:.4f} ms{old_txt}{pass_txt} plain={plain_ms:.4f} ms library "
+              f"(SDPA backward)={library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+              f"{row['kernel_tflops']:.1f} TFLOP/s by 10·H·D a pair; forward "
+              f"({row['forward_body']}) with LSE {with_lse_ms:.4f} ms, without "
+              f"{without_lse_ms:.4f} ms; LSE err {lse_err:.1e}", flush=True)
         del q, k, v, do, out, lse, plain_lse
     return rows
 
@@ -2822,7 +2854,7 @@ def train_full_width():
     """Phase 6: NeMo at full width and 8 of its 40 layers, bf16 params and
     fp32 AdamW moments, B = 2, S = 2048 of the synthetic pipeline, through
     ``make_train_step`` with remat: one warm-up step and five timed steps,
-    every flash forward on wgmma and every backward on mma, the counts per
+    every flash forward and backward on wgmma, the counts per
     step, finite losses, moved params, the step time, tokens/s, 6·N·tokens
     over the step time, the peak memory and the device's busy share; then
     one step's loss, grad-norm and per-leaf gradients at 2 layers, kernel
@@ -2875,9 +2907,10 @@ def train_full_width():
     if out["launches"]["flash_attention"] != want_fwd or out["flash_by_body"] != {"wgmma": want_fwd}:
         raise AssertionError(f"flash forward launches {out['flash_by_body']}, expected "
                              f"{want_fwd} on wgmma")
-    if out["bwd_launches"] != want_bwd or out["bwd_by_body"] != {"mma": want_bwd}:
+    bwd_body = fb.body_for(torch.bfloat16, cfg.head_dim)
+    if out["bwd_launches"] != want_bwd or out["bwd_by_body"] != {bwd_body: want_bwd}:
         raise AssertionError(f"flash backward launches {out['bwd_by_body']}, expected "
-                             f"{want_bwd} on mma")
+                             f"{want_bwd} on {bwd_body}")
     others = {k: v for k, v in out["launches"].items() if k != "flash_attention" and v}
     if others:
         raise AssertionError(f"training launched other kernels: {others}")
@@ -3030,7 +3063,8 @@ def main() -> None:
         "ssd_scan": [shape_of(r, ("model", "b", "t", "h", "p", "n")) for r in ssd_rows
                      if r["model"] == "zamba2-7b" and r["dtype"] == "bfloat16"],
         "moe_gmm": [],
-        "flash_attention_bwd": [shape_of(r, ("model", "b", "s", "sk", "h", "kh", "d", "case"))
+        "flash_attention_bwd": [shape_of(r, ("model", "b", "s", "sk", "h", "kh", "d", "case",
+                                             "splits", "dkdv_ctas", "old_body", "old_body_ms"))
                                 for r in bwd_rows],
     }
     family_phases = {"3e zamba2-7b": zamba, "3f whisper-medium": whisper,
@@ -3098,6 +3132,9 @@ def main() -> None:
     }, {
         "name": "flash_attention_bwd",
         "body": bwd_row["body"],
+        # the body it replaced on the main path, timed in turns with it
+        "old_body": bwd_row["old_body"],
+        "old_body_ms": bwd_row["old_body_ms"],
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         # the gradient of the TPU kernel (XLA's, as the Pallas kernel has no custom_vjp)

@@ -907,7 +907,7 @@ def bwd_inputs(card, shape, dtype):
     return q, k, v, out.contiguous(), do, lse, kw
 
 
-@pytest.mark.parametrize("body", ["mma", "fp32"])
+@pytest.mark.parametrize("body", ["wgmma", "mma", "fp32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_flash_bwd_kernel_matches_plain_on_card(card, shape, dtype, body):
@@ -931,16 +931,55 @@ def test_flash_bwd_kernel_matches_plain_on_card(card, shape, dtype, body):
         assert not got[0][:, :-kw["q_offset"]].any()  # a query that sees no key: dq = 0
 
 
-def test_flash_bwd_takes_a_strided_grad_and_repeats_bit_for_bit(card):
+@pytest.mark.parametrize("shape,body", [(BWD_SHAPES[4], "mma"), (BWD_SHAPES[4], "wgmma"),
+                                        (BWD_SHAPES[1], "wgmma")],
+                         ids=["window-mma", "window-wgmma", "granite-split-wgmma"])
+def test_flash_bwd_takes_a_strided_grad_and_repeats_bit_for_bit(card, shape, body):
+    """The same gradients from a strided dO as from a contiguous one, bit
+    for bit, and again on a second call: no atomics, the split's partials
+    included (granite's MQA is split over CTAs on an H100)."""
     from repro_torch.kernels import flash_attention_bwd as fb
 
-    q, k, v, out, do, lse, kw = bwd_inputs(card, BWD_SHAPES[4], torch.bfloat16)
+    q, k, v, out, do, lse, kw = bwd_inputs(card, shape, torch.bfloat16)
+    b, _, h, _ = q.shape
+    if shape is BWD_SHAPES[1]:
+        assert fb.splits_for(b, k.shape[1], k.shape[2], h // k.shape[2], fb.sm_count(card)) > 1
     strided = do.transpose(1, 2).contiguous().transpose(1, 2)  # same values, other strides
     assert not strided.is_contiguous()
-    a = fb.flash_attention_bwd(q, k, v, out, strided, lse, **kw)
-    b = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    before = fb.launches_by_body.get(body, 0)
+    a = fb.flash_attention_bwd(q, k, v, out, strided, lse, body=body, **kw)
+    b = fb.flash_attention_bwd(q, k, v, out, do, lse, body=body, **kw)
+    c = fb.flash_attention_bwd(q, k, v, out, do, lse, body=body, **kw)
+    assert fb.launches_by_body[body] == before + 3
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(y, z)
+
+
+@pytest.mark.parametrize("case,body", [("d112", "mma"), ("unaligned", "fp32")])
+def test_flash_bwd_routes_d112_to_mma_and_unaligned_to_fp32(card, case, body):
+    """zamba2's head dim goes to the mma body; an input off a 16-byte
+    boundary (no TMA source, and mma loads 16 bytes a thread) to the fp32
+    body; naming wgmma for either raises, and mma for the unaligned one."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    shape = (1, 130, 130, 4, 2, 112 if case == "d112" else 128, True, None, 0)
+    q, k, v, out, do, lse, kw = bwd_inputs(card, shape, torch.bfloat16)
+    if case == "unaligned":  # the same values one element past an aligned start
+        buf = torch.empty(q.numel() + 1, device=card, dtype=q.dtype)
+        buf[1:].copy_(q.flatten())
+        q = buf[1:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert fb.body_for(q.dtype, q.shape[3], aligned=q.data_ptr() % 16 == 0) == body
+    before = fb.launches_by_body.get(body, 0)
+    got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fb.launches_by_body[body] == before + 1
+    want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    for x, w in zip(got, want):
+        assert grad_close(x, w, torch.bfloat16)
+    for named in ("wgmma",) + (("mma",) if case == "unaligned" else ()):
+        with pytest.raises(ValueError, match=named):
+            fb.flash_attention_bwd(q, k, v, out, do, lse, body=named, **kw)
 
 
 @pytest.mark.parametrize("body", ["wgmma", "mma", "fp32"])

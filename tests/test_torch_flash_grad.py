@@ -145,9 +145,10 @@ def test_no_graph_without_grad(grad_mode):
 
 
 def test_bodies_for_backward():
-    assert fb.body_for(torch.bfloat16, 128) == "mma"
+    assert fb.body_for(torch.bfloat16, 128) == "wgmma"
     assert fb.body_for(torch.bfloat16, 112) == "mma"
-    assert fb.body_for(torch.bfloat16, 64) == "mma"
+    assert fb.body_for(torch.bfloat16, 64) == "wgmma"
+    assert fb.bodies_for(torch.bfloat16, 128, aligned=False) == ("fp32",)
     assert fb.bodies_for(torch.bfloat16, 192) == ("fp32",)
     assert fb.bodies_for(torch.bfloat16, 8) == ("fp32",)
     assert fb.bodies_for(torch.float32, 128) == ("fp32",)

@@ -9,21 +9,25 @@ it stands, on one card.
     python3 tools/kernel_variants.py decode_attention --target-ctas 528 \\
         --variant "st2=DP > 192 ? 2 : 3=>2"
     python3 tools/kernel_variants.py ssd_scan --variant "w8=STATE_THREADS = 128=>STATE_THREADS = 256"
+    python3 tools/kernel_variants.py flash_attention_bwd --variant "one_wg=KV_WGS = 2;=>KV_WGS = 1;"
 
 Each ``--variant NAME=OLD=>NEW`` replaces the text OLD, which must occur
-exactly once, by NEW in ``src/repro_torch/csrc/<kernel>.cu``.  Every
+exactly once, by NEW in ``src/repro_torch/csrc/<kernel>.cu``
+(``OLD=>NEW&&OLD2=>NEW2`` makes several replacements).  Every
 variant and the unchanged source ("base") are built with the port's nvcc
 flags into ``build/variants/`` (ptxas's warnings and spills for the timed
 body's kernels are printed), checked against the kernel's plain PyTorch
 version at each shape (decode attention by ``chip_smoke.py``'s phase-2
-check), and timed through the body the main path runs
-(flash attention and the grouped matmul: wgmma; decode attention: split;
-the SSD scan: chunked) at the shapes of the main path, in turns (base,
+check, the flash backward's dq, dk and dv by phase 2e's), and timed
+through the body the main path runs (flash attention, its backward and
+the grouped matmul: wgmma; decode attention: split; the SSD scan:
+chunked) at the shapes of the main path, in turns (base,
 variants, variants reversed, base), each time the median of 20 calls
 between CUDA events with the L2 cache flushed before each call.
 ``--target-ctas`` sets the CTAs decode attention's split count aims for
 (``decode_attention.TARGET_CTAS``), for every variant alike.  A variant
-whose launch the card refuses is reported and dropped.  Needs PyTorch with
+that does not build, or whose launch the card refuses, is reported and
+dropped.  Needs PyTorch with
 CUDA, nvcc and a card.
 """
 
@@ -60,16 +64,23 @@ DECODE_SHAPES = [("nemo T=13", 2, 32, 8, 128, 13), ("granite T=13", 2, 48, 1, 12
                  ("nemo T=32768", 2, 32, 8, 128, 32768),
                  ("granite T=32768", 2, 48, 1, 128, 32768),
                  ("deepseek T=300", 2, 128, 128, 192, 300)]
+# (name, B, S, H, KH, D, causal): the flash backward at phase 2e's training
+# shapes: NeMo's, granite's MQA (split over CTAs), whisper's encoder
+BWD_SHAPES = [("nemo", 2, 2048, 32, 8, 128, True), ("granite", 2, 2048, 48, 1, 128, True),
+              ("whisper", 2, 1500, 16, 16, 64, False)]
 # (name, B, T, H, P, N, L): mamba2-780m's prefill (B = 2) and a longer one
 SSD_SHAPES = [("mamba2 T=2048", 2, 2048, 48, 64, 128, 128),
               ("mamba2 T=8192", 2, 8192, 48, 64, 128, 128)]
 # the kernels of the body each kernel is timed through, as ptxas names them
 TIMED = {"flash_attention": ("wgmma",), "moe_gmm": ("wgmma",),
+         "flash_attention_bwd": ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_split_sum"),
          "decode_attention": ("decode_split", "decode_combine"),
          "ssd_scan": ("ssd_chunk", "ssd_state_pass")}
 # the C entry's integer arguments after its pointers
-NINTS = {"flash_attention": 12, "moe_gmm": 6, "decode_attention": 9, "ssd_scan": 8}
-NPTRS = {"flash_attention": 5, "moe_gmm": 4, "decode_attention": 8, "ssd_scan": 11}
+NINTS = {"flash_attention": 12, "moe_gmm": 6, "decode_attention": 9, "ssd_scan": 8,
+         "flash_attention_bwd": 13}
+NPTRS = {"flash_attention": 5, "moe_gmm": 4, "decode_attention": 8, "ssd_scan": 11,
+         "flash_attention_bwd": 11}
 
 
 def build(kernel: str, name: str, text: str) -> tuple:
@@ -83,12 +94,14 @@ def build(kernel: str, name: str, text: str) -> tuple:
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
                            str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr[-4000:]}")
+        print(f"{name}: nvcc failed, dropped:\n{proc.stderr[-3000:]}")
+        return name, None, []
     notes, entry = [], ""
     for line in (proc.stdout + proc.stderr).splitlines():
         if "entry function" in line:
             entry = line
-        if any(k in entry for k in TIMED[kernel]) and ("C75" in line or "spill stores" in line):
+        if any(k in entry for k in TIMED[kernel]) and ("C75" in line or "spill stores" in line
+                                                        or "Used" in line):
             notes.append(line.strip()[:120])
     return name, lib, notes
 
@@ -148,6 +161,31 @@ def cases(kernel: str, gen):
                           q.shape[2], 1, da.BODIES["split"], splits,
                           da.slots_per_split(t, splits), stream())
             yield f"{name} splits={splits}", torch.empty_like(q), want, launch
+    elif kernel == "flash_attention_bwd":
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_attention_bwd as fb
+
+        sms = fb.sm_count(dev)
+        for name, b, s, h, kh, d, causal in BWD_SHAPES:
+            q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device=dev, dtype=torch.bfloat16)
+                           for n in (h, kh, kh, h))
+            out, lse = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+            out = out.contiguous()  # the kernel reads o as (B, S, H, D)
+            want = [x.float() for x in
+                    fb.flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)]
+            splits = fb.splits_for(b, s, kh, h // kh, sms)
+            delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+            part = torch.empty((2, splits) + tuple(k.shape), dtype=torch.float32, device=dev)
+            grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+
+            def launch(fn, grads, q=q, k=k, v=v, out=out, do=do, lse=lse, delta=delta,
+                       part=part, splits=splits, causal=causal):
+                b, s, h, d = q.shape
+                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                          lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in grads),
+                          part.data_ptr(), b, s, s, h, k.shape[2], d, int(causal), 0, 0, 0, 1,
+                          fb.BODIES["wgmma"], splits, stream())
+            yield f"{name} splits={splits}", grads, want, launch
     elif kernel == "ssd_scan":
         from repro_torch.kernels import ssd_scan as ssd
 
@@ -206,15 +244,22 @@ def main() -> None:
     base = (_build.CSRC / f"{args.kernel}.cu").read_text()
     texts = {"base": base}
     for spec in args.variant:
-        name, _, rule = spec.partition("=")
-        old, sep, new = rule.partition("=>")
-        if not sep or base.count(old) != 1:
-            sys.exit(f"kernel_variants: {spec!r}: the text to replace must occur exactly once")
-        texts[name] = base.replace(old, new)
+        name, _, rules = spec.partition("=")
+        text = base
+        for rule in rules.split("&&"):
+            old, sep, new = rule.partition("=>")
+            if not sep or base.count(old) != 1:
+                sys.exit(f"kernel_variants: {spec!r}: each text to replace must occur exactly "
+                         f"once")
+            text = text.replace(old, new)
+        texts[name] = text
     with ThreadPoolExecutor(len(texts)) as pool:
         built = list(pool.map(lambda kv: build(args.kernel, *kv), texts.items()))
     entries = {}
     for name, lib, notes in built:
+        if lib is None:
+            texts.pop(name)
+            continue
         print(f"{name}: built; ptxas on the timed body's kernels: "
               f"{notes or 'no warning, no spill'}")
         fn = getattr(ctypes.CDLL(str(lib)), f"{args.kernel}_launch")
@@ -240,10 +285,14 @@ def main() -> None:
                 print(f"{n}: launch refused, cudaError {rc}")
                 continue
             torch.cuda.synchronize()
-            err = float((out.float() - want).abs().max())
+            if args.kernel == "flash_attention_bwd":  # phase 2e's check of dq, dk, dv
+                checks = [chip_smoke.grad_close(x, w, "bfloat16") for x, w in zip(out, want)]
+                ok, err = all(c[0] for c in checks), max(c[1] for c in checks)
+            else:
+                err = float((out.float() - want).abs().max())
             if args.kernel == "decode_attention":  # phase 2's check, scaled to the output
                 ok = chip_smoke.decode_close(out.float(), want, "bfloat16")
-            else:
+            elif args.kernel != "flash_attention_bwd":
                 ok = torch.allclose(out.float(), want, atol=TOL, rtol=TOL)
             if not ok:
                 raise AssertionError(f"{n} at {shape}: max err {err} outside {TOL}")
