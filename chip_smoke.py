@@ -126,6 +126,19 @@ any phase fails.  Phases:
    one more step under the profiler; then one step at 2 layers, kernel
    path against plain path (``impl="ref"``): loss, grad norm and every
    leaf's gradient (cosine, and max error against the leaf's largest).
+7. the mesh, in a fresh process: a one-rank NCCL group and
+   ``make_debug_mesh``'s (1, 1) ``("data", "model")`` mesh; (7a)
+   ``repro_torch.launch.serve``'s step on mistral-nemo-12b at full width
+   in bf16 over DTensor params (B = 4, capacity 256, 64 tokens; every
+   decode launch on split), then beside the mesh-less ``make_serve_step``
+   on the same params: logits bit for bit, tokens equal; (7b) Qwen3-MoE at
+   full width and depth, prefill B = 2, S = 2048 with the ``ep`` dispatch
+   (nothing dropped at |model| = 1), ``moe_gmm`` counted by body and by the
+   profiler, held against the ``sorted`` dispatch; (7c) three mesh train
+   steps on NeMo at full width, 2 layers, against three mesh-less ones
+   (loss, grad norm and params within 1e-6 relative), the flash forward
+   and backward launches by body; (7d) the SST all-gather over NCCL, bit
+   for bit, with the time of one exchange.
 
 It prints, in order: the card line, per-phase results, one JSON line with
 every kernel's numbers (with the shapes phases 3e-3g gave it and its
@@ -136,6 +149,7 @@ launches there), and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import json
@@ -1342,41 +1356,106 @@ def graph_vs_eager(engine, mid, prompt):
                 profile=profiles)
 
 
+def replay_records(events):
+    """The device records of each graph replay among the profiler's
+    ``events``, by the correlation id of its ``cudaGraphLaunch`` call
+    (CUPTI gives every kernel of a replay that id): (records, main
+    decode-attention kernels)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {e.correlation_id(): [0, 0] for e in events
+            if e.device_type() != cuda and e.name().startswith("cudaGraphLaunch")}
+    for e in events:
+        row = rows.get(e.correlation_id()) if e.device_type() == cuda else None
+        if row is not None:
+            row[0] += 1
+            row[1] += any(k in e.name() for k in DECODE_MAIN)
+    return {cid: tuple(row) for cid, row in rows.items()}
+
+
+#: Tiny kernels launched at the start of each profile of a task, before the
+#: task. The profiler loses the first device records of a session, more of
+#: them the longer the process has run (on the H100: none in its first
+#: minute or two, then one more every few seconds), and these take the loss.
+BALLAST = 4096
+#: Profiles of one task taken at most, the ballast four times larger each
+#: time, before ``profile_task`` gives up on a complete record of the task.
+PROFILE_ATTEMPTS = 3
+
+
 def profile_task(fn, engine, mid, prompt, what):
     """Device time of one task ``fn(mid, prompt)`` (the profiler's device
-    events) against its wall time, and the decode-attention kernels the
+    records) against its wall time, and the decode-attention kernels the
     card ran, by name: for a graphed task their main kernels must equal
-    the launches the engine counts for its replays."""
+    the launches the engine counts for its replays.
+
+    Each profile opens with ``BALLAST`` tiny kernels and a synchronise;
+    only the records after it count. The profile is complete where some
+    of the ballast's records are left (the loss ended before the task)
+    and, for a graphed task, every replay is listed with as many records
+    as the others (they run one graph). An incomplete profile is taken
+    again with four times the ballast, up to ``PROFILE_ATTEMPTS`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine.reset_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(mid, prompt)
+    cuda = torch.autograd.DeviceType.CUDA
+    pad = torch.zeros(1, device=engine.device)
+    ballast, lost = BALLAST, []
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        engine.reset_counts()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    device_ms = sum(dev_us(e) for e in events) / 1e3
-    by_name = {k: sum(e.count for e in events if k in e.key) for k in DECODE_KERNELS}
-    main = by_name["decode_attention_kernel"] + by_name["decode_split"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(ballast):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(mid, prompt)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.profiler.kineto_results.events()
+        # the ballast's synchronise is the session's first
+        start = min(e.correlation_id() for e in events
+                    if e.device_type() != cuda and e.name().startswith("cudaDeviceSynchronize"))
+        kept = sum(e.device_type() == cuda and e.correlation_id() < start for e in events)
+        task = [e for e in events if e.device_type() == cuda and e.correlation_id() > start]
+        rows = replay_records(events) if engine.replays else {}
+        sizes = collections.Counter(n for n, _ in rows.values())
+        if kept and (not engine.replays or (len(rows) == engine.replays and len(sizes) == 1)):
+            break
+        lost.append(dict(attempt=attempt, ballast=ballast, ballast_kept=kept,
+                         replays_listed=len(rows), replays=engine.replays,
+                         records_by_replay=dict(sizes)))
+        print(f"profile of one {what}, attempt {attempt}: incomplete ({kept} of the "
+              f"ballast's {ballast} records left; {len(rows)} of {engine.replays} replays "
+              f"listed; replays by their record count {dict(sizes)})", flush=True)
+        ballast *= 4
+    else:
+        raise AssertionError(f"{what}: no complete profile in {PROFILE_ATTEMPTS}: {lost}")
+    device_ms = sum(e.duration_ns() for e in task) / 1e6
+    by_name = {k: sum(k in e.name() for e in task) for k in DECODE_KERNELS}
+    main = sum(by_name[k] for k in DECODE_MAIN)
     replayed = engine.replayed_launches["decode_attention"]
-    kernels = sum(e.count for e in events)
     print(f"profile of one {what}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms wall "
-          f"({100 * device_ms / wall_ms:.1f} %), {kernels} kernels; decode-attention kernels "
-          f"{by_name}, the engine's replayed launches {replayed}", flush=True)
+          f"({100 * device_ms / wall_ms:.1f} %), {len(task)} kernels; decode-attention "
+          f"kernels {by_name}, the engine's replayed launches {replayed}; the profiler lost "
+          f"{ballast - kept} of the ballast's {ballast} records", flush=True)
     if engine.replays and main != replayed:
         raise AssertionError(f"{what}: the card ran {main} decode-attention kernels, the "
                              f"engine counted {replayed} launches in its replays")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
-                kernels=kernels, decode_kernels=by_name, replayed_launches=replayed,
-                replays=engine.replays)
+    out = dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+               kernels=len(task), decode_kernels=by_name, replayed_launches=replayed,
+               replays=engine.replays, attempts=attempt, ballast=ballast,
+               ballast_lost=ballast - kept, incomplete=lost)
+    if engine.replays:
+        per_replay = collections.Counter(d for _, d in rows.values())
+        out["records_per_replay"] = next(iter(sizes))
+        print(f"  {len(rows)} replays of {out['records_per_replay']} device records each; "
+              f"decode-attention kernels a replay {dict(per_replay)}", flush=True)
+        if sum(d * n for d, n in per_replay.items()) != replayed:
+            raise AssertionError(f"{what}: the replays' own records hold "
+                                 f"{dict(per_replay)} decode-attention kernels")
+    return out
 
 
 LONG_CONTEXT = 32768  # cache slots of the long-context decode
@@ -1481,6 +1560,9 @@ def checked_attention(params, cfg, cache, tokens, start, what="long-context"):
 
 # the decode-attention kernels' names, as the profiler lists them
 DECODE_KERNELS = ("decode_attention_kernel", "decode_split", "decode_combine")
+#: The kernels of one decode-attention launch that run once each (the
+#: split body's combine runs beside its split kernel only where it splits).
+DECODE_MAIN = ("decode_attention_kernel", "decode_split")
 
 
 def profile_decode(hosted, prompt, dev, steps=4, cache=None):
@@ -2957,6 +3039,261 @@ def train_full_width():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the mesh at world size 1 (NCCL)
+# ---------------------------------------------------------------------------
+MESH_SERVE = dict(model="mistral-nemo-12b", batch=4, capacity=256, tokens=64)
+MESH_EP_MODEL = "qwen3-moe-30b-a3b"
+MESH_TRAIN_LAYERS = 2     # NeMo at full width
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_REL = 1e-6     # loss, grad norm and params against the mesh-less step
+SST_EXCHANGES = 200
+
+
+def mesh_serve(mesh):
+    """7a: ``launch.serve``'s step on NeMo at full width in bf16 over DTensor
+    params, timed, with its launches (every decode launch on split); then
+    the same step beside the mesh-less ``make_serve_step`` on the same
+    params and cache, logits bit for bit and tokens equal each step."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.device import mesh_device
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_cache, sharding
+    from repro_torch.training import make_serve_step
+
+    cfg = ARCHS[MESH_SERVE["model"]]
+    b, cap, n_tok = MESH_SERVE["batch"], MESH_SERVE["capacity"], MESH_SERVE["tokens"]
+    read = counts_zeroed()
+    run = launch_serve.serve(cfg, mesh, batch=b, capacity=cap, tokens=n_tok, seed=13)
+    launches, by_body = read(), bodies()
+    want = cfg.n_layers * n_tok
+    out = dict(model=cfg.name, batch=b, capacity=cap, tokens=n_tok, path=run["path"],
+               ms_per_step=run["ms_per_step"], tokens_per_s=run["tokens_per_s"],
+               launches=launches, launches_by_body=by_body)
+    print(f"7a {cfg.name} launch.serve over the mesh (bf16, B={b}, capacity {cap}, {n_tok} "
+          f"tokens): {run['ms_per_step']:.2f} ms a step, {run['tokens_per_s']:.1f} tokens/s; "
+          f"launches {launches} by body {by_body}", flush=True)
+    if launches != dict(decode_attention=want, flash_attention=0, ssd_scan=0, moe_gmm=0) \
+            or by_body["decode_attention"] != {"split": want}:
+        raise AssertionError(f"7a: launches {launches} by body {by_body}, expected {want} "
+                             f"decode launches on split")
+    params = run.pop("params")
+    dev = mesh_device(mesh)
+    sharded = sharding.shard_tree(params, mesh, sharding.param_pspecs(mesh, params, cfg))
+    cache = init_cache(cfg, b, cap, device=dev)
+    mcache = sharding.shard_tree(init_cache(cfg, b, cap, device=dev), mesh,
+                                 sharding.cache_pspecs(mesh, cache))
+    plain, meshed = make_serve_step(cfg, device=dev), make_serve_step(cfg, mesh=mesh)
+    tok = torch.ones((b,), dtype=torch.int32, device=dev)
+    equal, same_tokens, walls = True, True, dict(plain=[], mesh=[])
+    for i in range(n_tok):
+        for way, fn in (("plain", lambda: plain(params, cache, tok)),
+                        ("mesh", lambda: meshed(sharded, mcache, tok))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_i, _ = fn()
+            torch.cuda.synchronize()
+            walls[way].append(time.perf_counter() - t0)
+            if way == "plain":
+                want_logits = logits_i
+        equal &= bool(torch.equal(logits_i.full_tensor(), want_logits))
+        tok = want_logits.argmax(-1).to(torch.int32)
+        same_tokens &= bool((tok.cpu().numpy() == run["tokens"][i]).all())
+    med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    out.update(logits_bitwise_equal=equal, tokens_equal=same_tokens, side_by_side_ms=med)
+    print(f"7a mesh step against the mesh-less step, {n_tok} steps: logits bit for bit "
+          f"{equal}, tokens equal {same_tokens}; median ms a step (eager, host clock, in "
+          f"turns): mesh {med['mesh']:.2f}, mesh-less {med['plain']:.2f}", flush=True)
+    if not (equal and same_tokens):
+        raise AssertionError("7a: the mesh step differs from the mesh-less step")
+    return out
+
+
+def mesh_ep(mesh):
+    """7b: Qwen3-MoE at full width and depth, prefill of B = 2, S = 2048
+    through ``forward`` with the ``ep`` dispatch over the mesh (at
+    |model| = 1 with capacity factor 1.5 nothing is dropped), its launches
+    by body and its grouped-matmul kernels counted by the profiler, held
+    against the ``sorted`` dispatch as phase 3c holds its logits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import forward
+
+    cfg, params, out = load_full_width(MESH_EP_MODEL)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                                     device=dev)}
+    n = cfg.n_layers
+    with torch.no_grad():
+        forward(params, batch, cfg, moe_dispatch="ep", mesh=mesh)  # warm-up
+        torch.cuda.synchronize()
+        read = counts_zeroed()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ep_logits, ep_aux = forward(params, batch, cfg, moe_dispatch="ep", mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches, by_body = read(), bodies()
+        sorted_logits, sorted_aux = forward(params, batch, cfg, moe_dispatch="sorted")
+    profiled = {k: sum(e.count for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                       and k in e.key)
+                for k in ("gmm_wgmma_kernel", "gmm_bf16_kernel", "gmm_f32_kernel")}
+    want = dict(decode_attention=0, flash_attention=n, ssd_scan=0, moe_gmm=3 * n)
+    cmp = compare_logits(f"7b {cfg.name} prefill logits, ep against sorted (bf16, {n} layers)",
+                         ep_logits[:, -1].float(), sorted_logits[:, -1].float())
+    cmp.update(argmax_agreement(ep_logits, sorted_logits, ep_logits[:, -1],
+                                sorted_logits[:, -1]))
+    cmp["bitwise_equal"] = bool(torch.equal(ep_logits, sorted_logits))
+    cmp["aux"] = (float(ep_aux), float(sorted_aux))
+    out.update(wall_s=wall, launches=launches, launches_by_body=by_body,
+               profiled_gmm_kernels=profiled, ep_vs_sorted=cmp)
+    print(f"7b {cfg.name} ep prefill B={PREFILL_B} S={PREFILL_S}: wall {wall:.3f} s (under the "
+          f"profiler); launches {launches} by body {by_body}; the profiler's grouped-matmul "
+          f"kernels {profiled}; argmax equal at {cmp['argmax_share']:.4f}, bit for bit "
+          f"{cmp['bitwise_equal']}, aux {cmp['aux']}", flush=True)
+    del params, ep_logits, sorted_logits
+    release_models()
+    if launches != want or by_body["moe_gmm"] != {"wgmma": 3 * n} \
+            or by_body["flash_attention"] != {"wgmma": n} or profiled["gmm_wgmma_kernel"] != 3 * n:
+        raise AssertionError(f"7b: launches {launches} by body {by_body}, profiled {profiled}; "
+                             f"expected {want}, all on wgmma")
+    if cmp["ratio"] > TOL["bfloat16"] or cmp["argmax_share"] < ARGMAX_SHARE:
+        raise AssertionError("7b: the ep dispatch's logits differ from the sorted dispatch's")
+    return out
+
+
+def mesh_train(mesh):
+    """7c: three steps of ``make_train_step`` over the mesh (DTensor params
+    and moments, each layer's weights gathered on use) on NeMo at full
+    width and 2 layers, against three mesh-less steps from the same
+    weights and batches: loss, grad norm and every updated param within
+    ``MESH_TRAIN_REL``; the mesh run's flash launches, forward and
+    backward, by body."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models import init_params, sharding
+    from repro_torch.training import make_train_step, optimizer as opt
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ARCHS[TRAIN_MODEL], n_layers=MESH_TRAIN_LAYERS)
+    data = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=PREFILL_S, global_batch=PREFILL_B,
+                                    seed=3))
+    batches = [next(data) for _ in range(MESH_TRAIN_STEPS)]
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    runs = {}
+    for way in ("mesh-less", "mesh"):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(19), dev)
+        if way == "mesh":
+            params = sharding.shard_tree(params, mesh, sharding.param_pspecs(mesh, params, cfg))
+            step = make_train_step(cfg, ocfg, mesh=mesh)
+        else:
+            step = make_train_step(cfg, ocfg, device=dev)
+        state = opt.init(params)
+        read = counts_zeroed()
+        walls, metrics = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[way] = dict(walls=walls, metrics=metrics, launches=read(), by_body=bodies(),
+                         bwd=fb.launches, bwd_by_body=dict(fb.launches_by_body),
+                         params={p: t.detach().clone() for p, t in
+                                 opt.leaves(sharding.gather_tree(params))})
+        del params, state, step
+        release_models()
+    a, b = runs["mesh"], runs["mesh-less"]
+    worst = max(float((a["params"][p].float() - t.float()).abs().max())
+                / max(float(t.float().abs().max()), 1e-30) for p, t in b["params"].items())
+    rel = max(abs(x - y) / abs(y) for ma, mb in zip(a["metrics"], b["metrics"])
+              for x, y in zip(ma, mb))
+    want_fwd, want_bwd = MESH_TRAIN_STEPS * MESH_TRAIN_LAYERS * 2, MESH_TRAIN_STEPS * MESH_TRAIN_LAYERS
+    out = dict(layers=MESH_TRAIN_LAYERS, steps=MESH_TRAIN_STEPS, mesh_walls=a["walls"],
+               plain_walls=b["walls"], metrics=a["metrics"], plain_metrics=b["metrics"],
+               worst_metric_rel=rel, worst_param_rel=worst, launches=a["launches"],
+               flash_by_body=a["by_body"]["flash_attention"], bwd_launches=a["bwd"],
+               bwd_by_body=a["bwd_by_body"])
+    print(f"7c {TRAIN_MODEL}@{MESH_TRAIN_LAYERS} train step over the mesh: "
+          f"{', '.join(f'{w:.4f}' for w in a['walls'])} s (mesh-less "
+          f"{', '.join(f'{w:.4f}' for w in b['walls'])} s); loss, grad norm {a['metrics']}; "
+          f"largest difference from the mesh-less step: metrics {rel:.2e}, params {worst:.2e} of "
+          f"each leaf's largest; flash launches {a['launches']['flash_attention']} by body "
+          f"{out['flash_by_body']} (expected {want_fwd}), backward {a['bwd']} by body "
+          f"{a['bwd_by_body']} (expected {want_bwd})", flush=True)
+    if rel > MESH_TRAIN_REL or worst > MESH_TRAIN_REL:
+        raise AssertionError(f"7c: the mesh step differs from the mesh-less step ({rel}, {worst})")
+    if a["launches"]["flash_attention"] != want_fwd or a["bwd"] != want_bwd \
+            or out["flash_by_body"] != {"wgmma": want_fwd} or a["bwd_by_body"] != {"wgmma": want_bwd}:
+        raise AssertionError(f"7c: flash launches {out}, expected {want_fwd} forward and "
+                             f"{want_bwd} backward on wgmma")
+    return out
+
+
+def mesh_sst(mesh):
+    """7d: the SST all-gather over NCCL: this rank's packed row against the
+    table bit for bit, and the time of one exchange."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import SSTRow
+    from repro_torch.core.sst_exchange import make_sst_allgather, pack_row
+
+    exchange = make_sst_allgather(mesh, axis="data")
+    rows = pack_row(SSTRow(ft_estimate_s=3.25, cache_bitmap=(1 << 40) | 7, free_cache_bytes=4096.0,
+                           version=9, heartbeat_s=1.5, epoch=2), queue_len=4)[None]
+    local = torch.as_tensor(rows, device="cuda")
+    table = exchange(local)
+    exchange(local)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SST_EXCHANGES):
+        exchange(local)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / SST_EXCHANGES * 1e6
+    same = bool(np.array_equal(table.cpu().numpy(), rows))
+    print(f"7d SST all-gather over {dist.get_backend()} ({mesh.size()} rank): bit for bit {same}, "
+          f"{us:.1f} µs an exchange (host clock over {SST_EXCHANGES}, ending in a synchronise)",
+          flush=True)
+    if not same or table.dtype != torch.uint32:
+        raise AssertionError("7d: the gathered table differs from the rows")
+    return dict(bitwise_equal=same, us_per_exchange=us, exchanges=SST_EXCHANGES)
+
+
+def mesh_on_card():
+    """Phase 7, in a fresh process so that its process group stays out of
+    the other phases: a one-rank NCCL group and ``make_debug_mesh``'s
+    (1, 1) mesh, then 7a-7d.  A failure in any part fails the phase."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(device="cuda")
+    out = dict(mesh=sharding.mesh_sizes(mesh), backend=dist.get_backend(),
+               world=dist.get_world_size())
+    print(f"phase 7 mesh {out['mesh']} over {out['backend']}, world {out['world']}", flush=True)
+    try:
+        out["serve"] = mesh_serve(mesh)
+        release_models()
+        out["ep"] = mesh_ep(mesh)
+        out["train"] = mesh_train(mesh)
+        out["sst"] = mesh_sst(mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--out", type=Path, default=None,
@@ -3022,6 +3359,9 @@ def main() -> None:
     simulated = phases.run("phase 5c: the simulator on the card's host", compass_simulator)
     training = phases.run(f"phase 6: {TRAIN_MODEL} training at full width, {TRAIN_LAYERS} layers "
                           f"(bf16)", train_full_width) if built else None
+    release_models()
+    meshed = phases.run("phase 7: the mesh at world size 1 (NCCL)", in_fresh_process,
+                        "mesh_on_card") if built else None
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
@@ -3030,7 +3370,7 @@ def main() -> None:
                  qwen3_moe=qwen,
                  deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
                  reduced=reduced, planner=planner, constants=constants,
-                 simulator=simulated, idle_power_w=idle_w,
+                 simulator=simulated, mesh=meshed, idle_power_w=idle_w,
                  failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))
     if phases.failed or not built:
         die(f"failed phases: {phases.failed}")
@@ -3153,6 +3493,17 @@ def main() -> None:
                  else {f"6 {TRAIN_MODEL}@{training['layers']}": training["bwd_launches"]})
     kernels[1]["launches_by_phase"][f"6 {TRAIN_MODEL}@{training['layers']} (training)"] = \
         training["launches"]["flash_attention"]
+    # phase 7's runs over the (1, 1) NCCL mesh
+    mesh_phase = {
+        "decode_attention": {"7a mesh serve": meshed["serve"]["launches"]["decode_attention"]},
+        "flash_attention": {"7b ep prefill": meshed["ep"]["launches"]["flash_attention"],
+                            "7c mesh training": meshed["train"]["launches"]["flash_attention"]},
+        "ssd_scan": {},
+        "moe_gmm": {"7b ep prefill": meshed["ep"]["launches"]["moe_gmm"]},
+        "flash_attention_bwd": {"7c mesh training": meshed["train"]["bwd_launches"]},
+    }
+    for k in kernels:
+        k["launches_by_phase"].update(mesh_phase[k["name"]])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

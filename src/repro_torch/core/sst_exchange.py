@@ -17,11 +17,10 @@ The reference has two transports; the port has the first:
    gossip round with ``k`` dirty rows ships (and costs) O(k), never a
    full-table copy (``benchmarks/bench_sst_microbench.py`` guards this).
 
-2. The collective transport, the reference's ``make_sst_allgather`` (an
-   all-gather of per-device rows over a device mesh, the analogue of the
-   paper's RDMA one-sided row pushes), is not here yet: on several GPUs it
-   becomes ``torch.distributed.all_gather_into_tensor`` of the 16-lane
-   rows that ``pack_row`` builds, with multi-GPU serving.
+2. **make_sst_allgather** — the collective transport: an all-gather of
+   each rank's packed rows over a mesh dim (the analogue of the paper's
+   RDMA one-sided row pushes), ``torch.distributed.all_gather_into_tensor``
+   of the 16-lane rows that ``pack_row`` builds.
 
 Row layout (uint32 lanes — exact bit transport; 16 lanes = 64 bytes =
 exactly one cache line, keeping the wire format faithful to Fig. 5):
@@ -101,6 +100,34 @@ def unpack_rows(table: np.ndarray) -> List[SSTRow]:
             )
         )
     return rows
+
+
+def make_sst_allgather(mesh, axis: str = "data"):
+    """Returns ``exchange(local_rows) -> table``: each rank's (k, ROW_WIDTH)
+    uint32 rows (a tensor on the mesh's device, or a numpy array) gathered
+    over the ranks of ``mesh``'s dim ``axis``, in rank order, on every one
+    of them: exactly the post-push SST state every scheduler reads.  The
+    collective moves the rows as int32 of the same bits (neither gloo nor
+    NCCL takes uint32), so the table is bit for bit the rows."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import mesh_device
+
+    group = mesh.get_group(axis)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    dev = mesh_device(mesh)
+
+    def exchange(local_rows):
+        rows = torch.as_tensor(local_rows, device=dev).contiguous()
+        if rows.dtype != torch.uint32 or rows.dim() != 2 or rows.shape[1] != ROW_WIDTH:
+            raise ValueError(f"want (k, {ROW_WIDTH}) uint32 rows; got {rows.dtype} "
+                             f"{tuple(rows.shape)}")
+        out = torch.empty((n * rows.shape[0], ROW_WIDTH), dtype=torch.int32, device=dev)
+        dist.all_gather_into_tensor(out, rows.view(torch.int32), group=group)
+        return out.view(torch.uint32)
+
+    return exchange
 
 
 # --------------------------------------------------------------------------

@@ -889,9 +889,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* l
 
 }  // namespace
 
+static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // q (B, H, D), k/v (B, T, KH, D), out (B, H, D): contiguous, of one dtype
 // (0 = fp32, 1 = bf16); cache_len (B,) int32.  D even, at most 256, and a
-// whole number of 16-byte vectors.  body: 0 = single, 1 = split.  The
+// whole number of 16-byte vectors; q, k, v and out on 16-byte boundaries
+// (both bodies load them 16 bytes a thread).  body: 0 = single, 1 = split.  The
 // split body takes up to 128 query rows per kv head in bf16 and 64 in fp32,
 // and `splits` CTAs of `per_split` slots each (a multiple of 64) covering
 // T; with more than one split, part_m and part_l (B, H, splits) and
@@ -904,7 +907,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        int per_split, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || KH <= 0 || H % KH != 0 || T_ < 0 || D <= 0 || D > 256 || D % 2 != 0 ||
-      (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || (body != 0 && body != 1))
+      (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || (body != 0 && body != 1) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   const int G = H / KH;

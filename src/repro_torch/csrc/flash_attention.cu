@@ -830,7 +830,8 @@ extern "C" int flash_attention_wgmma_smem_bytes(int D) {
 // q (B, Sq, H, D), k/v (B, Sk, KH, D), out (B, Sq, H, D): contiguous, of one
 // dtype (0 = fp32, 1 = bf16).  lse: null, or (B, H, Sq) fp32 for each
 // query's log-sum-exp (with Sk > 0).  D at most 256 and a whole number of
-// 16-byte vectors; H a multiple of KH.  body: 0 = fp32, 1 = mma, 2 = wgmma
+// 16-byte vectors; H a multiple of KH; q, k, v and out on 16-byte
+// boundaries.  body: 0 = fp32, 1 = mma, 2 = wgmma
 // (see the note at the top); a body that cannot take these inputs is
 // refused.  Returns a cudaError_t code, 0 on success.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
@@ -838,13 +839,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int causal, int has_window, int window, int q_offset,
                                       int dtype, int body, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
+  // every body loads q, k and v 16 bytes a thread (TMA tiles, int4 or
+  // float4 loads) and stores out in vectors: all four start on 16-byte
+  // boundaries, or the launch is refused
   if (B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0 || D <= 0 || D > 256 ||
-      (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1))
+      (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   const bool ok = body == 0 ? true
                 : body == 1 ? dtype == 1 && D % 16 == 0
-                : body == 2 ? dtype == 1 && D % 64 == 0 && D != 0 && aligned16(q) &&
-                                  aligned16(k) && aligned16(v) && aligned16(out)
+                : body == 2 ? dtype == 1 && D % 64 == 0 && D != 0
                 : false;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return 0;

@@ -883,10 +883,13 @@ extern "C" size_t ssd_scan_smem_bytes(int L, int P, int N, int dtype, int body) 
   return body == 1 ? chunked_smem_bytes(L, P, N, dtype) : smem_bytes(L, P, N);
 }
 
+static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // x (B, T, H, P) and b/c (B, T, H, N) of one dtype (0 = fp32, 1 = bf16);
 // dt (B, T, H) and a (H,) fp32; init (B, H, P, N) fp32 or null; outputs
 // y (B, T, H, P) in x's dtype and the final state (B, H, P, N) fp32; all
-// contiguous.  P and N whole numbers of 16-byte vectors; 1 <= L.  body: 0 =
+// contiguous; x, b, c and y on 16-byte boundaries (every body loads and
+// stores them in vectors).  P and N whole numbers of 16-byte vectors; 1 <= L.  body: 0 =
 // serial, 1 = chunked (L <= 128, and P <= 128 in bf16), whose scratch is
 // states (B, ceil(T / L), H, P, N) and decays (B, ceil(T / L), H), fp32,
 // and in bf16 s_in, (B, ceil(T / L), H, 2, P, N) bf16 (null in fp32).
@@ -897,7 +900,8 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a, con
                                int P, int N, int L, int dtype, int body, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || Tn < 0 || H < 0 || P <= 0 || N <= 0 || L <= 0 || (P * itemsize) % 16 != 0 ||
-      (N * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || (body != 0 && body != 1))
+      (N * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || (body != 0 && body != 1) ||
+      !aligned16(x) || !aligned16(b) || !aligned16(c) || !aligned16(y))
     return (int)cudaErrorInvalidValue;
   if (body == 1 && (L > 128 || (dtype == 1 && P > 128) ||
                     (Tn > 0 && (states == nullptr || decays == nullptr ||

@@ -23,3 +23,10 @@ def resolve_device(device: Device) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device on a ``DeviceMesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -92,6 +92,15 @@ def build_all() -> Dict[str, Path]:
         return dict(zip(names, pool.map(build, names)))
 
 
+def aligned(x: "torch.Tensor") -> "torch.Tensor":
+    """``x`` itself where it starts on a 16-byte boundary, else a fresh
+    copy of it (the caching allocator's blocks start on 512-byte
+    boundaries).  Every kernel loads its inputs 16 bytes a thread, and a
+    contiguous view at an odd storage offset (a slice, a rank's shard)
+    would fault the CUDA context: this is a copy, not a change of body."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     with _lock:

@@ -177,6 +177,13 @@ def _check(q, k_cache, v_cache, cache_len) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _prepare(q, k_cache, v_cache, cache_len):
+    """(q, k_cache, v_cache) checked, each on a 16-byte boundary: an input
+    off one is copied (:func:`_build.aligned`), on any device."""
+    _check(q, k_cache, v_cache, cache_len)
+    return tuple(_build.aligned(x) for x in (q, k_cache, v_cache))
+
+
 def _entry():
     """The C entry point, built and typed at first use."""
     fn = _build.load("decode_attention").decode_attention_launch
@@ -198,14 +205,16 @@ def decode_attention(
     → (B, H, D) in q's dtype.  CUDA tensors launch the kernel on the
     current stream, through ``body`` (one of ``BODIES``) or, when it is
     None, the body :func:`body_for` picks; CPU tensors take
-    :func:`decode_attention_plain`."""
+    :func:`decode_attention_plain`.  Every body loads 16 bytes a thread: an
+    input off a 16-byte boundary is copied before the launch (a copy, not
+    another body)."""
     global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA or CPU, not {q.device}")
     refuse_grad("decode_attention", q, k_cache, v_cache)
-    _check(q, k_cache, v_cache, cache_len)
+    q, k_cache, v_cache = _prepare(q, k_cache, v_cache, cache_len)
     b, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
     found = bodies_for(q.dtype, d, h // kh, splits_for(b, kh, t))

@@ -10,8 +10,10 @@ The kernel has three bodies (see the CUDA source): ``wgmma`` (bf16 with
 D in {64, 128, 192, 256}, on Hopper's warpgroup products fed by TMA),
 ``mma`` (bf16 with D a multiple of 16, on mma.sync) and ``fp32`` (the CUDA
 cores, any dtype and head dim the kernel takes).  :func:`body_for` picks
-one from the dtype, the head dim and the alignment; a caller may name one
-with ``body=`` to time or test it.
+one from the dtype and the head dim; a caller may name one with ``body=``
+to time or test it.  Every body loads 16 bytes a thread: an input that
+does not start on a 16-byte boundary is copied before the launch (a
+copy, not another body).
 
 ``flash_attention`` launches the kernel for CUDA tensors and counts each
 launch in the module-level ``launches`` and, by body, in
@@ -52,9 +54,10 @@ BODIES = {"fp32": 0, "mma": 1, "wgmma": 2}
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 
 
-def bodies_for(dtype: torch.dtype, d: int, aligned: bool) -> Tuple[str, ...]:
-    """The bodies that take these inputs, the preferred one first.
-    ``aligned``: q, k, v and the output start on 16-byte boundaries."""
+def bodies_for(dtype: torch.dtype, d: int) -> Tuple[str, ...]:
+    """The bodies that take these inputs, the preferred one first.  Every
+    body loads 16 bytes a thread, so the wrapper hands each one inputs on
+    16-byte boundaries (:func:`_prepare`)."""
     if dtype == torch.float32:
         return ("fp32",)
     if dtype != torch.bfloat16:
@@ -62,14 +65,14 @@ def bodies_for(dtype: torch.dtype, d: int, aligned: bool) -> Tuple[str, ...]:
     found = ("fp32",)
     if d % 16 == 0:
         found = ("mma",) + found
-    if d in WGMMA_HEAD_DIMS and aligned:
+    if d in WGMMA_HEAD_DIMS:
         found = ("wgmma",) + found
     return found
 
 
-def body_for(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+def body_for(dtype: torch.dtype, d: int) -> str:
     """The body a call with these inputs runs when it names none."""
-    found = bodies_for(dtype, d, aligned)
+    found = bodies_for(dtype, d)
     if not found:
         raise TypeError(f"kernel takes fp32 or bf16; got {dtype}")
     return found[0]
@@ -118,6 +121,13 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _prepare(q, k, v):
+    """(q, k, v) checked, each on a 16-byte boundary: an input off one is
+    copied (:func:`_build.aligned`), on any device."""
+    _check(q, k, v)
+    return tuple(_build.aligned(x) for x in (q, k, v))
+
+
 def _entry():
     """The C entry point, built and typed at first use."""
     fn = _build.load("flash_attention").flash_attention_launch
@@ -132,18 +142,17 @@ def _launch(q, k, v, causal, window, q_offset, body, with_lse):
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
-    _check(q, k, v)
+    q, k, v = _prepare(q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v, out))
-    found = bodies_for(q.dtype, d, aligned)
+    found = bodies_for(q.dtype, d)
     if body is None:
         body = found[0]
     elif body not in found:
-        raise ValueError(f"the {body!r} body does not take {q.dtype} at head dim {d}"
-                         f"{'' if aligned else ' (unaligned)'}; bodies that do: {found}")
+        raise ValueError(f"the {body!r} body does not take {q.dtype} at head dim {d}; "
+                         f"bodies that do: {found}")
     if out.numel() == 0:  # nothing to compute: no launch
         return out, lse
     if lse is not None and sk == 0:  # no key: out 0, lse -inf, no launch

@@ -197,6 +197,13 @@ def _check(x, dt, a, b, c, chunk, initial_state) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _prepare(x, dt, a, b, c, chunk, initial_state):
+    """(x, b, c) checked, each on a 16-byte boundary: an input off one is
+    copied (:func:`_build.aligned`), on any device."""
+    _check(x, dt, a, b, c, chunk, initial_state)
+    return tuple(_build.aligned(z) for z in (x, b, c))
+
+
 def _entry():
     """The C entry points, built and typed at first use: the launcher and
     the shared memory (bytes) the largest CTA of a body takes for
@@ -226,14 +233,16 @@ def ssd_scan(
     (y (B,T,H,P) in x's dtype, final state (B,H,P,N) fp32).  CUDA tensors
     launch the kernel on the current stream, through ``body`` (one of
     ``BODIES``) or, when it is None, the body :func:`body_for` picks; CPU
-    tensors take :func:`ssd_scan_plain`."""
+    tensors take :func:`ssd_scan_plain`.  Every body loads x, b and c 16
+    bytes a thread: one off a 16-byte boundary is copied before the launch
+    (a copy, not another body)."""
     global launches
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU, not {x.device}")
     refuse_grad("ssd_scan", x, dt, a, b, c, initial_state)
-    _check(x, dt, a, b, c, chunk, initial_state)
+    x, b, c = _prepare(x, dt, a, b, c, chunk, initial_state)
     bs, t, h, p = x.shape
     n = b.shape[3]
     length = chunk_length(chunk, t)

@@ -34,6 +34,7 @@ from repro_torch.device import Device, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -68,6 +69,11 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+    def items(self) -> List[Tuple[str, Any]]:
+        """(key, child) pairs, as a mapping's: the parameters, then the
+        subtrees."""
+        return list(self._parameters.items()) + list(self._modules.items())
 
     def layer(self, i: int) -> Dict[str, Any]:
         """Slice ``i`` of every stacked leaf, as a nested dict of views."""
@@ -300,7 +306,7 @@ def _dense_block(h, layer, positions, cfg, *, window, impl, mrope_positions=None
     return h, kv
 
 
-def _moe_block(h, layer, positions, cfg, *, window, impl, dispatch):
+def _moe_block(h, layer, positions, cfg, *, window, impl, dispatch, mesh=None):
     x = rms_norm(h, layer["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         attn_out, _ = mla_mod.mla_attention(
@@ -313,7 +319,7 @@ def _moe_block(h, layer, positions, cfg, *, window, impl, dispatch):
                                     impl=impl, **_attn_kwargs(cfg))
     h = h + attn_out
     ffn_out, aux = moe_mod.moe_ffn(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["moe"],
-                                   top_k=cfg.top_k, dispatch=dispatch, impl=impl)
+                                   top_k=cfg.top_k, dispatch=dispatch, impl=impl, mesh=mesh)
     return h + ffn_out, aux
 
 
@@ -374,6 +380,7 @@ def forward(
     moe_dispatch: str = "sorted",
     window: Optional[int] = None,
     remat: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  ``batch``:
       tokens        : (B, S) token ids                   (all families)
@@ -383,10 +390,14 @@ def forward(
     summed over the layers, 0 for the other families).  ``impl`` picks the
     kernels' implementation ("auto": the hand-written kernels for CUDA
     tensors, their plain twins for CPU tensors); ``moe_dispatch`` the MoE
-    dispatch ("sorted" or "scan").  ``window`` is the dense layers'
-    attention window; zamba2's shared block always takes the config's.
-    ``remat``: under autograd, checkpoint each layer (see :func:`_block`).
-    Differentiable: run it under ``torch.no_grad()`` to build no graph."""
+    dispatch ("sorted", "scan", or "ep" with a ``mesh``).  ``window`` is the
+    dense layers' attention window; zamba2's shared block always takes the
+    config's.  ``remat``: under autograd, checkpoint each layer (see
+    :func:`_block`).  With a ``mesh`` (a ``DeviceMesh``) ``batch`` is this
+    rank's rows, and ``params`` may be a
+    :class:`~repro_torch.models.sharding.Gathered` view of DTensors; the
+    mesh goes to the MoE layers.  Differentiable: run it under
+    ``torch.no_grad()`` to build no graph."""
     at = cfg.arch_type
     tokens = batch["tokens"]
     bsz, s = tokens.shape
@@ -411,7 +422,7 @@ def forward(
     elif at == "moe":
         for layer in layers:
             h, a = _block(_moe_block, remat, h, layer, positions, cfg,
-                          window=window, impl=impl, dispatch=moe_dispatch)
+                          window=window, impl=impl, dispatch=moe_dispatch, mesh=mesh)
             aux = aux + a
     elif at in ("ssm", "hybrid"):
         for i, layer in enumerate(layers):
@@ -438,17 +449,28 @@ def next_token_loss(
     moe_dispatch: str = "sorted",
     aux_weight: float = 0.01,
     remat: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Mean next-token negative log-likelihood over ``batch["tokens"]``,
     plus ``aux_weight`` times the aux loss; differentiable, as
     :func:`forward` is.  The whole ``batch`` goes to :func:`forward` (a
-    VLM's ``vision_embeds``, an audio model's ``audio_frames``)."""
+    VLM's ``vision_embeds``, an audio model's ``audio_frames``).  With a
+    ``mesh``, ``batch`` is this rank's rows and the mean is over every
+    token of the data axes: each rank's mean weighted by its share of the
+    tokens and summed (not a plain mean of the ranks' means); each rank's
+    gradient is its own share."""
     logits, aux = forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch,
-                          remat=remat)
+                          remat=remat, mesh=mesh)
     targets = batch["tokens"][:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return nll.mean() + aux_weight * aux
+    if mesh is None:
+        return nll.mean() + aux_weight * aux
+    # each rank's mean weighted by its share of the tokens: the global mean,
+    # and at one rank the mesh-less arithmetic (a weight of exactly 1)
+    count = torch.tensor(float(nll.numel()), device=nll.device)
+    share = count / sharding.data_sum(count, mesh)
+    return sharding.data_sum(nll.mean() * share, mesh) + aux_weight * aux
 
 
 # ===========================================================================
@@ -526,6 +548,7 @@ def decode_step(
     impl: str = "auto",
     moe_dispatch: str = "sorted",
     cache_update: str = "scatter",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B,) → (logits (B, V), cache).
 
@@ -535,7 +558,9 @@ def decode_step(
     goes through ``kops.decode_attention`` and the sorted MoE dispatch
     through ``kops.moe_gmm`` with ``impl`` ("auto": the hand-written kernels
     for CUDA tensors, their plain twins for CPU tensors); ``moe_dispatch``
-    is "sorted" (the reference's default) or "scan" (what serving uses).
+    is "sorted" (the reference's default), "scan" (what serving uses) or
+    "ep" (with a ``mesh``: ``tokens`` and ``cache`` are then this rank's
+    rows, and ``params`` may be a ``Gathered`` view).
     A VLM decodes text positions with M-RoPE, with no offset for a vision
     prefix, as the reference does."""
     at = cfg.arch_type
@@ -577,7 +602,7 @@ def decode_step(
             x2 = rms_norm(h, layer["ln2"], cfg.norm_eps)
             if at == "moe":
                 ffn, _ = moe_mod.moe_ffn(x2[:, None, :], layer["moe"], top_k=cfg.top_k,
-                                         dispatch=moe_dispatch, impl=impl)
+                                         dispatch=moe_dispatch, impl=impl, mesh=mesh)
                 h = h + ffn[:, 0]
             else:
                 h = h + swiglu(x2, layer["mlp"])

@@ -1,0 +1,443 @@
+"""Partition rules and their DTensor form, mirroring
+``repro.models.sharding``.
+
+The rules are the reference's, leaf for leaf (see its DESIGN.md §5):
+
+* batch over the data axes (``pod`` × ``data`` when multi-pod),
+* tensor parallel over ``model`` on heads / d_ff / experts,
+* FSDP over the data axes on the non-TP dim of every large matrix,
+* a dim that an axis does not divide stays replicated (``_fit``).
+
+They are driven by each leaf's name and shape, so one function covers
+every family, and they take anything with axis names and sizes: a
+``DeviceMesh``, the reference's ``Mesh`` or ``AbstractMesh``, or a mapping
+from axis name to size.  A spec is a :class:`PartitionSpec`, one entry a
+tensor dim: ``None``, an axis name, or a tuple of axis names.
+
+Storage and compute, which the reference leaves to GSPMD:
+
+* :func:`placements` turns a spec into DTensor placements, and
+  :func:`shard_tree` distributes a tree by its specs (the counterpart of
+  ``to_named`` and jit's ``in_shardings``);
+* :class:`Gathered` reads a tree of DTensors as the model code reads a
+  ``ParamTree``: each leaf is all-gathered when it is used, and its
+  gradient goes back to the leaf's own placements (a reduce-scatter over
+  the data axes), so a step over it is ZeRO-3 over the mesh;
+* :func:`data_sum`, :func:`model_sum` and :func:`model_enter` are the
+  collectives the steps and the ``ep`` MoE dispatch differentiate through.
+
+Gradients follow one convention.  Over the data axes each rank back-
+propagates its own share of the loss (its rows of the batch), and the
+shares are summed into the parameters' gradients; over ``model`` every
+rank computes the same replicated function, and holds the whole gradient.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Mapping
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard, distribute_tensor
+
+Tree = Any
+
+TP_AXIS = "model"
+
+
+class PartitionSpec(tuple):
+    """One entry a tensor dim: ``None``, an axis name, or a tuple of axis
+    names (major to minor).  A tuple of one name is that name, as
+    ``jax.sharding.PartitionSpec`` has it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries))
+
+
+P = PartitionSpec
+
+
+# ---------------------------------------------------------------------------
+# the rules
+# ---------------------------------------------------------------------------
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size, in the mesh's order: a ``DeviceMesh`` (its dim
+    names and shape), or anything with ``axis_names`` and a ``shape``
+    mapping (the reference's ``Mesh`` and ``AbstractMesh``)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return {name: int(mesh.shape[name]) for name in mesh.axis_names}
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh_sizes(mesh) else ("data",)
+
+
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    """FSDP spans every data-parallel axis (ZeRO-3 across pods too)."""
+    return data_axes(mesh)
+
+
+def _axis_size(mesh, name) -> int:
+    if name is None:
+        return 1
+    if isinstance(name, tuple):
+        return math.prod(_axis_size(mesh, n) for n in name)
+    return mesh_sizes(mesh)[name]
+
+
+def _fit(mesh, dim: int, axis):
+    """Use ``axis`` on a dim only if it divides evenly."""
+    return axis if axis is not None and dim % _axis_size(mesh, axis) == 0 else None
+
+
+def _matrix_spec(mesh, shape, col_parallel: bool, lead: int, serve: bool = False) -> P:
+    """(in, out) weight: column-parallel shards out on TP and in on FSDP,
+    row-parallel the reverse; ``lead`` leading (layer stack) dims stay
+    whole.  ``serve=True`` puts the model axis on the contraction dim of
+    every matmul (the reference's weight-stationary decode layout)."""
+    d_in, d_out = shape[-2], shape[-1]
+    fsdp = fsdp_axes(mesh)
+    if serve or not col_parallel:
+        spec = (_fit(mesh, d_in, TP_AXIS), _fit(mesh, d_out, fsdp))
+    else:
+        spec = (_fit(mesh, d_in, fsdp), _fit(mesh, d_out, TP_AXIS))
+    return P(*([None] * lead), *spec)
+
+
+COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "wq_a", "wq_b", "wkv_a", "wkv_b", "w_in",
+                "shared_wg", "shared_wu"}
+ROW_PARALLEL = {"wo", "wd", "w_out", "shared_wd"}
+
+
+def _param_rule(mesh, names: Sequence[str], shape, serve: bool) -> P:
+    name = names[-1]
+    ndim = len(shape)
+    lead = 1 if ("layers" in names or "encoder" in names) else 0
+    fsdp = fsdp_axes(mesh)
+    if name == "embed":
+        return P(_fit(mesh, shape[0], TP_AXIS), _fit(mesh, shape[1], fsdp))
+    if name == "lm_head":
+        return P(_fit(mesh, shape[0], fsdp), _fit(mesh, shape[1], TP_AXIS))
+    if ndim - lead <= 1:  # norms, biases, gates
+        return P(*([None] * ndim))
+    if name in ("wg", "wu", "wd") and ndim - lead == 3:  # expert banks (E, d_in, d_out)
+        e, d_in, d_out = shape[-3:]
+        if name == "wd":
+            return P(*([None] * lead), _fit(mesh, e, TP_AXIS), None, _fit(mesh, d_out, fsdp))
+        return P(*([None] * lead), _fit(mesh, e, TP_AXIS), _fit(mesh, d_in, fsdp), None)
+    if name == "router":
+        return P(*([None] * lead), _fit(mesh, shape[-2], fsdp), None)
+    if name in COL_PARALLEL:
+        return _matrix_spec(mesh, shape, True, lead, serve)
+    if name in ROW_PARALLEL:
+        return _matrix_spec(mesh, shape, False, lead, serve)
+    return P(*([None] * ndim))  # conv_w and anything else: replicated
+
+
+def _cache_rule(mesh, name: str, shape) -> P:
+    dp = data_axes(mesh)
+    ndim = len(shape)
+    if name == "pos":
+        return P(_fit(mesh, shape[0], dp))
+    if ndim >= 4 and name in ("k", "v", "shared_k", "shared_v", "cross_k", "cross_v"):
+        # (L, B, T, KH, hd): batch over data, the cache's sequence over TP
+        return P(None, _fit(mesh, shape[1], dp), _fit(mesh, shape[2], TP_AXIS),
+                 *([None] * (ndim - 3)))
+    if name in ("ckv", "krope"):  # (L, B, T, latent)
+        return P(None, _fit(mesh, shape[1], dp), _fit(mesh, shape[2], TP_AXIS), None)
+    if name in ("conv", "ssm"):  # (L, B, ...): SSM heads over TP on dim 2
+        spec = [None, _fit(mesh, shape[1], dp)]
+        if ndim > 2:
+            spec.append(_fit(mesh, shape[2], TP_AXIS))
+        return P(*spec, *([None] * (ndim - len(spec))))
+    return P(*([None] * ndim))
+
+
+def _map(fn, tree, path: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """``fn(path, leaf)`` over every tensor leaf of a mapping or
+    ``ParamTree`` (``items()``), as nested dicts."""
+    return {k: fn(path + (k,), v) if isinstance(v, torch.Tensor) else _map(fn, v, path + (k,))
+            for k, v in tree.items()}
+
+
+def param_pspecs(mesh, params: Tree, cfg=None, serve: bool = False) -> Dict[str, Any]:
+    """Spec tree of ``params`` (a ``ParamTree`` or nested mapping of
+    tensors, ``meta`` ones included): the reference's name-and-shape rules.
+    ``serve=True`` selects the weight-stationary decode layout.  ``cfg`` is
+    the reference's argument; the rules read names and shapes only."""
+    return _map(lambda path, t: _param_rule(mesh, path, tuple(t.shape), serve), params)
+
+
+def batch_pspecs(mesh, batch: Tree) -> Dict[str, Any]:
+    """Each batch leaf's leading (batch) dim over the data axes."""
+    dp = data_axes(mesh)
+
+    def rule(path, t):
+        b = t.shape[0] if t.dim() else 1
+        return P(_fit(mesh, b, dp), *([None] * (t.dim() - 1)))
+
+    return _map(rule, batch)
+
+
+def cache_pspecs(mesh, cache: Tree) -> Dict[str, Any]:
+    """Decode caches (L, B, T, heads/latent...): batch over the data axes,
+    the cache's sequence over TP, SSM heads over TP, where they divide."""
+    return _map(lambda path, t: _cache_rule(mesh, path[-1], tuple(t.shape)), cache)
+
+
+# ---------------------------------------------------------------------------
+# specs as DTensor placements
+# ---------------------------------------------------------------------------
+def placements(mesh, spec: Sequence) -> List[Placement]:
+    """One placement a mesh dim: ``Shard(i)`` where the dim's name is in
+    ``spec[i]``, ``Replicate()`` elsewhere.  A tuple of names on one tensor
+    dim is major to minor in the mesh's order, as DTensor splits it."""
+    names = list(mesh_sizes(mesh))
+    out: List[Placement] = [Replicate() for _ in names]
+    for i, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,) if entry is not None else ()
+        if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
+            raise ValueError(f"spec entry {entry} is not in the mesh's order {tuple(names)}")
+        for a in axes:
+            out[names.index(a)] = Shard(i)
+    return out
+
+
+def local_shard(x: torch.Tensor, sizes: Mapping, coords: Mapping,
+                spec: Sequence) -> torch.Tensor:
+    """The block of ``x`` that the mesh position ``coords`` (axis name ->
+    index) holds under ``spec``, as a view: each sharded dim cut into equal
+    blocks, mesh dims taken major to minor in ``sizes``' order."""
+    for name, n in sizes.items():
+        for i, entry in enumerate(spec):
+            if entry == name or (isinstance(entry, tuple) and name in entry):
+                step = x.shape[i] // n
+                x = x.narrow(i, coords[name] * step, step)
+    return x
+
+
+def coords(mesh) -> Dict[str, int]:
+    """This rank's index on each dim of a ``DeviceMesh``."""
+    return {name: mesh.get_local_rank(name) for name in mesh.mesh_dim_names}
+
+
+def _spec_at(specs: Mapping, path: Sequence[str]):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def shard_tree(tree: Tree, mesh, specs: Mapping) -> Tree:
+    """``tree`` distributed over ``mesh`` by ``specs`` (from
+    :func:`param_pspecs`, :func:`cache_pspecs` or :func:`batch_pspecs`):
+    a ``ParamTree`` becomes one of frozen DTensor parameters, a mapping a
+    dict of DTensors.  Each leaf is scattered from rank 0, so every rank
+    holds rank 0's values."""
+    out = _map(lambda path, t: distribute_tensor(t.detach(), mesh,
+                                                 placements(mesh, _spec_at(specs, path))), tree)
+    return out if isinstance(tree, Mapping) else type(tree)(out)
+
+
+def check_sharded(tree: Tree, mesh, specs: Mapping, what: str) -> None:
+    """Raise ``ValueError`` unless every leaf of ``tree`` is a DTensor on
+    ``mesh`` with its spec's placements."""
+    def check(path, t):
+        want = tuple(placements(mesh, _spec_at(specs, path)))
+        if not isinstance(t, DTensor) or t.device_mesh != mesh or tuple(t.placements) != want:
+            got = tuple(t.placements) if isinstance(t, DTensor) else "a plain tensor"
+            raise ValueError(f"{what} {'/'.join(path)} is {got}, want a DTensor with {want} "
+                             f"(shard it with shard_tree)")
+
+    _map(check, tree)
+
+
+def gather_tree(tree: Tree) -> Dict[str, Any]:
+    """Every DTensor leaf as its full tensor on every rank (a collective:
+    every rank calls it), plain leaves as they are; nested dicts."""
+    return _map(lambda path, t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+# ---------------------------------------------------------------------------
+# compute over DTensor storage
+# ---------------------------------------------------------------------------
+def _groups(mesh, axes: Sequence[str]):
+    return [mesh.get_group(a) for a in axes]
+
+
+class _SumOver(torch.autograd.Function):
+    """``all_reduce(SUM)`` over ``groups``; the backward passes the
+    gradient through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        y = x.clone()
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """The identity; the backward all-reduces the gradient over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        for g in ctx.groups:
+            dist.all_reduce(grad, group=g)
+        return grad, None
+
+
+def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the data axes.  Its gradient is each rank's
+    own share (the ranks' gradients are summed into the parameters')."""
+    return _SumOver.apply(x, _groups(mesh, data_axes(mesh)))
+
+
+def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over the data axes (see :func:`data_sum`)."""
+    return data_sum(x, mesh) / _axis_size(mesh, data_axes(mesh))
+
+
+def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Partial results summed over ``model``: after it every model rank
+    holds the same tensor, and the backward hands each rank's partial the
+    whole (replicated) gradient."""
+    return _SumOver.apply(x, _groups(mesh, (TP_AXIS,)))
+
+
+def model_enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A replicated tensor entering work split over ``model``: the
+    identity, whose backward sums the ranks' partial gradients."""
+    return _CopyIn.apply(x, _groups(mesh, (TP_AXIS,)))
+
+
+def model_rank(mesh) -> Tuple[int, int]:
+    """(this rank's index on ``model``, the axis's size)."""
+    return mesh.get_local_rank(TP_AXIS), mesh_sizes(mesh)[TP_AXIS]
+
+
+class Gathered:
+    """A tree of DTensors (a ``ParamTree`` of them, or one layer's slices)
+    read as the model code reads a ``ParamTree``.  ``view[key]`` all-gathers
+    a leaf to a plain replicated tensor at each use; ``unstack()`` and
+    ``layer(i)`` cut stacked leaves into per-layer DTensors without moving
+    data, so a layer's weights are gathered only when the layer runs (and,
+    under remat, again in the backward pass).
+
+    A gathered leaf's gradient is ``Partial`` over the data axes (each
+    rank's rows of the batch), ``Replicate`` over ``model``; going back
+    through the gather it becomes the leaf's own placements: a
+    reduce-scatter over the data axes, a slice over ``model``."""
+
+    def __init__(self, tree, mesh) -> None:
+        self._tree = tree
+        self._mesh = mesh
+        data = data_axes(mesh)
+        self._grad = [Partial() if n in data else Replicate() for n in mesh.mesh_dim_names]
+
+    def __getitem__(self, key: str):
+        val = self._tree[key]
+        if not isinstance(val, torch.Tensor):
+            return Gathered(val, self._mesh)
+        full = val.redistribute(self._mesh, [Replicate()] * len(self._grad))
+        return full.to_local(grad_placements=self._grad)
+
+    def __contains__(self, key: str) -> bool:
+        return key in dict(self._tree.items())
+
+    def block(self, key: str, dim: int) -> torch.Tensor:
+        """This rank's block of leaf ``key`` along ``dim`` over ``model``,
+        whole over the data axes (the ``ep`` dispatch's expert bank and
+        shared-expert slice); its gradient stays this rank's."""
+        val = self._tree[key]
+        names = self._mesh.mesh_dim_names
+        want = [Shard(dim) if n == TP_AXIS else Replicate() for n in names]
+        grad = [Shard(dim) if n == TP_AXIS else g for n, g in zip(names, self._grad)]
+        return val.redistribute(self._mesh, want).to_local(grad_placements=grad)
+
+    @staticmethod
+    def _layer_placements(d: DTensor) -> List[Placement]:
+        out = []
+        for p in d.placements:
+            if isinstance(p, Shard):
+                if p.dim == 0:
+                    raise ValueError("a layer stack is sharded on its layer dim")
+                p = Shard(p.dim - 1)
+            out.append(p)
+        return out
+
+    def unstack(self) -> List["Gathered"]:
+        """One view a layer of this stack, each of per-layer DTensors cut
+        from the local shards by one ``unbind`` a leaf."""
+        def split(tree):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, torch.Tensor):
+                    places = self._layer_placements(v)
+                    out[k] = [DTensor.from_local(part, self._mesh, places, run_check=False)
+                              for part in torch.unbind(v.to_local())]
+                else:
+                    out[k] = split(v)
+            return out
+
+        def pick(parts, i):
+            return {k: v[i] if isinstance(v, list) else pick(v, i) for k, v in parts.items()}
+
+        parts = split(self._tree)
+        n = len(next(iter(_leaf_lists(parts))))
+        return [Gathered(pick(parts, i), self._mesh) for i in range(n)]
+
+    def layer(self, i: int) -> "Gathered":
+        """The view of layer ``i`` of this stack."""
+        def pick(tree):
+            return {k: DTensor.from_local(v.to_local()[i], self._mesh, self._layer_placements(v),
+                                          run_check=False)
+                    if isinstance(v, torch.Tensor) else pick(v) for k, v in tree.items()}
+
+        return Gathered(pick(self._tree), self._mesh)
+
+
+def _leaf_lists(parts: Mapping) -> Iterator[list]:
+    for v in parts.values():
+        if isinstance(v, list):
+            yield v
+        else:
+            yield from _leaf_lists(v)
+
+
+def model_block(p, key: str, dim: int, mesh) -> torch.Tensor:
+    """This rank's block of ``p[key]`` along ``dim`` over ``model``: from a
+    :class:`Gathered` view its DTensor's block, from a plain mapping (every
+    rank holding the whole tensor) a slice.  ``model`` must divide the dim,
+    as the reference's ``shard_map`` requires."""
+    m, n = model_rank(mesh)
+    size = (p._tree[key] if isinstance(p, Gathered) else p[key]).shape[dim]
+    if size % n:
+        raise ValueError(f"{key}'s dim {dim} ({size}) does not divide over |model| = {n}")
+    if isinstance(p, Gathered):
+        return p.block(key, dim)
+    return p[key].chunk(n, dim)[m]
+
+
+def local_rows(x: torch.Tensor, mesh, spec: Optional[Sequence] = None) -> torch.Tensor:
+    """This rank's rows of a batch leaf under ``spec`` (its
+    :func:`batch_pspecs` entry when None): a DTensor's local shard, or the
+    block of a plain tensor that every rank holds whole."""
+    if spec is None:
+        spec = batch_pspecs(mesh, {"x": x})["x"]
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, placements(mesh, spec)).to_local()
+    return local_shard(x, mesh_sizes(mesh), coords(mesh), spec)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -66,10 +66,8 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def _items(tree: Tree):
     """A node's children: a mapping's items, or a ParamTree's parameters
-    and then its submodules."""
-    if isinstance(tree, Mapping):
-        return tree.items()
-    return list(tree._parameters.items()) + list(tree._modules.items())
+    and then its submodules (``ParamTree.items``)."""
+    return tree.items()
 
 
 def leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -89,8 +87,9 @@ def map_tree(fn, tree: Tree) -> Dict[str, Any]:
 
 
 def init(params: Tree, moment_dtype: torch.dtype = torch.float32) -> AdamWState:
-    """Zero moments in ``moment_dtype`` beside each param, on its device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)  # noqa: E731
+    """Zero moments in ``moment_dtype`` beside each param, on its device
+    (a DTensor param's moments are DTensors of its placements)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=moment_dtype, requires_grad=False)  # noqa: E731
     device = next(iter(leaves(params)))[1].device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
@@ -115,7 +114,20 @@ def apply(
     """One AdamW step: ``params`` and the moments are updated in place;
     returns ``(params, state, {"grad_norm", "lr"})`` with the new step.
     ``grads`` has the params' layout (any float dtype)."""
-    gnorm = global_norm(grads)
+    return apply_with_norm(cfg, grads, state, params, global_norm(grads))
+
+
+@torch.no_grad()
+def apply_with_norm(
+    cfg: AdamWConfig,
+    grads: Tree,
+    state: AdamWState,
+    params: Tree,
+    gnorm: torch.Tensor,
+) -> Tuple[Tree, AdamWState, Dict[str, torch.Tensor]]:
+    """:func:`apply` with the gradients' global norm given: a sharded step
+    updates each rank's shards of ``params``, ``grads`` and the moments
+    with the norm of the whole gradient."""
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -989,7 +989,7 @@ def test_flash_forward_lse_matches_plain_on_card(card, shape, body):
     as without one."""
     dtype = torch.bfloat16
     q, k, v, _, _, _, kw = bwd_inputs(card, shape, dtype)
-    if body not in fa.bodies_for(dtype, q.shape[3], True):
+    if body not in fa.bodies_for(dtype, q.shape[3]):
         pytest.skip(f"the {body} body does not take D={q.shape[3]}")
     out, lse = fa._launch(q, k, v, kw["causal"], kw["window"], kw["q_offset"], body, True)
     plain_out, plain_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
@@ -1117,3 +1117,97 @@ def test_prefill_and_decode_graphs_build_no_graph(card):
     np.testing.assert_array_equal(got, eager_task(cfg, params, prompt, 4, card))
     assert engine.captures == 1
     engine.close()
+
+
+# ---------------------------------------------------------------------------
+# inputs off a 16-byte boundary: copied by the wrappers, refused by the C entries
+# ---------------------------------------------------------------------------
+def offset_on_card(t):
+    """``t``'s values, contiguous, one element past an aligned start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.flatten())
+    view = buf[1:].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def refused(rc):
+    return rc == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_takes_an_offset_view_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(1)
+    q = torch.randn(2, 200, 8, 128, device=card, generator=g).to(dtype)
+    k = torch.randn(2, 200, 2, 128, device=card, generator=g).to(dtype)
+    v = torch.randn(2, 200, 2, 128, device=card, generator=g).to(dtype)
+    body = fa.body_for(dtype, 128)
+    before = fa.launches_by_body.get(body, 0)
+    got = fa.flash_attention(offset_on_card(q), k, offset_on_card(v))
+    want = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches_by_body[body] == before + 2
+    assert torch.equal(got, want)  # the same body on the same values
+    plain = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), plain.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    off, out = offset_on_card(q), torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name in fa.bodies_for(dtype, 128):
+        rc = fa._entry()(off.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                         2, 200, 200, 8, 2, 128, 1, 0, 0, 0, fa._DTYPES[dtype], fa.BODIES[name],
+                         stream)
+        assert refused(rc), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_takes_an_offset_view_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(2)
+    b, h, kh, d, t = 2, 32, 8, 128, 300
+    q = torch.randn(b, h, d, device=card, generator=g).to(dtype)
+    k = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
+    v = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
+    lens = torch.tensor([300, 123], dtype=torch.int32, device=card)
+    body = da.body_for(dtype, d, h // kh, da.splits_for(b, kh, t))
+    before = da.launches_by_body.get(body, 0)
+    got = da.decode_attention(offset_on_card(q), offset_on_card(k), v, lens)
+    want = da.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da.launches_by_body[body] == before + 2
+    assert torch.equal(got, want)
+    assert decode_close(got.float(), da.decode_attention_plain(q, k, v, lens).float(), dtype)
+    off, out = offset_on_card(k), torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name in ("single", "split"):
+        rc = da._entry()(q.data_ptr(), off.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                         out.data_ptr(), None, None, None, b, h, kh, t, d, da._DTYPES[dtype],
+                         da.BODIES[name], 1, da.slots_per_split(t, 1), stream)
+        assert refused(rc), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_takes_an_offset_view_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(3)
+    bs, t, h, p, n, chunk = 2, 300, 4, 64, 128, 128  # test_ssd_kernel_matches_plain_on_card's
+    x = (torch.randn(bs, t, h, p, generator=g, device=card) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(bs, t, h, generator=g, device=card))
+    a = -torch.exp(torch.randn(h, generator=g, device=card) * 0.3)
+    b = (torch.randn(bs, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    c = (torch.randn(bs, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    before = ssd.launches
+    got = ssd.ssd_scan(offset_on_card(x), dt, a, b, offset_on_card(c), chunk=chunk)
+    want = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = ssd.ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    torch.testing.assert_close(got[0].float(), plain[0].float(), **SSD_TOL[dtype])
+    off, y = offset_on_card(b), torch.empty_like(x)
+    state = torch.empty(bs, h, p, n, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = ssd._entry()[0](x.data_ptr(), dt.data_ptr(), a.data_ptr(), off.data_ptr(), c.data_ptr(),
+                         None, y.data_ptr(), state.data_ptr(), None, None, None,
+                         bs, t, h, p, n, chunk, ssd._DTYPES[dtype], ssd.BODIES["serial"], stream)
+    assert refused(rc)
+    torch.cuda.synchronize()

@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_variants.py",
     ROOT / "tools" / "plant_faults.py", ROOT / "tools" / "logit_agreement.py",
-    ROOT / "tools" / "bwd_splits.py"]
+    ROOT / "tools" / "bwd_splits.py", ROOT / "tools" / "mesh_ranks.py",
+    ROOT / "tools" / "profiler_loss.py"]
 BANNED = {"jax", "jaxlib", "repro"}
 
 

@@ -535,29 +535,31 @@ def test_gmm_wrapper_checks_read_no_value():
 # which body a CUDA call runs, and the build's cache key
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize(
-    "dtype,d,aligned,bodies",
+    "dtype,d,bodies",
     [
-        (torch.float32, 64, True, ("fp32",)),
-        (torch.float32, 128, False, ("fp32",)),
-        (torch.bfloat16, 64, True, ("wgmma", "mma", "fp32")),
-        (torch.bfloat16, 128, True, ("wgmma", "mma", "fp32")),
-        (torch.bfloat16, 192, True, ("wgmma", "mma", "fp32")),   # MLA's hd + rope dim
-        (torch.bfloat16, 256, True, ("wgmma", "mma", "fp32")),
-        (torch.bfloat16, 128, False, ("mma", "fp32")),           # TMA needs 16-byte alignment
-        (torch.bfloat16, 112, True, ("mma", "fp32")),            # zamba2: no whole swizzle row
-        (torch.bfloat16, 32, True, ("mma", "fp32")),
-        (torch.bfloat16, 8, True, ("fp32",)),
-        (torch.bfloat16, 40, True, ("fp32",)),
-        (torch.float16, 64, True, ()),
+        (torch.float32, 64, ("fp32",)),
+        (torch.float32, 256, ("fp32",)),
+        (torch.bfloat16, 64, ("wgmma", "mma", "fp32")),
+        (torch.bfloat16, 128, ("wgmma", "mma", "fp32")),
+        (torch.bfloat16, 192, ("wgmma", "mma", "fp32")),   # MLA's hd + rope dim
+        (torch.bfloat16, 256, ("wgmma", "mma", "fp32")),
+        (torch.bfloat16, 160, ("mma", "fp32")),            # no whole swizzle row
+        (torch.bfloat16, 112, ("mma", "fp32")),            # zamba2: no whole swizzle row
+        (torch.bfloat16, 32, ("mma", "fp32")),
+        (torch.bfloat16, 8, ("fp32",)),
+        (torch.bfloat16, 40, ("fp32",)),
+        (torch.float16, 64, ()),
     ],
 )
-def test_flash_body_for(dtype, d, aligned, bodies):
-    assert fa.bodies_for(dtype, d, aligned) == bodies
+def test_flash_body_for(dtype, d, bodies):
+    """The body follows the dtype and head dim alone: an input off a
+    16-byte boundary is copied before the launch (tests/test_torch_alignment.py)."""
+    assert fa.bodies_for(dtype, d) == bodies
     if bodies:
-        assert fa.body_for(dtype, d, aligned) == bodies[0]
+        assert fa.body_for(dtype, d) == bodies[0]
     else:
         with pytest.raises(TypeError):
-            fa.body_for(dtype, d, aligned)
+            fa.body_for(dtype, d)
 
 
 @pytest.mark.parametrize(
