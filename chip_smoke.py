@@ -139,6 +139,31 @@ any phase fails.  Phases:
    (loss, grad norm and params within 1e-6 relative), the flash forward
    and backward launches by body; (7d) the SST all-gather over NCCL, bit
    for bit, with the time of one exchange.
+8. the analysis tooling: (8a) ``python -m repro_torch.launch.dryrun``
+   over a fake 16x16 mesh of 256 ranks, one process a call
+   (``DRYRUN_CALLS``: every arch's prefill and decode shapes but the SSM
+   ones' 32k prefill, and NeMo's train shape, by the extrapolation
+   from shallow variants), every record ok and whisper x long_500k the one skip;
+   one direct full-depth count (NeMo's prefill_32k) equal to its
+   extrapolation; the roofline (``repro_torch.launch.roofline.main``, in
+   this process) over the records, its H100 table and the cases whose
+   state does not fit 80 GB; (8b) NeMo at full width and 2 layers on the
+   plain path, prefill at B = 2, S = 2048 and one train step, counted on
+   the card by ``StepCounter`` and on fake tensors: FLOPs, bytes,
+   collectives and ops equal, the state bytes equal to the real
+   tensors', the counted peak within ``PEAK_TOL`` of
+   ``max_memory_allocated``; the same two steps
+   over the (1, 1) NCCL mesh (a fresh process) against a fake (1, 1)
+   mesh; (8c) from the earlier phases' readings: the roofline of NeMo's
+   graphed decode step (phase 3), its prefill (3b) and NeMo@8's train
+   step (6), each step's compute and memory terms counted on the ``ref``
+   path, the bound's share of the measured time and 2·N or 6·N·tokens
+   over the measured time at 989 TFLOP/s, beside the card's name and
+   power limit.
+
+Every profile (``profiled``: phases 3, 3b-3g and 6) opens with
+``BALLAST`` tiny kernels, counts only the records after them, and is taken
+again where the ballast was lost whole.
 
 It prints, in order: the card line, per-phase results, one JSON line with
 every kernel's numbers (with the shapes phases 3e-3g gave it and its
@@ -154,6 +179,8 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1384,33 +1411,33 @@ BALLAST = 4096
 PROFILE_ATTEMPTS = 3
 
 
-def profile_task(fn, engine, mid, prompt, what):
-    """Device time of one task ``fn(mid, prompt)`` (the profiler's device
-    records) against its wall time, and the decode-attention kernels the
-    card ran, by name: for a graphed task their main kernels must equal
-    the launches the engine counts for its replays.
-
-    Each profile opens with ``BALLAST`` tiny kernels and a synchronise;
-    only the records after it count. The profile is complete where some
-    of the ballast's records are left (the loss ended before the task)
-    and, for a graphed task, every replay is listed with as many records
-    as the others (they run one graph). An incomplete profile is taken
-    again with four times the ballast, up to ``PROFILE_ATTEMPTS`` times."""
+def profiled(fn, what, prepare=None, complete=None):
+    """One call of ``fn()`` under the profiler, opened with ``BALLAST``
+    tiny kernels and a synchronise: the profiler loses the first device
+    records of a profile, and only the records after the ballast count.
+    The profile is complete where some of the ballast's records are left
+    (the loss ended before the call) and ``complete(events)`` holds, where
+    given; an incomplete one is taken again with four times the ballast,
+    up to ``PROFILE_ATTEMPTS`` times, ``prepare()`` run before each (it
+    puts back what ``fn`` changes).  Returns (the device records of the
+    call, its wall ms ending in a synchronise, what the attempts took:
+    attempts, ballast, ballast_lost, incomplete)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
-    pad = torch.zeros(1, device=engine.device)
+    pad = torch.zeros(1, device="cuda")
     ballast, lost = BALLAST, []
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        engine.reset_counts()
+        if prepare is not None:
+            prepare()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(ballast):
                 pad.add_(1)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn(mid, prompt)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.profiler.kineto_results.events()
@@ -1419,19 +1446,50 @@ def profile_task(fn, engine, mid, prompt, what):
                     if e.device_type() != cuda and e.name().startswith("cudaDeviceSynchronize"))
         kept = sum(e.device_type() == cuda and e.correlation_id() < start for e in events)
         task = [e for e in events if e.device_type() == cuda and e.correlation_id() > start]
-        rows = replay_records(events) if engine.replays else {}
-        sizes = collections.Counter(n for n, _ in rows.values())
-        if kept and (not engine.replays or (len(rows) == engine.replays and len(sizes) == 1)):
+        why = "" if kept else f"none of the ballast's {ballast} records left"
+        if not why and complete is not None:
+            why = complete(events)
+        if not why:
             break
-        lost.append(dict(attempt=attempt, ballast=ballast, ballast_kept=kept,
-                         replays_listed=len(rows), replays=engine.replays,
-                         records_by_replay=dict(sizes)))
-        print(f"profile of one {what}, attempt {attempt}: incomplete ({kept} of the "
-              f"ballast's {ballast} records left; {len(rows)} of {engine.replays} replays "
-              f"listed; replays by their record count {dict(sizes)})", flush=True)
+        lost.append(dict(attempt=attempt, ballast=ballast, ballast_kept=kept, why=why))
+        print(f"profile of {what}, attempt {attempt}: incomplete ({why})", flush=True)
         ballast *= 4
     else:
         raise AssertionError(f"{what}: no complete profile in {PROFILE_ATTEMPTS}: {lost}")
+    return task, wall_ms, dict(attempts=attempt, ballast=ballast, ballast_lost=ballast - kept,
+                               incomplete=lost)
+
+
+def by_kernel(task):
+    """(device ms, calls) of each kernel name among a profile's records,
+    the most device time first."""
+    rows = collections.defaultdict(lambda: [0.0, 0])
+    for e in task:
+        rows[e.name()][0] += e.duration_ns() / 1e6
+        rows[e.name()][1] += 1
+    return sorted(((ms, n, k) for k, (ms, n) in rows.items()), reverse=True)
+
+
+def profile_task(fn, engine, mid, prompt, what):
+    """Device time of one task ``fn(mid, prompt)`` (the profiler's device
+    records, :func:`profiled`) against its wall time, and the
+    decode-attention kernels the card ran, by name: for a graphed task
+    their main kernels must equal the launches the engine counts for its
+    replays.  A graphed task's profile is complete where every replay is
+    listed with as many records as the others (they run one graph)."""
+    rows = {}
+
+    def complete(events):
+        rows.clear()
+        rows.update(replay_records(events) if engine.replays else {})
+        sizes = collections.Counter(n for n, _ in rows.values())
+        if not engine.replays or (len(rows) == engine.replays and len(sizes) == 1):
+            return ""
+        return (f"{len(rows)} of {engine.replays} replays listed; replays by their record "
+                f"count {dict(sizes)}")
+
+    task, wall_ms, took = profiled(lambda: fn(mid, prompt), f"one {what}",
+                                      prepare=engine.reset_counts, complete=complete)
     device_ms = sum(e.duration_ns() for e in task) / 1e6
     by_name = {k: sum(k in e.name() for e in task) for k in DECODE_KERNELS}
     main = sum(by_name[k] for k in DECODE_MAIN)
@@ -1439,15 +1497,15 @@ def profile_task(fn, engine, mid, prompt, what):
     print(f"profile of one {what}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms wall "
           f"({100 * device_ms / wall_ms:.1f} %), {len(task)} kernels; decode-attention "
           f"kernels {by_name}, the engine's replayed launches {replayed}; the profiler lost "
-          f"{ballast - kept} of the ballast's {ballast} records", flush=True)
+          f"{took['ballast_lost']} of the ballast's {took['ballast']} records", flush=True)
     if engine.replays and main != replayed:
         raise AssertionError(f"{what}: the card ran {main} decode-attention kernels, the "
                              f"engine counted {replayed} launches in its replays")
     out = dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
                kernels=len(task), decode_kernels=by_name, replayed_launches=replayed,
-               replays=engine.replays, attempts=attempt, ballast=ballast,
-               ballast_lost=ballast - kept, incomplete=lost)
+               replays=engine.replays, **took)
     if engine.replays:
+        sizes = collections.Counter(n for n, _ in rows.values())
         per_replay = collections.Counter(d for _, d in rows.values())
         out["records_per_replay"] = next(iter(sizes))
         print(f"  {len(rows)} replays of {out['records_per_replay']} device records each; "
@@ -1566,51 +1624,50 @@ DECODE_MAIN = ("decode_attention_kernel", "decode_split")
 
 
 def profile_decode(hosted, prompt, dev, steps=4, cache=None):
-    """Device time of a few decode steps by kernel, against their wall time
-    (the profiler's own overhead is inside the wall time).  Without a
-    ``cache``, a small one after one step on ``prompt[:, 0]``; with one,
-    the steps take ``prompt[:, :steps]`` from where it stands."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of a few decode steps by kernel (:func:`profiled`),
+    against their wall time (the profiler's own overhead is inside the
+    wall time).  Without a ``cache``, a small one after one step on
+    ``prompt[:, 0]``; with one, the steps take ``prompt[:, :steps]`` from
+    where it stands (a retaken profile starts from there again)."""
     from repro_torch.models import decode_step, init_cache
 
-    first = 0
+    state = {}
     if cache is None:
-        cache = init_cache(hosted.cfg, 2, steps + 2, device=dev)
-        decode_step(hosted.params, cache, prompt[:, 0], hosted.cfg)
+        def prepare():
+            state["cache"] = init_cache(hosted.cfg, 2, steps + 2, device=dev)
+            decode_step(hosted.params, state["cache"], prompt[:, 0], hosted.cfg)
         first = 1
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    else:
+        pos = cache["pos"].clone()
+
+        def prepare():
+            cache["pos"].copy_(pos)
+            state["cache"] = cache
+        first = 0
+
+    def run():
         for i in range(steps):
-            decode_step(hosted.params, cache, prompt[:, first + i], hosted.cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (the kernels): the operators' own rows carry
-    # their kernels' time again
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+            decode_step(hosted.params, state["cache"], prompt[:, first + i], hosted.cfg)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    total_ms = sum(dev_us(e) for e in events) / 1e3
-    attn_ms = sum(dev_us(e) for e in events if any(k in e.key for k in DECODE_KERNELS)) / 1e3
-    kernels_per_step = sum(e.count for e in events) / steps
-    top = sorted(events, key=dev_us, reverse=True)[:10]
+    task, wall_ms, took = profiled(run, f"{steps} {hosted.cfg.name} decode steps",
+                                      prepare=prepare)
+    rows = by_kernel(task)
+    total_ms = sum(ms for ms, _, _ in rows)
+    attn_ms = sum(ms for ms, _, k in rows if any(d in k for d in DECODE_KERNELS))
+    kernels_per_step = len(task) / steps
     print(f"  decode_attention kernels: {attn_ms:.3f} ms")
     print(f"profile of {steps} {hosted.cfg.name} decode steps: device busy {total_ms:.2f} ms "
           f"of {wall_ms:.2f} ms wall ({100 * total_ms / wall_ms:.1f} %), "
           f"{kernels_per_step:.0f} kernels per step")
-    rows = []
-    for e in top:
-        rows.append(dict(name=e.key, device_ms=dev_us(e) / 1e3, calls=e.count))
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    top = []
+    for ms, n, k in rows[:10]:
+        top.append(dict(name=k, device_ms=ms, calls=n))
+        print(f"  {ms:9.3f} ms  {n:6d} calls  {k[:90]}")
     print(f"  per step: device {total_ms / steps:.3f} ms, decode attention "
           f"{attn_ms / steps:.3f} ms ({100 * attn_ms / max(total_ms, 1e-9):.1f} % of device time), "
           f"wall {wall_ms / steps:.2f} ms")
     return dict(steps=steps, wall_ms=wall_ms, device_ms=total_ms, attention_ms=attn_ms,
-                kernels_per_step=kernels_per_step, top=rows)
+                kernels_per_step=kernels_per_step, top=top, **took)
 
 
 # ---------------------------------------------------------------------------
@@ -2183,31 +2240,17 @@ def argmax_agreement(x, y, x_last, y_last):
 
 
 def profile_call(fn, what, top=0):
-    """Device time of one call of ``fn`` (the profiler's device events)
-    against its wall time, which ends in a synchronise; with ``top``, also
-    the ``top`` kernels that took the most device time, by name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms = sum(
-        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        for e in prof.key_averages()
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3
+    """Device time of one call of ``fn`` (:func:`profiled`) against its
+    wall time, which ends in a synchronise; with ``top``, also the
+    ``top`` kernels that took the most device time, by name."""
+    task, wall_ms, took = profiled(fn, what)
+    rows = by_kernel(task)
+    device_ms = sum(ms for ms, _, _ in rows)
     print(f"profile of {what}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms wall "
           f"({100 * device_ms / wall_ms:.1f} %)", flush=True)
-    out = dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms)
+    out = dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms, **took)
     if top:
-        rows = sorted(((getattr(e, "self_device_time_total", None)
-                        or getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
-        out["top"] = [dict(ms=ms, count=n, kernel=k) for ms, n, k in rows[::-1][:top]]
+        out["top"] = [dict(ms=ms, count=n, kernel=k) for ms, n, k in rows[:top]]
         for r in out["top"]:
             print(f"  {r['ms']:9.3f} ms  x{r['count']:5d}  {r['kernel'][:110]}")
     return out
@@ -3294,6 +3337,267 @@ def mesh_on_card():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the analysis tooling (specs, dry-run, roofline), checked on the card
+# ---------------------------------------------------------------------------
+#: 8a's dry-run calls, ``python -m repro_torch.launch.dryrun --arch A --shape
+#: S --no-direct`` each (the extrapolation from 2- and 3-layer variants): every arch's prefill
+#: and decode shapes but the SSM ones' 32k prefill (their SSD loop runs
+#: 512 chunks a layer on fake tensors, ~1 min), and NeMo's train shape.
+DRYRUN_CALLS = (
+    ("deepseek-v2-236b,granite-20b,llama3-405b,mistral-large-123b,mistral-nemo-12b,"
+     "qwen2-vl-72b,qwen3-moe-30b-a3b,whisper-medium", "prefill_32k,decode_32k,long_500k"),
+    ("mamba2-780m,zamba2-7b", "decode_32k,long_500k"),
+    ("mistral-nemo-12b", "train_4k"),
+)
+#: 8a's direct full-depth count, held equal to its own extrapolation.
+DRYRUN_DIRECT = ("mistral-nemo-12b", "prefill_32k")
+#: 8b's steps: NeMo at full width and this many layers, B = 2, S = 2048.
+COUNT_LAYERS = 2
+#: 8b: the counted peak of a step (above its state) against the card's
+#: ``max_memory_allocated`` (above what was allocated before it), relative.
+PEAK_TOL = 0.05
+
+
+def run_module(*argv, timeout=600):
+    """``python -m <argv>`` from the checkout, its output printed; a
+    failure where it exits non-zero."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    print(out.stdout.rstrip(), flush=True)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"python -m {' '.join(argv)} exited with {out.returncode}")
+
+
+def dryrun_on_host():
+    """Phase 8a: ``python -m repro_torch.launch.dryrun`` over the fake 16x16
+    mesh (256 ranks) for ``DRYRUN_CALLS``, each in a process of its own (a
+    fake group cannot share one with phase 7's NCCL group): every record
+    ok, whisper x long_500k skipped and no other; one direct full-depth
+    count equal to its extrapolation; then the roofline's ``main`` over
+    the records (its table, and the cases whose state does not fit
+    80 GB)."""
+    from repro_torch.launch import roofline
+
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    for archs, shapes in DRYRUN_CALLS:
+        run_module("repro_torch.launch.dryrun", "--arch", archs, "--shape", shapes,
+                   "--no-direct", "--out", str(out_dir / "cases"))
+    arch, shape = DRYRUN_DIRECT
+    run_module("repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--out", str(out_dir / "direct"))
+    records = [json.loads(p.read_text()) for p in sorted((out_dir / "cases").glob("*.json"))]
+    failed = [f"{r['arch']} {r['shape']}" for r in records if not r["ok"]]
+    skipped = [f"{r['arch']} {r['shape']}" for r in records if r.get("skipped")]
+    if failed or skipped != ["whisper-medium long_500k"]:
+        raise AssertionError(f"dry-run: failed {failed}, skipped {skipped}")
+    direct = json.loads((out_dir / "direct" / f"{arch}__{shape}__16x16.json").read_text())
+    corr = direct["corrected"]
+    same = {k: direct[k] == corr[k] for k in ("flops", "matmul_flops", "bytes_accessed",
+                                              "collectives", "links")}
+    print(f"{arch} {shape} on 16x16: direct count {direct['flops']:.6e} FLOPs, "
+          f"{direct['bytes_accessed']:.6e} bytes, {direct['collectives']['count']} "
+          f"collectives in {direct['count_s']} s; equal to its extrapolation "
+          f"({corr['variant_count_s']} s): {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"the extrapolation differs from the direct count: {same}")
+    roofline.main(["--dir", str(out_dir / "cases"), "--json-out", str(out_dir / "roofline.json")])
+    rows = json.loads((out_dir / "roofline.json").read_text())
+    return dict(seconds=time.perf_counter() - t0, records=len(records), skipped=skipped,
+                direct=dict(arch=arch, shape=shape, flops=direct["flops"],
+                            bytes_accessed=direct["bytes_accessed"], count_s=direct["count_s"],
+                            variant_count_s=corr["variant_count_s"], equal=same),
+                over_80gb=[f"{r['arch']} {r['shape']}" for r in rows if not r["fits_hbm"]],
+                roofline=rows)
+
+
+def _real_count_case(cfg, kind, dev, seed=23):
+    """8b's step on real tensors on the card: seeded params and tokens."""
+    import torch
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    case = {"kind": kind, "cfg": cfg, "params": params, "batch": {"tokens": tokens}}
+    if kind == "train":
+        case["accum_steps"] = 1
+    return case
+
+
+def _same_counts(what, real, fake):
+    keys = ("flops", "matmul_flops", "bytes_accessed", "collectives", "links", "ops",
+            "state_bytes_per_device")
+    diff = {k: (real[k], fake[k]) for k in keys if real[k] != fake[k]}
+    print(f"{what}: counted on the card {real['flops']:.6e} FLOPs ({real['matmul_flops']:.6e} "
+          f"matmul), {real['bytes_accessed']:.6e} bytes, {real['ops']} ops, collectives "
+          f"{real['collectives']}; state {real['state_bytes_per_device']} bytes; the fake count "
+          f"{'equal' if not diff else 'DIFFERS: ' + str(diff)}", flush=True)
+    if diff:
+        raise AssertionError(f"{what}: the card's count and the fake count differ: {diff}")
+
+
+def counts_on_card():
+    """Phase 8b: NeMo at full width and ``COUNT_LAYERS`` layers, prefill at
+    B = 2, S = 2048 and one train step (bf16 moments, remat), on the plain
+    path (``impl="ref"``): the step counted by ``StepCounter`` on the card
+    (after one untimed warm-up) against the same step counted on fake
+    tensors: FLOPs, bytes, collectives and ops equal, the state bytes
+    equal to the real params' and moments' own bytes, and the counted peak
+    (above the state) within ``PEAK_TOL`` of ``max_memory_allocated``
+    (above what was allocated before the step)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.counter import StepCounter
+    from repro_torch.models.config import InputShape
+    from repro_torch.training import optimizer as opt
+
+    release_models()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ARCHS["mistral-nemo-12b"], n_layers=COUNT_LAYERS)
+    out = {}
+    for kind in ("prefill", "train"):
+        shape = InputShape(kind, PREFILL_S, PREFILL_B, kind)
+        with FakeTensorMode():
+            fake = dryrun.count_case(dryrun.abstract_case(cfg, kind, shape, 1, "cuda"), None,
+                                     "sorted", device="cuda")
+        case = _real_count_case(cfg, kind, dev)
+        step, args, resident = dryrun.prepare_step(case, None, "sorted", device="cuda")
+        own = sum(t.numel() * t.element_size() for _, t in opt.leaves(args[0]))
+        if kind == "train":
+            own += sum(t.numel() * t.element_size() for tree in (args[1].m, args[1].v)
+                       for _, t in opt.leaves(tree))
+        del case
+        step(*args)  # warm-up: the libraries' workspaces, outside the count
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with StepCounter(resident=resident) as counter:
+            got = step(*args)
+            del got
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        real = counter.counts.as_record()
+        real["state_bytes_per_device"] = resident
+        what = f"{cfg.name}@{COUNT_LAYERS} {kind} B={PREFILL_B} S={PREFILL_S} (ref path)"
+        _same_counts(what, real, fake)
+        predicted, measured = fake["peak_bytes"] - fake["resident_bytes"], peak - before
+        rel = abs(predicted - measured) / measured
+        print(f"  state: predicted {fake['state_bytes_per_device']} bytes, the real params"
+              f"{' and moments' if kind == 'train' else ''} {own} bytes; peak above the "
+              f"state: predicted {predicted / 1e9:.4f} GB (counted on the card "
+              f"{(real['peak_bytes'] - resident) / 1e9:.4f}), max_memory_allocated above "
+              f"what was allocated before {measured / 1e9:.4f} GB: {100 * rel:.2f} % apart "
+              f"(tolerance {100 * PEAK_TOL:.0f} %)", flush=True)
+        if fake["state_bytes_per_device"] != own:
+            raise AssertionError(f"{what}: predicted state {fake['state_bytes_per_device']} "
+                                 f"bytes, the real tensors hold {own}")
+        if rel > PEAK_TOL:
+            raise AssertionError(f"{what}: predicted peak {predicted} bytes, the card's "
+                                 f"{measured}")
+        out[kind] = dict(fake=fake, real=real, own_state_bytes=own,
+                         predicted_peak_above_state=predicted, measured_peak_above_state=measured,
+                         peak_rel=rel)
+        del step, args
+        release_models()
+    return out
+
+
+def mesh_counts_on_card():
+    """Phase 8b over a mesh, in a fresh process: NeMo@``COUNT_LAYERS``'s
+    prefill and train step on the plain path over ``make_debug_mesh``'s
+    (1, 1) NCCL mesh, counted on the card; then the group gone, the same
+    steps counted on fake tensors over a fake (1, 1) mesh of the card's
+    device type: equal counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import abstract_world
+    from repro_torch.models.config import InputShape
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ARCHS["mistral-nemo-12b"], n_layers=COUNT_LAYERS)
+    shapes = {k: InputShape(k, PREFILL_S, PREFILL_B, k) for k in ("prefill", "train")}
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        real = {k: dryrun.count_case(_real_count_case(cfg, k, dev), mesh, "sorted",
+                                     device="cuda") for k in shapes}
+    finally:
+        dist.destroy_process_group()
+    release_models()
+    with abstract_world((1, 1), ("data", "model"), device="cuda") as fmesh:
+        fake = {k: dryrun.count_case(dryrun.abstract_case(cfg, k, sh, 1, "cuda"), fmesh,
+                                     "sorted", device="cuda") for k, sh in shapes.items()}
+    for k in shapes:
+        _same_counts(f"{cfg.name}@{COUNT_LAYERS} {k} over the (1, 1) mesh (ref path)",
+                     real[k], fake[k])
+    return dict(real=real, fake=fake)
+
+
+def card_roofline(served, prefill, training, card):
+    """Phase 8c, on earlier phases' readings only: the roofline of the
+    kernel-path steps phases 3, 3b and 6 time (NeMo's graphed decode
+    step, NeMo's prefill at B = 2, S = 2048, NeMo@8's train step), each
+    step's compute and memory terms counted on fake tensors (the ``ref``
+    path's count of the same function: its unmasked attention and unfused
+    bytes), the bound's share of the measured time, and 6·N·tokens (train)
+    or 2·N·tokens over the measured time and the card's peak bf16 rate."""
+    import statistics as st
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models.config import InputShape
+
+    nemo = ARCHS["mistral-nemo-12b"]
+    graph = served["step_graph_vs_eager"][nemo.name]
+    steps = [
+        ("decode", nemo, InputShape("decode", graph["steps"] + 1, 2, "decode"), 2,
+         st.median(graph["graph_ms"]) / 1e3, "phase 3, graphed step", dryrun.MOMENT_DTYPE),
+        ("prefill", nemo, InputShape("prefill", PREFILL_S, PREFILL_B, "prefill"),
+         PREFILL_B * PREFILL_S, st.median(prefill[nemo.name]["wall_s"]), "phase 3b",
+         dryrun.MOMENT_DTYPE),
+        ("train", dataclasses.replace(nemo, n_layers=training["layers"]),
+         InputShape("train", PREFILL_S, PREFILL_B, "train"), PREFILL_B * PREFILL_S,
+         training["step_s"], "phase 6 (fp32 moments)", torch.float32),
+    ]
+    rows = []
+    for kind, cfg, shape, tokens, measured_s, source, moments in steps:
+        with FakeTensorMode():
+            got = dryrun.count_case(dryrun.abstract_case(cfg, kind, shape, 1, "cuda"), None,
+                                    "sorted", device="cuda", moment_dtype=moments)
+        t = roofline.terms(got["flops"], got["bytes_accessed"], got["links"])
+        bound = max(t.values())
+        useful = (6.0 if kind == "train" else 2.0) * cfg.param_count() * tokens
+        row = dict(kind=kind, model=f"{cfg.name}@{cfg.n_layers}", batch=shape.global_batch,
+                   seq=shape.seq_len, source=source, measured_s=measured_s,
+                   counted_flops=got["flops"], counted_bytes=got["bytes_accessed"],
+                   compute_s=t["compute"], memory_s=t["memory"], bound_s=bound,
+                   bound_share=bound / measured_s, model_flops=useful,
+                   mfu=useful / (measured_s * PEAK_FLOPS_BF16), card=card)
+        rows.append(row)
+        print(f"{row['model']} {kind} (B={shape.global_batch}, "
+              f"{'capacity' if kind == 'decode' else 'S'}={shape.seq_len}; {source}) on {card}: "
+              f"measured {measured_s * 1e3:.3f} ms; the ref path's count of the same function "
+              f"{got['flops']:.4e} FLOPs and {got['bytes_accessed']:.4e} bytes: compute "
+              f"{t['compute'] * 1e3:.3f} ms, memory {t['memory'] * 1e3:.3f} ms; the bound's "
+              f"share of the measured time {100 * row['bound_share']:.1f} %; "
+              f"{'6' if kind == 'train' else '2'}·N·tokens = {useful:.4e}, mfu "
+              f"{100 * row['mfu']:.2f} %", flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--out", type=Path, default=None,
@@ -3362,6 +3666,14 @@ def main() -> None:
     release_models()
     meshed = phases.run("phase 7: the mesh at world size 1 (NCCL)", in_fresh_process,
                         "mesh_on_card") if built else None
+    dry = phases.run("phase 8a: the dry-run over a fake 16x16 mesh, and its roofline",
+                     dryrun_on_host)
+    counted = phases.run("phase 8b: the counter on the card against the fake count",
+                         counts_on_card)
+    mesh_counted = phases.run("phase 8b: the same over the (1, 1) NCCL mesh", in_fresh_process,
+                              "mesh_counts_on_card")
+    roofs = phases.run("phase 8c: the roofline of the card's kernel-path steps", card_roofline,
+                       served, prefill, training, card) if built else None
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
@@ -3370,7 +3682,8 @@ def main() -> None:
                  qwen3_moe=qwen,
                  deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
                  reduced=reduced, planner=planner, constants=constants,
-                 simulator=simulated, mesh=meshed, idle_power_w=idle_w,
+                 simulator=simulated, mesh=meshed, dryrun=dry, counts=counted,
+                 mesh_counts=mesh_counted, card_roofline=roofs, idle_power_w=idle_w,
                  failed=phases.failed, tracebacks=phases.tracebacks), indent=1, default=str))
     if phases.failed or not built:
         die(f"failed phases: {phases.failed}")

@@ -11,6 +11,7 @@ unchanged one is not.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +21,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -31,6 +32,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: Why kernel launches are refused now (innermost last): see
+#: :func:`refuse_launches`.
+_refusals: List[str] = []
 #: Seconds each kernel library took to compile in this process (0 when an
 #: up-to-date build was found on disk), and what nvcc printed (ptxas's
 #: registers, shared memory and spills per kernel).
@@ -101,8 +105,24 @@ def aligned(x: "torch.Tensor") -> "torch.Tensor":
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+@contextlib.contextmanager
+def refuse_launches(why: str) -> Iterator[None]:
+    """Inside it every kernel launch raises (:func:`load` does, and each
+    wrapper loads its library before it launches): a count of a step's
+    work (``repro_torch.launch.counter``) sees only what PyTorch
+    dispatches, and a kernel called through ``ctypes`` would go uncounted."""
+    _refusals.append(why)
+    try:
+        yield
+    finally:
+        _refusals.remove(why)
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use;
+    raises inside :func:`refuse_launches`."""
+    if _refusals:
+        raise RuntimeError(f"the {name} kernel may not launch here: {_refusals[-1]}")
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._autograd import refuse_grad
-from repro_torch.kernels.ref import grouped_product
+from repro_torch.kernels.ref import grouped_matmul
 
 #: Kernel launches since import (or since the caller last reset it).
 launches = 0
@@ -77,11 +77,9 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -
     """What the kernel computes, in PyTorch: one fp32 matmul per non-empty
     group, rounded once to x's dtype.  Rows are assigned to groups as the
     JAX oracle assigns them (:func:`repro_torch.kernels.ref.group_bounds`
-    reads the sizes on the host)."""
-    def product(rows: torch.Tensor, we: torch.Tensor) -> torch.Tensor:
-        return (rows.float() @ we.float()).to(x.dtype)
-
-    return grouped_product(x, w, group_sizes, product)
+    reads the sizes on the host, inside the op
+    :func:`~repro_torch.kernels.ref.grouped_matmul`)."""
+    return grouped_matmul(x, w, group_sizes, True)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:

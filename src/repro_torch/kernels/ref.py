@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 
 def _gqa_expand(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -295,6 +296,80 @@ def grouped_product(
     return out
 
 
+def _product(fp32: bool) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``a @ b`` in the operands' dtype, or (``fp32``) in fp32 rounded once
+    to a's dtype."""
+    if not fp32:
+        return torch.matmul
+    return lambda a, b: (a.float() @ b.float()).to(a.dtype)
+
+
+# The grouped matmul is an op of its own, so that a count on fake tensors
+# (``repro_torch.launch.counter``) can run it: its real body reads the group
+# sizes on the host, which a fake tensor has not got.  Its fake body gives
+# the shape, its flop formula the work (the groups partition the rows), and
+# its backward is two more such ops, with the arithmetic of autograd
+# through the per-group products (``tests/test_torch_dryrun.py``).
+@torch.library.custom_op("repro_torch::grouped_matmul", mutates_args=())
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                   fp32: bool) -> torch.Tensor:
+    """x (T, d_in) rows sorted by expert, w (E, d_in, d_out) → (T, d_out) in
+    x's dtype: each group's rows times its expert's weight (``fp32``: in
+    fp32, rounded once)."""
+    return grouped_product(x, w, group_sizes, _product(fp32))
+
+
+@grouped_matmul.register_fake
+def _(x, w, group_sizes, fp32):
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+@torch.library.custom_op("repro_torch::grouped_matmul_wgrad", mutates_args=())
+def grouped_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
+                         n_experts: int, fp32: bool) -> torch.Tensor:
+    """The weight gradient of :func:`grouped_matmul`: (E, d_in, d_out), each
+    expert's rows of x transposed times theirs of dy, zeros for an empty
+    group, in x's dtype."""
+    dw = x.new_zeros((n_experts, x.shape[1], dy.shape[1]))
+    prod = _product(fp32)
+    for e, (s0, s1) in enumerate(zip(*group_bounds(group_sizes, x.shape[0]))):
+        if s1 > s0:
+            dw[e] = prod(x[s0:s1].t(), dy[s0:s1])
+    return dw
+
+
+@grouped_matmul_wgrad.register_fake
+def _(x, dy, group_sizes, n_experts, fp32):
+    return x.new_empty((n_experts, x.shape[1], dy.shape[1]))
+
+
+def _gmm_setup(ctx, inputs, output):
+    x, w, group_sizes, fp32 = inputs
+    ctx.save_for_backward(x, w, group_sizes)
+    ctx.fp32 = fp32
+
+
+def _gmm_backward(ctx, dy):
+    x, w, group_sizes = ctx.saved_tensors
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = grouped_matmul(dy, w.transpose(1, 2), group_sizes, ctx.fp32)
+    if ctx.needs_input_grad[1]:
+        dw = grouped_matmul_wgrad(x, dy, group_sizes, w.shape[0], ctx.fp32).to(w.dtype)
+    return dx, dw, None, None
+
+
+grouped_matmul.register_autograd(_gmm_backward, setup_context=_gmm_setup)
+
+
+@register_flop_formula([torch.ops.repro_torch.grouped_matmul,
+                        torch.ops.repro_torch.grouped_matmul_wgrad])
+def _gmm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """2·T·d_in·d_out for either op: each of the T rows is in one group."""
+    t, d_in = a_shape
+    return 2 * t * d_in * b_shape[-1]
+
+
 def moe_gmm_ref(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -308,5 +383,5 @@ def moe_gmm_ref(
     tokens → (tokens, d_out).  The JAX oracle gathers one (d_in, d_out)
     weight per row, which at Qwen3-MoE's prefill alone would take ~100 GB;
     this computes the same function with one matmul per non-empty group
-    (the group bounds are read on the host)."""
-    return grouped_product(x, w, group_sizes, torch.matmul)
+    (the group bounds are read on the host, inside :func:`grouped_matmul`)."""
+    return grouped_matmul(x, w, group_sizes, False)

@@ -17,8 +17,10 @@ is NCCL on ``cuda`` and gloo on ``cpu``; asking for ``cuda`` without a card
 raises, and nothing falls back to the CPU.
 
 The hardware constants are one H100 SXM's: the peak bf16 rate and the
-memory rate from NVIDIA's data sheet, the NVLink rate a direction and the
-card's memory from :data:`repro_torch.core.netmodel.H100_CLUSTER`.
+memory rate from NVIDIA's data sheet, the NVLink rate a direction, the
+card's memory and the cards a node from
+:data:`repro_torch.core.netmodel.H100_CLUSTER`, and the NIC a card from
+the DGX H100 data sheet (the roofline's denominators).
 """
 
 from __future__ import annotations
@@ -43,6 +45,13 @@ HBM_BW = 3.35e12
 NVLINK_BW = H100_CLUSTER.network.bandwidth_bytes_per_s
 #: Device memory per card, bytes (``H100_CLUSTER``).
 HBM_PER_CHIP = H100_CLUSTER.gpu_capacity_bytes
+#: Cards an NVLink domain holds: one HGX H100 node (``H100_CLUSTER``).
+#: Ranks are laid out node by node, as torchrun numbers them, so rank r is
+#: on node r // CARDS_PER_NODE.
+CARDS_PER_NODE = H100_CLUSTER.n_workers
+#: Between nodes: one 400 Gb/s NIC a card (DGX H100 data sheet: eight
+#: ConnectX-7 400 Gb/s ports for eight cards), bytes/s a direction.
+NIC_BW = 400e9 / 8
 
 
 def _free_port() -> int:

@@ -2,6 +2,7 @@ from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import (
     ParamTree,
+    abstract_params,
     decode_step,
     forward,
     init_cache,
@@ -14,6 +15,7 @@ __all__ = [
     "InputShape",
     "ModelConfig",
     "ParamTree",
+    "abstract_params",
     "decode_step",
     "forward",
     "init_cache",

@@ -24,10 +24,13 @@ decoder with cross-attention).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch._guards import active_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.device import Device, resolve_device
@@ -262,6 +265,32 @@ def init_params(
         return ParamTree(_materialize(spec, generator, dev))
 
 
+def abstract_params(cfg: ModelConfig, device: Device = "cpu") -> ParamTree:
+    """The param tree of :func:`param_spec` as fake tensors on ``device``
+    (``FakeTensorMode``: shapes, dtypes and devices, no memory; no card
+    is needed for ``"cuda"``), the counterpart of the reference's
+    ``jax.eval_shape`` of ``init_params``.  The tensors belong to the
+    active fake mode, or to a new one where none is active (their
+    ``fake_mode``): a step over them runs inside that mode."""
+    def fake(spec):
+        return {k: fake(v) if isinstance(v, dict) else torch.empty(v[0], dtype=v[1], device=device)
+                for k, v in spec.items()}
+
+    with fake_mode():
+        return ParamTree(fake(param_spec(cfg)))
+
+
+@contextlib.contextmanager
+def fake_mode() -> Iterator[FakeTensorMode]:
+    """The active ``FakeTensorMode``, or a new one entered for the block."""
+    active = active_fake_mode()
+    if active is not None:
+        yield active
+        return
+    with FakeTensorMode() as mode:
+        yield mode
+
+
 # ===========================================================================
 # Forward (prefill) and loss
 # ===========================================================================
@@ -468,7 +497,7 @@ def next_token_loss(
         return nll.mean() + aux_weight * aux
     # each rank's mean weighted by its share of the tokens: the global mean,
     # and at one rank the mesh-less arithmetic (a weight of exactly 1)
-    count = torch.tensor(float(nll.numel()), device=nll.device)
+    count = nll.new_full((), float(nll.numel()))  # fp32, as nll
     share = count / sharding.data_sum(count, mesh)
     return sharding.data_sum(nll.mean() * share, mesh) + aux_weight * aux
 

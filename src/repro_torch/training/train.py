@@ -134,9 +134,9 @@ def make_train_step(
     placements); the step turns on their ``requires_grad``, takes the
     gradient of ``next_token_loss`` by autograd, and updates params and
     moments in place (the same objects come back).  ``accum_steps`` splits
-    the batch into that many microbatches along its first axis; their
-    gradients are summed in fp32 and divided, as the reference's
-    ``lax.scan`` does.  ``remat=True`` checkpoints each layer and saves
+    the batch into that many microbatches along its first axis (with a
+    mesh, this rank's rows; it must divide them); their gradients are
+    summed in fp32 and divided, as the reference's ``lax.scan`` does.  ``remat=True`` checkpoints each layer and saves
     only its matmuls' outputs (the counterpart of
     ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)``), so
     attention (and, with a mesh, each weight's gather) runs again in the
@@ -179,6 +179,10 @@ def make_train_step(
                 loss = loss_and_grads(view, batch)
                 grads = opt.map_tree(_grad_of, params)
             else:
+                rows = batch["tokens"].shape[0]
+                if rows % accum_steps:
+                    raise ValueError(f"accum_steps={accum_steps} does not divide the {rows} rows "
+                                     f"of the batch{' this rank holds' if mesh is not None else ''}")
                 micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps) + v.shape[1:])
                          for k, v in batch.items()}
                 total = opt.map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32,
