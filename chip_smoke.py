@@ -138,7 +138,13 @@ any phase fails.  Phases:
    steps on NeMo at full width, 2 layers, against three mesh-less ones
    (loss, grad norm and params within 1e-6 relative), the flash forward
    and backward launches by body; (7d) the SST all-gather over NCCL, bit
-   for bit, with the time of one exchange.
+   for bit, with the time of one exchange; (7e) decode attention over
+   NeMo's and granite's 32,768-slot bf16 caches cut along T into 2, 4
+   and 16 slices, as a (1, n) mesh's ranks hold them:
+   ``decode_attention_partials`` on each slice, then ``combine_partials``,
+   against the whole kernel and the plain path (phase 2's check; an
+   all-empty slice gives (-inf, 0, 0)), and one rank's work at n = 16
+   timed in turns with the whole kernel.
 8. the analysis tooling: (8a) ``python -m repro_torch.launch.dryrun``
    over a fake 16x16 mesh of 256 ranks, one process a call
    (``DRYRUN_CALLS``: every arch's prefill and decode shapes but the SSM
@@ -1939,8 +1945,10 @@ def counts_zeroed(*engines):
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ssd_scan as ssd
 
-    # the backward's count is zeroed too, and read by phase 6 alone
+    # the backward's count is zeroed too, and read by phase 6 alone; so are
+    # the partials path's, read by phase 7e alone
     da.launches = fa.launches = fb.launches = ssd.launches = gmm.launches = 0
+    da.partials_launches = da.combine_launches = 0
     for mod in (da, fa, fb, ssd, gmm):
         mod.launches_by_body.clear()
     for e in engines:
@@ -3309,10 +3317,126 @@ def mesh_sst(mesh):
     return dict(bitwise_equal=same, us_per_exchange=us, exchanges=SST_EXCHANGES)
 
 
+#: 7e: decode attention over a cache split along T into n slices, as the
+#: ranks of a (1, n) mesh run it, on one card
+PARTIALS_T = 32768
+PARTIALS_SLICES = (2, 4, 16)
+PARTIALS_MODELS = {"mistral-nemo-12b": (2, 32, 8, 128), "granite-20b": (2, 48, 1, 128)}
+
+
+def partials_bound(b, h, kh, d, local_lens, n):
+    """Least time (ms) of one rank's partials and the combine of n: q and
+    lens read once, the slice's valid K/V rows read once, its fp32 (m, l,
+    acc) written once, the n partials read once and the bf16 output
+    written once; 4·H·D flops a valid row, 2·D a partial of a row.
+    Returns (ms, bytes, flops, 'bytes' or 'operations')."""
+    rows = sum(local_lens)
+    part = b * h * (d + 2) * 4
+    nbytes = b * h * d * 2 + 4 * b + 2 * rows * kh * d * 2 + part + n * part + b * h * d * 2
+    flops = 4 * h * d * rows + 2 * n * b * h * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mesh_partials():
+    """7e: NeMo's and granite's 32,768-slot bf16 caches at B = 2, each cut
+    along T into n = 2, 4 and 16 slices as a (1, n) mesh's ranks hold
+    them: every slice through ``decode_attention_partials`` with its local
+    length clamp(len − r·T_loc, 0, T_loc), then ``combine_partials`` over
+    the n in slice order, held against the whole ``decode_attention``
+    kernel and the plain path to phase 2's scaled bf16 check, for a full
+    cache and one whose second half holds no slot (an all-empty slice at
+    every n, which must give m = -inf, l = 0, acc = 0).  Then, at n = 16
+    (T_loc = 2,048), one rank's work, the partials of its slice and the
+    combine of 16, timed in turns with the whole kernel over the 32,768
+    slots, beside the plain path's time and the bound."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    bf16, t = torch.bfloat16, PARTIALS_T
+    rows = []
+    for model, (b, h, kh, d) in PARTIALS_MODELS.items():
+        q = torch.randn(b, h, d, generator=gen, device=dev, dtype=bf16)
+        k = torch.randn(b, t, kh, d, generator=gen, device=dev, dtype=bf16)
+        v = torch.randn(b, t, kh, d, generator=gen, device=dev, dtype=bf16)
+        errs = {}
+        for case, lens in (("full", [t, t]), ("half", [t // 2 - 7, t // 32])):
+            n_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            whole = da.decode_attention(q, k, v, n_t).float()
+            plain = da.decode_attention_plain(q, k, v, n_t).float()
+            for n in PARTIALS_SLICES:
+                t_loc = t // n
+                ks = [k[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
+                vs = [v[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
+                before = (da.partials_launches, da.combine_launches)
+                parts = [da.decode_attention_partials(
+                    q, ks[r], vs[r], (n_t - r * t_loc).clamp(0, t_loc).to(torch.int32))
+                    for r in range(n)]
+                m, l, acc = (torch.stack(x) for x in zip(*parts))
+                got = da.combine_partials(m, l, acc, bf16).float()
+                torch.cuda.synchronize()
+                if (da.partials_launches, da.combine_launches) != (before[0] + n, before[1] + 1):
+                    raise AssertionError(f"7e {model} n={n}: launches "
+                                         f"{(da.partials_launches, da.combine_launches)} after "
+                                         f"{before}, expected {n} partials and one combine")
+                errs[f"{case} n={n}"] = float((got - plain).abs().max())
+                if not (decode_close(got, whole, "bfloat16")
+                        and decode_close(got, plain, "bfloat16")):
+                    worst = float((got - whole).abs().max())
+                    raise AssertionError(f"7e {model} {case} n={n}: partials + combine differ "
+                                         f"from the whole kernel ({worst}) or the plain path "
+                                         f"({errs[f'{case} n={n}']})")
+                if case == "half" and not (bool(torch.isinf(m[-1]).all()) and not l[-1].any()
+                                           and not acc[-1].any()):
+                    raise AssertionError(f"7e {model} n={n}: the all-empty slice is not "
+                                         f"(-inf, 0, 0)")
+        n = PARTIALS_SLICES[-1]
+        t_loc = t // n
+        full = torch.full((b,), t, dtype=torch.int32, device=dev)
+        local = torch.full((b,), t_loc, dtype=torch.int32, device=dev)
+        ks, vs = k[:, :t_loc].contiguous(), v[:, :t_loc].contiguous()
+        m, l, acc = (x.expand((n,) + x.shape).contiguous()
+                     for x in da.decode_attention_partials(q, ks, vs, local))
+
+        def rank_work():
+            da.decode_attention_partials(q, ks, vs, local)
+            da.combine_partials(m, l, acc, bf16)
+
+        def plain_work():
+            da.decode_attention_partials_plain(q, ks, vs, local)
+            da.combine_partials_plain(m, l, acc, bf16)
+
+        rank_ms, whole_ms, turns = in_turns(rank_work, lambda: da.decode_attention(q, k, v, full),
+                                            flush, 25)
+        partials_ms = cuda_time_ms(lambda: da.decode_attention_partials(q, ks, vs, local), flush)
+        combine_ms = cuda_time_ms(lambda: da.combine_partials(m, l, acc, bf16), flush)
+        plain_ms = cuda_time_ms(plain_work, flush)
+        bound_ms, nbytes, flops, bound_by = partials_bound(b, h, kh, d, [t_loc] * b, n)
+        row = dict(model=model, b=b, h=h, kh=kh, d=d, t=t, dtype="bfloat16", slices=n, t_loc=t_loc,
+                   splits=da.splits_for(b, kh, t_loc), max_abs_err=max(errs.values()), errs=errs,
+                   ms=rank_ms, partials_ms=partials_ms, combine_ms=combine_ms,
+                   whole_kernel_ms=whole_ms, turns_ms=turns, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bytes=nbytes, flops=flops, bound_by=bound_by,
+                   library_ms=None)
+        rows.append(row)
+        print(f"7e {model} bf16 B={b} H={h} KH={kh} T={t} over n = {PARTIALS_SLICES} slices: "
+              f"partials + combine against the whole kernel and plain path, max err "
+              f"{row['max_abs_err']:.2e}; at n={n} (T_loc {t_loc}, {row['splits']} splits) one "
+              f"rank's partials + combine {rank_ms * 1e3:.1f} us (partials {partials_ms * 1e3:.1f}, "
+              f"combine {combine_ms * 1e3:.1f}) against the whole kernel's {whole_ms * 1e3:.1f} us "
+              f"in turns; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by})", flush=True)
+        del q, k, v, ks, vs
+    return rows
+
+
 def mesh_on_card():
     """Phase 7, in a fresh process so that its process group stays out of
     the other phases: a one-rank NCCL group and ``make_debug_mesh``'s
-    (1, 1) mesh, then 7a-7d.  A failure in any part fails the phase."""
+    (1, 1) mesh, then 7a-7e.  A failure in any part fails the phase."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
@@ -3331,6 +3455,7 @@ def mesh_on_card():
         out["ep"] = mesh_ep(mesh)
         out["train"] = mesh_train(mesh)
         out["sst"] = mesh_sst(mesh)
+        out["partials"] = mesh_partials()
     finally:
         dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
@@ -3817,6 +3942,9 @@ def main() -> None:
     }
     for k in kernels:
         k["launches_by_phase"].update(mesh_phase[k["name"]])
+    # phase 7e: the partials path of a cache split along T (one rank's work
+    # at n = 16 beside the whole kernel)
+    kernels[0]["partials"] = meshed["partials"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

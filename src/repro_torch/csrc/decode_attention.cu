@@ -38,6 +38,14 @@
 //   the wrapper allocates, and a combine kernel rescales and sums them.  A
 //   split whose range holds no valid slot writes m = -inf and l = 0.
 //
+// Partials (decode_attention_partials_launch): the split body over one
+// rank's slice of a cache split along T, every CTA writing its m, l and
+// acc, then the combine in a mode that writes the slice's m (natural log
+// domain), l and unnormalised acc in fp32 in place of the output; and the
+// combine alone (decode_combine_launch) over n such partials laid out
+// (n, B, H), which gives the output of the whole cache.  A slice with no
+// valid slot gives m = -inf, l = 0 and acc = 0, and weighs 0.
+//
 // * single (the first port's body).  One CTA per (query-row chunk of 32,
 //   kv head, batch row) streams the valid prefix of its K/V slice through
 //   shared memory in tiles of TK rows, loaded and then scored, each lane
@@ -367,8 +375,8 @@ struct MmaCfg {
 };
 
 // The end of a CTA: the WK warps' states of each query row are merged, and
-// then either the output row is written (one split) or this split's m (log2
-// domain), l and unnormalised acc (several splits: decode_combine_kernel).
+// then either the output row is written (no scratch: one split) or this
+// split's m (log2 domain), l and unnormalised acc (decode_combine_kernel).
 template <typename T>
 __device__ __forceinline__ void finish_rows(const float* Po, const float* Pm, const float* Pl,
                                             int wk_n, int rows, int dstride, int G, int H,
@@ -391,7 +399,7 @@ __device__ __forceinline__ void finish_rows(const float* Po, const float* Pm, co
       }
     }
     const size_t row = (size_t)b * H + (size_t)kh * G + r;
-    if (splits == 1) {
+    if (part_acc == nullptr) {
       const float inv = L > 0.f ? 1.f / L : 0.f;
       reinterpret_cast<typename Pair<T>::type*>(out + row * D)[c / 2] =
           Pair<T>::make(make_float2(ox * inv, oy * inv));
@@ -753,19 +761,25 @@ __global__ void __launch_bounds__(F32_WARPS * 32) decode_split_f32_kernel(
 }
 
 // out[row] = sum_s acc_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s;
-// 0 when no split saw a slot.  One CTA per (batch row, head).
+// 0 when no split saw a slot.  One CTA per (batch row, head).  Split s of
+// row r is at r * rstride + s * sstride (acc: times D); m_s is read times
+// in_scale into the exp2 domain.  With out == nullptr the row's combined m
+// (natural log domain), l and unnormalised acc go to out_m, out_l, out_acc.
+constexpr float LN2 = 0.6931471805599453f;
 template <typename T>
 __global__ void __launch_bounds__(128) decode_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, T* __restrict__ out, int splits, int D) {
+    const float* __restrict__ part_acc, T* __restrict__ out, float* __restrict__ out_m,
+    float* __restrict__ out_l, float* __restrict__ out_acc, int splits, int D,
+    size_t rstride, size_t sstride, float in_scale) {
   extern __shared__ float wts[];  // splits
   __shared__ float red[4];
   const size_t row = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* pm = part_m + row * splits;
-  const float* pl = part_l + row * splits;
+  const float* pm = part_m + row * rstride;
+  const float* pl = part_l + row * rstride;
   float M = -INFINITY;
-  for (int s = tid; s < splits; s += 128) M = fmaxf(M, pm[s]);
+  for (int s = tid; s < splits; s += 128) M = fmaxf(M, pm[s * sstride] * in_scale);
   M = warp_max(M);
   if (lane == 0) red[warp] = M;
   __syncthreads();
@@ -773,19 +787,31 @@ __global__ void __launch_bounds__(128) decode_combine_kernel(
   __syncthreads();
   float L = 0.f;
   for (int s = tid; s < splits; s += 128) {
-    const float w = M == -INFINITY ? 0.f : exp2f(pm[s] - M);
+    const float w = M == -INFINITY ? 0.f : exp2f(pm[s * sstride] * in_scale - M);
     wts[s] = w;
-    L += pl[s] * w;
+    L += pl[s * sstride] * w;
   }
   L = warp_sum(L);
   if (lane == 0) red[warp] = L;
   __syncthreads();
   L = red[0] + red[1] + red[2] + red[3];
+  const float* pa = part_acc + row * rstride * D;
+  if (out == nullptr) {
+    for (int d = tid; d < D; d += 128) {
+      float o = 0.f;
+      for (int s = 0; s < splits; ++s) o = fmaf(pa[s * sstride * D + d], wts[s], o);
+      out_acc[row * D + d] = o;
+    }
+    if (tid == 0) {
+      out_m[row] = M * LN2;
+      out_l[row] = L;
+    }
+    return;
+  }
   const float inv = L > 0.f ? 1.f / L : 0.f;
-  const float* pa = part_acc + row * splits * D;
   for (int d = tid; d < D; d += 128) {
     float o = 0.f;
-    for (int s = 0; s < splits; ++s) o = fmaf(pa[(size_t)s * D + d], wts[s], o);
+    for (int s = 0; s < splits; ++s) o = fmaf(pa[s * sstride * D + d], wts[s], o);
     out[row * D + d] = from_float<T>(o * inv);
   }
 }
@@ -852,10 +878,11 @@ cudaError_t launch_f32_rows(int G, const void* q, const void* k, const void* v,
   return launch_f32<DP, 16>(q, k, v, lens, out, pm, pl, pa, B, H, KH, T_, D, splits, per_split, s);
 }
 
-// The split body: (splits, KH, B) CTAs, then the combine when splits > 1.
+// The split body: (splits, KH, B) CTAs, then the combine when splits > 1,
+// or (om != nullptr, the partials) always, into om, ol and oa.
 cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* lens, void* out,
-                   float* pm, float* pl, float* pa, int B, int H, int KH, int T_, int D, int dtype,
-                   int splits, int per_split, cudaStream_t s) {
+                   float* pm, float* pl, float* pa, float* om, float* ol, float* oa, int B, int H,
+                   int KH, int T_, int D, int dtype, int splits, int per_split, cudaStream_t s) {
   const int G = H / KH;
   const int dp = D <= 64 ? 64 : (D <= 128 ? 128 : (D <= 192 ? 192 : 256));
   cudaError_t e;
@@ -873,14 +900,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* l
     }
   }
 #undef DEC_SPLIT_CASE
-  if (e != cudaSuccess || splits == 1) return e;
+  if (e != cudaSuccess || (splits == 1 && om == nullptr)) return e;
   const size_t smem = sizeof(float) * splits;
   if (dtype == 1) {
     decode_combine_kernel<__nv_bfloat16><<<B * H, 128, smem, s>>>(
-        pm, pl, pa, static_cast<__nv_bfloat16*>(out), splits, D);
+        pm, pl, pa, om ? nullptr : static_cast<__nv_bfloat16*>(out), om, ol, oa, splits, D,
+        splits, 1, 1.f);
   } else {
-    decode_combine_kernel<float><<<B * H, 128, smem, s>>>(pm, pl, pa, static_cast<float*>(out),
-                                                          splits, D);
+    decode_combine_kernel<float><<<B * H, 128, smem, s>>>(
+        pm, pl, pa, om ? nullptr : static_cast<float*>(out), om, ol, oa, splits, D, splits, 1,
+        1.f);
   }
   return cudaGetLastError();
 }
@@ -920,8 +949,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
         (splits > 1 && (part_m == nullptr || part_l == nullptr || part_acc == nullptr)))
       return (int)cudaErrorInvalidValue;
     return (int)split::launch(q, k, v, lens, out, static_cast<float*>(part_m),
-                              static_cast<float*>(part_l), static_cast<float*>(part_acc), B, H,
-                              KH, T_, D, dtype, splits, per_split, s);
+                              static_cast<float*>(part_l), static_cast<float*>(part_acc), nullptr,
+                              nullptr, nullptr, B, H, KH, T_, D, dtype, splits, per_split, s);
   }
   const int n_chunks = (G + MAX_ROWS - 1) / MAX_ROWS;
   const int rows_per_cta = (G + n_chunks - 1) / n_chunks;
@@ -934,4 +963,52 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
           ? launch_dtype<float>(dpp, rpw, q, k, v, lens, out, B, H, KH, T_, D, rows_per_cta, n_chunks, nwarps, s)
           : launch_dtype<__nv_bfloat16>(dpp, rpw, q, k, v, lens, out, B, H, KH, T_, D, rows_per_cta, n_chunks, nwarps, s);
   return (int)e;
+}
+
+// The partials of one rank's slice of a cache split along T: q, k, v and
+// cache_len as decode_attention_launch takes them for the split body (its
+// limits), part_m/part_l (B, H, splits) and part_acc (B, H, splits, D) fp32
+// scratch; out_m/out_l (B, H) and out_acc (B, H, D) fp32 receive the
+// slice's m (natural log domain of q.k / sqrt(D)), l and unnormalised acc.
+extern "C" int decode_attention_partials_launch(
+    const void* q, const void* k, const void* v, const void* cache_len, void* part_m,
+    void* part_l, void* part_acc, void* out_m, void* out_l, void* out_acc, int B, int H, int KH,
+    int T_, int D, int dtype, int splits, int per_split, void* stream) {
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (B < 0 || KH <= 0 || H % KH != 0 || T_ < 0 || D <= 0 || D > 256 || D % 2 != 0 ||
+      (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || H / KH > (dtype == 1 ? 128 : 64) || splits < 1 ||
+      per_split < 1 || per_split % split::TK != 0 || (long long)splits * per_split < T_ ||
+      part_m == nullptr || part_l == nullptr || part_acc == nullptr || out_m == nullptr ||
+      out_l == nullptr || out_acc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0) return 0;
+  return (int)split::launch(q, k, v, static_cast<const int32_t*>(cache_len), nullptr,
+                            static_cast<float*>(part_m), static_cast<float*>(part_l),
+                            static_cast<float*>(part_acc), static_cast<float*>(out_m),
+                            static_cast<float*>(out_l), static_cast<float*>(out_acc), B, H, KH,
+                            T_, D, dtype, splits, per_split, static_cast<cudaStream_t>(stream));
+}
+
+// The combine of n partials: m and l (n, rows), acc (n, rows, D), fp32, m
+// in the natural log domain; out (rows, D) in dtype (0 = fp32, 1 = bf16).
+extern "C" int decode_combine_launch(const void* m, const void* l, const void* acc, void* out,
+                                     int n, int rows, int D, int dtype, void* stream) {
+  if (n < 1 || rows < 0 || D <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pm = static_cast<const float*>(m);
+  const float* pl = static_cast<const float*>(l);
+  const float* pa = static_cast<const float*>(acc);
+  const size_t smem = sizeof(float) * n;
+  if (dtype == 1) {
+    split::decode_combine_kernel<__nv_bfloat16><<<rows, 128, smem, s>>>(
+        pm, pl, pa, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr, n, D, 1,
+        (size_t)rows, LOG2E);
+  } else {
+    split::decode_combine_kernel<float><<<rows, 128, smem, s>>>(
+        pm, pl, pa, static_cast<float*>(out), nullptr, nullptr, nullptr, n, D, 1, (size_t)rows,
+        LOG2E);
+  }
+  return (int)cudaGetLastError();
 }

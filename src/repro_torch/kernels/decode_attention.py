@@ -16,7 +16,15 @@ a caller may name one with ``body=`` to time or test it.
 ``decode_attention`` launches the kernel for CUDA tensors and counts each
 call in the module-level ``launches`` (one per call, whatever the body
 launches) and, by body, in ``launches_by_body``; for CPU tensors it runs
-``decode_attention_plain``.  There is no fallback: a CUDA input that the
+``decode_attention_plain``.
+
+Over a cache split along T (one slice a rank of ``model``),
+``decode_attention_partials`` gives one slice's fp32 (m, l, acc): the
+split body over the slice, then the combine in a mode that writes them in
+place of the output; ``combine_partials`` takes n slices' partials stacked
+on a leading dim and gives the output of the whole cache (the same
+combine kernel, over n).  They count their calls in ``partials_launches``
+and ``combine_launches``, and run their plain versions for CPU tensors.  There is no fallback: a CUDA input that the
 kernel does not take, or a named body that cannot take it, raises, and so
 does a CUDA call under grad mode with an input that requires grad (decode
 is not differentiated).
@@ -37,6 +45,10 @@ from repro_torch.kernels import ref as _ref
 launches = 0
 #: The same calls by body (reset it with ``launches``).
 launches_by_body: Dict[str, int] = {}
+#: ``decode_attention_partials`` and ``combine_partials`` calls that
+#: launched their kernels.
+partials_launches = 0
+combine_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The C entry's number of each body.
@@ -107,6 +119,48 @@ def decode_attention_plain(
     return _ref.decode_attention_grouped_ref(q, k_cache, v_cache, cache_len)
 
 
+def decode_attention_partials_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One slice of a cache, in PyTorch: q (B, H, D), caches (B, T, KH, D),
+    ``cache_len`` (B,) its valid slots (clamped to [0, T]) → fp32 m (B, H),
+    the largest score q·k/√D over the valid slots; l (B, H), the sum of
+    exp(score − m); acc (B, H, D), the sum of exp(score − m)·v, not divided
+    by l.  A row with no valid slot gives m = -inf, l = 0, acc = 0."""
+    b, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    if t == 0:
+        m = torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device)
+        return m, torch.zeros_like(m), torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    qg = q.reshape(b, kh, g, d).float() * d ** -0.5
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float())
+    valid = torch.arange(t, device=q.device) < cache_len[:, None, None, None]
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - torch.where(torch.isinf(m), torch.zeros_like(m), m)[..., None])
+    acc = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    return m.reshape(b, h), p.sum(dim=-1).reshape(b, h), acc.reshape(b, h, d)
+
+
+def combine_partials_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """n slices' partials, m and l (n, B, H) and acc (n, B, H, D), in
+    PyTorch: every slice rescaled to the largest m and summed, divided by
+    the summed l, 0 for a row with no valid slot in any slice (a slice
+    with m = -inf weighs 0).  Output (B, H, D) in ``dtype``."""
+    top = m.amax(dim=0)
+    w = torch.exp(m - torch.where(torch.isinf(top), torch.zeros_like(top), top))  # 0 for -inf
+    total = (l * w).sum(dim=0)
+    out = (acc * w[..., None]).sum(dim=0)
+    out = torch.where(total[..., None] > 0, out / total.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(out))
+    return out.to(dtype)
+
+
 def decode_attention_split_plain(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -114,37 +168,19 @@ def decode_attention_split_plain(
     cache_len: torch.Tensor,
     splits: int,
 ) -> torch.Tensor:
-    """What the split body computes, in PyTorch: for each of ``splits``
-    ranges of ``slots_per_split`` cache slots, the fp32 max m, sum l and
-    unnormalised weighted sum acc of its valid slots (m = -inf, l = 0 for a
-    range with none), then the combine: every range rescaled to the largest
-    m and summed, divided by the summed l, 0 for a row with no valid slot.
-    Output in q's dtype."""
-    b, h, d = q.shape
-    t, kh = k_cache.shape[1], k_cache.shape[2]
-    g = h // kh
+    """What the split body computes, in PyTorch: the partials of each of
+    ``splits`` ranges of ``slots_per_split`` cache slots
+    (:func:`decode_attention_partials_plain`), then their combine
+    (:func:`combine_partials_plain`).  Output in q's dtype."""
+    t = k_cache.shape[1]
     per = slots_per_split(t, splits)
-    qg = q.reshape(b, kh, g, d).float() * d ** -0.5
-    logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float())
-    valid = torch.arange(t, device=q.device) < cache_len[:, None, None, None]
-    logits = logits.masked_fill(~valid, float("-inf"))
-    ms, ls, accs = [], [], []
+    parts = []
     for s in range(splits):
         lo, hi = min(s * per, t), min((s + 1) * per, t)
-        x = logits[..., lo:hi]
-        m = x.amax(dim=-1) if hi > lo else logits.new_full(logits.shape[:-1], float("-inf"))
-        p = torch.exp(x - torch.where(torch.isinf(m), torch.zeros_like(m), m)[..., None])
-        ms.append(m)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bkgt,btkd->bkgd", p, v_cache[:, lo:hi].float()))
-    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
-    top = m.amax(dim=0)
-    w = torch.exp(m - torch.where(torch.isinf(top), torch.zeros_like(top), top))  # 0 for -inf
-    total = (l * w).sum(dim=0)
-    out = (acc * w[..., None]).sum(dim=0)
-    out = torch.where(total[..., None] > 0, out / total.clamp_min(1e-30)[..., None],
-                      torch.zeros_like(out))
-    return out.reshape(b, h, d).to(q.dtype)
+        parts.append(decode_attention_partials_plain(
+            q, k_cache[:, lo:hi], v_cache[:, lo:hi], (cache_len - lo).clamp(0, hi - lo)))
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    return combine_partials_plain(m, l, acc, q.dtype)
 
 
 def _check(q, k_cache, v_cache, cache_len) -> None:
@@ -184,12 +220,21 @@ def _prepare(q, k_cache, v_cache, cache_len):
     return tuple(_build.aligned(x) for x in (q, k_cache, v_cache))
 
 
-def _entry():
-    """The C entry point, built and typed at first use."""
-    fn = _build.load("decode_attention").decode_attention_launch
+#: Each C entry point's argument types.
+_ARGTYPES = {
+    "decode_attention_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "decode_attention_partials_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                                        + [ctypes.c_void_p],
+    "decode_combine_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
+def _entry(name: str = "decode_attention_launch"):
+    """A C entry point, built and typed at first use."""
+    fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
     return fn
 
 
@@ -242,4 +287,82 @@ def decode_attention(
         raise RuntimeError(f"decode_attention kernel ({body}) launch failed: cudaError {rc}")
     launches += 1
     launches_by_body[body] = launches_by_body.get(body, 0) + 1
+    return out
+
+
+def decode_attention_partials(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One slice of a cache split along T (q (B, H, D), the slice's caches
+    (B, T_loc, KH, D), ``cache_len`` (B,) int32 its valid slots) → fp32
+    m, l (B, H) and acc (B, H, D), as
+    :func:`decode_attention_partials_plain` defines them.  CUDA tensors
+    launch the split body over ``splits_for(B, KH, T_loc)`` ranges and then
+    the combine in its partials mode; CPU tensors take the plain version.
+    A shape the split body does not take raises."""
+    global partials_launches
+    if q.device.type == "cpu":
+        return decode_attention_partials_plain(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_partials runs on CUDA or CPU, not {q.device}")
+    refuse_grad("decode_attention_partials", q, k_cache, v_cache)
+    q, k_cache, v_cache = _prepare(q, k_cache, v_cache, cache_len)
+    b, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    splits = splits_for(b, kh, t)
+    if "split" not in bodies_for(q.dtype, d, h // kh, splits):
+        raise ValueError(f"the split body does not take {q.dtype} at head dim {d} with "
+                         f"{h // kh} query rows per KV head")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m, l, acc = torch.empty((b, h), **f32), torch.empty((b, h), **f32), torch.empty((b, h, d), **f32)
+    if m.numel() == 0:
+        return m, l, acc
+    parts = [torch.empty((b, h, splits) + extra, **f32) for extra in ((), (), (d,))]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _entry("decode_attention_partials_launch")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+            *(p.data_ptr() for p in parts), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            b, h, kh, t, d, _DTYPES[q.dtype], splits, slots_per_split(t, splits), stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention_partials launch failed: cudaError {rc}")
+    partials_launches += 1
+    return m, l, acc
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """n slices' partials, m and l (n, B, H) and acc (n, B, H, D) fp32, in
+    the order of the slices → the output (B, H, D) in ``dtype``
+    (:func:`combine_partials_plain`).  CUDA tensors launch the combine
+    kernel over n; CPU tensors take the plain version."""
+    global combine_launches
+    if m.dim() != 3 or l.shape != m.shape or acc.shape[:3] != m.shape or acc.dim() != 4:
+        raise ValueError(f"want m, l (n, B, H) and acc (n, B, H, D); got {tuple(m.shape)}, "
+                         f"{tuple(l.shape)}, {tuple(acc.shape)}")
+    if m.device.type == "cpu":
+        return combine_partials_plain(m, l, acc, dtype)
+    if m.device.type != "cuda":
+        raise ValueError(f"combine_partials runs on CUDA or CPU, not {m.device}")
+    if any(x.dtype != torch.float32 or x.device != m.device for x in (l, acc)) \
+            or m.dtype != torch.float32 or dtype not in _DTYPES:
+        raise TypeError(f"combine_partials takes fp32 partials on one device and gives fp32 or "
+                        f"bf16; got {m.dtype}, {l.dtype}, {acc.dtype} -> {dtype}")
+    refuse_grad("combine_partials", m, l, acc)
+    n, b, h = m.shape
+    d = acc.shape[3]
+    m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
+    out = torch.empty((b, h, d), dtype=dtype, device=m.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        rc = _entry("decode_combine_launch")(m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+                                             out.data_ptr(), n, b * h, d, _DTYPES[dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"combine_partials launch failed: cudaError {rc}")
+    combine_launches += 1
     return out

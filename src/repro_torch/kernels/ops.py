@@ -73,6 +73,39 @@ def decode_attention(
     raise _unknown(impl)
 
 
+def decode_attention_partials(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One slice of a cache split along T → fp32 (m, l, acc); every
+    ``ref*`` impl is the plain version."""
+    if impl in ("ref", "ref_grouped", "ref_chunked", "ref_sequential"):
+        return _da.decode_attention_partials_plain(q, k_cache, v_cache, cache_len)
+    if impl in ("kernel", "auto"):
+        return _da.decode_attention_partials(q, k_cache, v_cache, cache_len)
+    raise _unknown(impl)
+
+
+def combine_partials(
+    m: torch.Tensor,
+    l: torch.Tensor,
+    acc: torch.Tensor,
+    dtype: torch.dtype,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """n slices' (m, l, acc) stacked on dim 0 → the output in ``dtype``."""
+    if impl in ("ref", "ref_grouped", "ref_chunked", "ref_sequential"):
+        return _da.combine_partials_plain(m, l, acc, dtype)
+    if impl in ("kernel", "auto"):
+        return _da.combine_partials(m, l, acc, dtype)
+    raise _unknown(impl)
+
+
 def ssd_decode(
     x: torch.Tensor,
     dt: torch.Tensor,

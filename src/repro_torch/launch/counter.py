@@ -106,10 +106,9 @@ ALLOC_ROUND = 512
 LINKS = ("nvlink", "nic")
 
 
-def link_of(func, args, kwargs) -> str:
-    """The slowest link the group of collective ``func`` crosses: its
-    ``group_name`` (``_c10d_functional``) or ``process_group`` (``c10d``)
-    argument's ranks, on nodes of ``CARDS_PER_NODE``."""
+def group_ranks(func, args, kwargs) -> list:
+    """The global ranks of collective ``func``'s group: its ``group_name``
+    (``_c10d_functional``) or ``process_group`` (``c10d``) argument's."""
     bound = dict(kwargs)
     for arg, val in zip(func._schema.arguments, args):
         bound[arg.name] = val
@@ -117,7 +116,13 @@ def link_of(func, args, kwargs) -> str:
         group = _resolve_process_group(bound["group_name"])
     else:
         group = dist.ProcessGroup.unbox(bound["process_group"])
-    nodes = {r // CARDS_PER_NODE for r in dist.get_process_group_ranks(group)}
+    return dist.get_process_group_ranks(group)
+
+
+def link_of(func, args, kwargs) -> str:
+    """The slowest link the group of collective ``func`` crosses: its
+    ranks (:func:`group_ranks`) on nodes of ``CARDS_PER_NODE``."""
+    nodes = {r // CARDS_PER_NODE for r in group_ranks(func, args, kwargs)}
     return LINKS[0] if len(nodes) == 1 else LINKS[1]
 
 

@@ -7,6 +7,15 @@ Conventions:
   leading ``n_layers`` axis.
 * norms and softmax statistics in float32, matmuls in the config dtype;
   casts sit where the JAX code has them, so bf16 rounds at the same places.
+* with a ``mesh`` (a ``DeviceMesh`` with a ``model`` axis) the layers are
+  tensor parallel over ``model`` as their weights are stored
+  (:mod:`repro_torch.models.sharding`): attention over this rank's query
+  heads and the K/V heads they read, SwiGLU over its block of d_ff, each
+  closed by one ``model_sum``; weights stored otherwise go through
+  :func:`sharding.linear`.  Norms, RoPE and the residual stay replicated.
+  A decode cache split along T over ``model`` (``slot_offset``: this
+  rank's first slot) is attended by its slice's partials, combined across
+  the ranks (:func:`t_split_decode_attention`).
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding
 
 
 def cache_write(
@@ -24,6 +34,7 @@ def cache_write(
     new: torch.Tensor,
     write_index: torch.Tensor,
     mode: str = "scatter",
+    slot_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Write one token into a (B, T, ...) cache at per-batch slots, in
     place; returns ``cache``.
@@ -31,10 +42,20 @@ def cache_write(
     ``scatter``: an indexed write at ``[b, write_index[b]]``.
     ``onehot``: a select against an iota mask over the whole cache (the
     reference's partition-friendly form); the same values, more traffic.
+    ``slot_offset``: ``cache`` is one rank's slice of a cache split along
+    T, from that slot; a row is written only where its slot lies in it.
     """
+    if slot_offset is not None:
+        write_index = write_index - slot_offset
     if mode == "scatter":
         bidx = torch.arange(cache.shape[0], device=cache.device)
-        cache[bidx, write_index.long()] = new.to(cache.dtype)
+        if slot_offset is None:
+            cache[bidx, write_index.long()] = new.to(cache.dtype)
+            return cache
+        t = cache.shape[1]
+        own = ((write_index >= 0) & (write_index < t)).reshape((-1,) + (1,) * (new.dim() - 1))
+        slot = write_index.clamp(0, t - 1).long()
+        cache[bidx, slot] = torch.where(own, new.to(cache.dtype), cache[bidx, slot])
         return cache
     if mode != "onehot":
         raise ValueError(f"unknown cache_update mode {mode!r}")
@@ -105,20 +126,37 @@ def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
     return positions[None].expand((3,) + tuple(positions.shape))
 
 
-def _rope_qk(q, k, positions, theta, mrope_sections, mrope_positions):
-    """RoPE of q and k, or M-RoPE where ``mrope_sections`` is given (with
+def _rope(x, positions, theta, mrope_sections, mrope_positions):
+    """RoPE of x, or M-RoPE where ``mrope_sections`` is given (with
     ``mrope_positions`` (3, B, S), or the text positions of ``positions``)."""
     if mrope_sections is None:
-        return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+        return apply_rope(x, positions, theta)
     pos3 = mrope_positions if mrope_positions is not None else text_mrope_positions(positions)
-    return (apply_mrope(q, pos3, theta, mrope_sections),
-            apply_mrope(k, pos3, theta, mrope_sections))
+    return apply_mrope(x, pos3, theta, mrope_sections)
+
+
+def _rope_qk(q, k, positions, theta, mrope_sections, mrope_positions):
+    """:func:`_rope` of q and of k."""
+    return (_rope(q, positions, theta, mrope_sections, mrope_positions),
+            _rope(k, positions, theta, mrope_sections, mrope_positions))
 
 
 # -- feed-forward --------------------------------------------------------------------
-def swiglu(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    gate = F.silu(x @ p["wg"])
-    return (gate * (x @ p["wu"])) @ p["wd"]
+def swiglu(x: torch.Tensor, p: Mapping[str, torch.Tensor], mesh=None) -> torch.Tensor:
+    """SwiGLU; with a mesh over this rank's block of d_ff (``wg``/``wu``
+    column-parallel, ``wd`` row-parallel, one ``model_sum``) where the
+    weights are stored so, else through :func:`sharding.linear`."""
+    if mesh is None:
+        gate = F.silu(x @ p["wg"])
+        return (gate * (x @ p["wu"])) @ p["wd"]
+    dims = [sharding.model_dim(p, k, mesh) for k in ("wg", "wu", "wd")]
+    if dims == [1, 1, 0]:
+        xin = sharding.model_enter(x, mesh)
+        gate = F.silu(xin @ sharding.model_block(p, "wg", 1, mesh))
+        return sharding.model_sum((gate * (xin @ sharding.model_block(p, "wu", 1, mesh)))
+                                  @ sharding.model_block(p, "wd", 0, mesh), mesh)
+    gate = F.silu(sharding.linear(x, p, "wg", mesh))
+    return sharding.linear(gate * sharding.linear(x, p, "wu", mesh), p, "wd", mesh)
 
 
 # -- attention ------------------------------------------------------------------------
@@ -136,20 +174,89 @@ def gqa_attention(
     mrope_sections: Optional[Sequence[int]] = None,
     mrope_positions: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence GQA attention (prefill).  x: (B, S, D); positions:
     (B, S) absolute positions; with ``mrope_sections``, M-RoPE over
     ``mrope_positions`` (3, B, S) (default: the text positions).  Returns
     (output (B, S, D), (k, v)), k/v (B, S, KH, hd) after RoPE, so a caller
-    can seed a KV cache from them."""
+    can seed a KV cache from them.  With a mesh whose ``model`` splits the
+    heads (:func:`sharding.heads_split`) attention runs over this rank's
+    query heads and the K/V heads they read (:func:`sharding.kv_heads`),
+    and k/v are those heads."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    if mesh is not None and sharding.heads_split(p, mesh, n_heads):
+        hl = n_heads // sharding.model_rank(mesh)[1]
+        lo, hi, per_q = sharding.kv_heads(n_heads, n_kv_heads, mesh)
+        xin = sharding.model_enter(x, mesh)
+        q = (xin @ sharding.model_block(p, "wq", 1, mesh)).reshape(b, s, hl, head_dim)
+        k, v = (xin @ sharding.kv_weight(p, key, mesh, n_heads, n_kv_heads, head_dim)
+                for key in ("wk", "wv"))
+        k, v = k.reshape(b, s, hi - lo, head_dim), v.reshape(b, s, hi - lo, head_dim)
+        q, k = _rope_qk(q, k, positions, theta, mrope_sections, mrope_positions)
+        ka, va = (k, v) if per_q is None else (k[:, :, per_q], v[:, :, per_q])
+        out = kops.flash_attention(q, ka, va, causal=causal, window=window, impl=impl)
+        wo = sharding.model_block(p, "wo", 0, mesh)
+        return sharding.model_sum(out.reshape(b, s, hl * head_dim) @ wo, mesh), (k, v)
+    q = sharding.linear(x, p, "wq", mesh).reshape(b, s, n_heads, head_dim)
+    k = sharding.linear(x, p, "wk", mesh).reshape(b, s, n_kv_heads, head_dim)
+    v = sharding.linear(x, p, "wv", mesh).reshape(b, s, n_kv_heads, head_dim)
     q, k = _rope_qk(q, k, positions, theta, mrope_sections, mrope_positions)
     out = kops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
-    out = out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    out = sharding.linear(out.reshape(b, s, n_heads * head_dim), p, "wo", mesh)
     return out, (k, v)
+
+
+def t_split_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+    slot_offset: int,
+    mesh,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Decode attention of q (B, H, D) over a cache split along T over
+    ``model``: ``k_cache``/``v_cache`` (B, T_loc, KH, D) are this rank's
+    slots from ``slot_offset``, of which clamp(cache_len − offset, 0,
+    T_loc) are valid.  This rank's (m, l, acc) (``decode_attention_partials``)
+    are gathered over ``model`` in rank order, and every rank combines
+    them alike (``combine_partials``): (B, H, D) in q's dtype, the same
+    bits on every rank."""
+    t_loc = k_cache.shape[1]
+    local_len = (cache_len - slot_offset).clamp(0, t_loc).to(torch.int32)
+    m, l, acc = kops.decode_attention_partials(q, k_cache, v_cache, local_len, impl=impl)
+    parts = sharding.model_gather(torch.cat([m[..., None], l[..., None], acc], dim=-1)[None],
+                                  mesh, 0)
+    return kops.combine_partials(parts[..., 0], parts[..., 1], parts[..., 2:], q.dtype, impl=impl)
+
+
+def _attend_cache(x, p, k_cache, v_cache, cache_len, rope_q, *, n_heads, n_kv_heads, head_dim,
+                  impl, mesh, slot_offset):
+    """One token's queries from x (B, D) (``rope_q`` on (B, 1, heads, hd))
+    attended over a cache, and the output projection: (B, D).  With a mesh
+    and a cache split along T (``slot_offset``), every head over this
+    rank's slots (:func:`t_split_decode_attention`); with a whole cache,
+    this rank's query heads where ``model`` splits them."""
+    b = x.shape[0]
+    if mesh is not None and slot_offset is None and sharding.heads_split(p, mesh, n_heads):
+        hl = n_heads // sharding.model_rank(mesh)[1]
+        lo, hi, per_q = sharding.kv_heads(n_heads, n_kv_heads, mesh)
+        wq, wo = sharding.model_block(p, "wq", 1, mesh), sharding.model_block(p, "wo", 0, mesh)
+        q = (sharding.model_enter(x, mesh) @ wq).reshape(b, 1, hl, head_dim)
+        kc, vc = k_cache[:, :, lo:hi], v_cache[:, :, lo:hi]
+        if per_q is not None:
+            kc, vc = kc[:, :, per_q], vc[:, :, per_q]
+        out = kops.decode_attention(rope_q(q)[:, 0].contiguous(), kc.contiguous(),
+                                    vc.contiguous(), cache_len, impl=impl)
+        return sharding.model_sum(out.reshape(b, hl * head_dim) @ wo, mesh)
+    q = sharding.linear(x, p, "wq", mesh).reshape(b, 1, n_heads, head_dim)
+    q = rope_q(q)[:, 0].contiguous()
+    if slot_offset is None:
+        out = kops.decode_attention(q, k_cache, v_cache, cache_len, impl=impl)
+    else:
+        out = t_split_decode_attention(q, k_cache, v_cache, cache_len, slot_offset, mesh, impl)
+    return sharding.linear(out.reshape(b, n_heads * head_dim), p, "wo", mesh)
 
 
 def gqa_decode_attention(
@@ -168,24 +275,51 @@ def gqa_decode_attention(
     mrope_sections: Optional[Sequence[int]] = None,
     impl: str = "auto",
     cache_update: str = "scatter",
+    mesh=None,
+    slot_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode.  x: (B, D); position: (B,) absolute positions
     (with ``mrope_sections``, M-RoPE over the text positions); caches
     (B, T, KH, hd), written in place at ``write_index`` (ring-buffer slots
     for sliding windows; == position for full caches).
-    Returns (output (B, D), (k_cache, v_cache))."""
+    Returns (output (B, D), (k_cache, v_cache)).  With a mesh the new
+    token's K/V are whole on every rank; ``slot_offset``: the caches are
+    this rank's slice of caches split along T over ``model``, from that
+    slot (each rank writes the token only where it owns the slot)."""
     b = x.shape[0]
-    q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, 1, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, 1, n_kv_heads, head_dim)
-    q, k = _rope_qk(q, k, position[:, None], theta, mrope_sections, None)
-    cache_write(k_cache, k[:, 0], write_index, cache_update)
-    cache_write(v_cache, v[:, 0], write_index, cache_update)
-    out = kops.decode_attention(
-        q[:, 0].contiguous(), k_cache, v_cache, cache_len, impl=impl
-    )
-    out = out.reshape(b, n_heads * head_dim) @ p["wo"]
+    pos = position[:, None]
+    k = sharding.linear(x, p, "wk", mesh).reshape(b, 1, n_kv_heads, head_dim)
+    v = sharding.linear(x, p, "wv", mesh).reshape(b, 1, n_kv_heads, head_dim)
+    k = _rope(k, pos, theta, mrope_sections, None)
+    cache_write(k_cache, k[:, 0], write_index, cache_update, slot_offset)
+    cache_write(v_cache, v[:, 0], write_index, cache_update, slot_offset)
+    out = _attend_cache(x, p, k_cache, v_cache, cache_len,
+                        lambda q: _rope(q, pos, theta, mrope_sections, None), n_heads=n_heads,
+                        n_kv_heads=n_kv_heads, head_dim=head_dim, impl=impl, mesh=mesh,
+                        slot_offset=slot_offset)
     return out, (k_cache, v_cache)
+
+
+def cross_decode_attention(
+    x: torch.Tensor,
+    p: Mapping[str, torch.Tensor],
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    impl: str = "auto",
+    mesh=None,
+    slot_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """One token's cross-attention over the encoder's K/V cache (B, T_enc,
+    KH, hd), no RoPE: (B, D).  ``mesh`` and ``slot_offset`` as
+    :func:`gqa_decode_attention` takes them."""
+    return _attend_cache(x, p, k_cache, v_cache, cache_len, lambda q: q, n_heads=n_heads,
+                         n_kv_heads=n_kv_heads, head_dim=head_dim, impl=impl, mesh=mesh,
+                         slot_offset=slot_offset)
 
 
 def cross_attention(
@@ -197,13 +331,22 @@ def cross_attention(
     n_heads: int,
     head_dim: int,
     impl: str = "auto",
+    mesh=None,
 ) -> torch.Tensor:
     """Encoder-decoder cross attention (Whisper), bidirectional.  x:
-    (B, S, D); enc_k/enc_v: the projected encoder states (B, T_enc, KH, hd)."""
+    (B, S, D); enc_k/enc_v: the projected encoder states (B, T_enc, KH, hd)
+    (with a mesh, :func:`project_cross_kv`'s: this rank's heads where
+    ``model`` splits them)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    if mesh is not None and sharding.heads_split(p, mesh, n_heads):
+        hl = n_heads // sharding.model_rank(mesh)[1]
+        wq, wo = sharding.model_block(p, "wq", 1, mesh), sharding.model_block(p, "wo", 0, mesh)
+        q = (sharding.model_enter(x, mesh) @ wq).reshape(b, s, hl, head_dim)
+        out = kops.flash_attention(q, enc_k, enc_v, causal=False, impl=impl)
+        return sharding.model_sum(out.reshape(b, s, hl * head_dim) @ wo, mesh)
+    q = sharding.linear(x, p, "wq", mesh).reshape(b, s, n_heads, head_dim)
     out = kops.flash_attention(q, enc_k, enc_v, causal=False, impl=impl)
-    return out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return sharding.linear(out.reshape(b, s, n_heads * head_dim), p, "wo", mesh)
 
 
 def project_cross_kv(
@@ -212,9 +355,20 @@ def project_cross_kv(
     *,
     n_kv_heads: int,
     head_dim: int,
+    n_heads: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The encoder output (B, T, D) → cross-attention k, v (B, T, KH, hd)."""
+    """The encoder output (B, T, D) → cross-attention k, v (B, T, KH, hd).
+    With a mesh whose ``model`` splits the ``n_heads`` query heads, the
+    K/V heads this rank's query heads read (:func:`sharding.kv_heads`,
+    expanded to one a query head where they do not group evenly)."""
     b, t, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(b, t, n_kv_heads, head_dim)
-    v = (enc_out @ p["wv"]).reshape(b, t, n_kv_heads, head_dim)
+    if mesh is not None and sharding.heads_split(p, mesh, n_heads):
+        lo, hi, per_q = sharding.kv_heads(n_heads, n_kv_heads, mesh)
+        ein = sharding.model_enter(enc_out, mesh)
+        k, v = ((ein @ sharding.kv_weight(p, key, mesh, n_heads, n_kv_heads, head_dim))
+                .reshape(b, t, hi - lo, head_dim) for key in ("wk", "wv"))
+        return (k, v) if per_q is None else (k[:, :, per_q], v[:, :, per_q])
+    k = sharding.linear(enc_out, p, "wk", mesh).reshape(b, t, n_kv_heads, head_dim)
+    v = sharding.linear(enc_out, p, "wv", mesh).reshape(b, t, n_kv_heads, head_dim)
     return k, v

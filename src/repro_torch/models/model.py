@@ -20,6 +20,15 @@ decoder with cross-attention).
   supports sliding-window ring buffers; it updates the cache in place.
   Attention, cross-attention over the encoder cache included, goes through
   ``kops.decode_attention``.
+* With a ``mesh`` the attention and SwiGLU layers are tensor parallel over
+  ``model`` (:mod:`repro_torch.models.layers`), the embedding looks up
+  only the rows a rank owns and the head is column-parallel over the
+  vocabulary (:func:`sharding.embed_rows`, :func:`sharding.head_logits`),
+  and the loss is vocabulary-parallel (:func:`sharding.vocab_nll`); the
+  logits that ``forward`` and ``decode_step`` return are gathered over
+  ``model`` once, at the end.  The SSM layers and the MoE FFN's ``sorted``
+  and ``scan`` dispatches compute on gathered weights, and ``ep`` splits
+  the experts.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     cross_attention,
+    cross_decode_attention,
     gqa_attention,
     gqa_decode_attention,
     project_cross_kv,
@@ -322,16 +332,16 @@ def _attn_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _dense_block(h, layer, positions, cfg, *, window, impl, mrope_positions=None,
-                 causal=True):
+                 causal=True, mesh=None):
     """Attention (M-RoPE where ``mrope_positions`` is given) and SwiGLU."""
     attn_out, kv = gqa_attention(
         rms_norm(h, layer["ln1"], cfg.norm_eps), layer, positions,
         causal=causal, window=window,
         mrope_sections=cfg.mrope_sections if mrope_positions is not None else None,
-        mrope_positions=mrope_positions, impl=impl, **_attn_kwargs(cfg),
+        mrope_positions=mrope_positions, impl=impl, mesh=mesh, **_attn_kwargs(cfg),
     )
     h = h + attn_out
-    h = h + swiglu(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
+    h = h + swiglu(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["mlp"], mesh)
     return h, kv
 
 
@@ -341,11 +351,11 @@ def _moe_block(h, layer, positions, cfg, *, window, impl, dispatch, mesh=None):
         attn_out, _ = mla_mod.mla_attention(
             x, layer["mla"], positions, n_heads=cfg.n_heads, head_dim=cfg.hd,
             rope_head_dim=cfg.rope_head_dim, theta=cfg.rope_theta,
-            norm_eps=cfg.norm_eps, window=window, impl=impl,
+            norm_eps=cfg.norm_eps, window=window, impl=impl, mesh=mesh,
         )
     else:
         attn_out, _ = gqa_attention(x, layer, positions, causal=True, window=window,
-                                    impl=impl, **_attn_kwargs(cfg))
+                                    impl=impl, mesh=mesh, **_attn_kwargs(cfg))
     h = h + attn_out
     ffn_out, aux = moe_mod.moe_ffn(rms_norm(h, layer["ln2"], cfg.norm_eps), layer["moe"],
                                    top_k=cfg.top_k, dispatch=dispatch, impl=impl, mesh=mesh)
@@ -378,7 +388,7 @@ def _sinusoidal(n: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _encode_audio(params, frames, cfg, *, impl, remat=False):
+def _encode_audio(params, frames, cfg, *, impl, remat=False, mesh=None):
     """Whisper-style encoder over stub frame embeddings (B, T, D): sinusoidal
     positions added, then bidirectional attention layers (with RoPE, as the
     reference's) and the encoder's final norm."""
@@ -387,17 +397,40 @@ def _encode_audio(params, frames, cfg, *, impl, remat=False):
     positions = torch.arange(t, device=h.device)[None, :].expand(bsz, t)
     for layer in params["encoder"].unstack():
         h, _ = _block(_dense_block, remat, h, layer, positions, cfg, window=None,
-                      impl=impl, causal=False)
+                      impl=impl, causal=False, mesh=mesh)
     return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
-def _audio_decoder_block(h, enc, layer, positions, cfg, *, window, impl):
+def _audio_decoder_block(h, enc, layer, positions, cfg, *, window, impl, mesh=None):
     """A dense block, then cross-attention over the encoder's output."""
-    h, _ = _dense_block(h, layer, positions, cfg, window=window, impl=impl)
+    h, _ = _dense_block(h, layer, positions, cfg, window=window, impl=impl, mesh=mesh)
     enc_k, enc_v = project_cross_kv(enc, layer["cross"], n_kv_heads=cfg.n_kv_heads,
-                                    head_dim=cfg.hd)
+                                    head_dim=cfg.hd, n_heads=cfg.n_heads, mesh=mesh)
     return h + cross_attention(rms_norm(h, layer["ln_cross"], cfg.norm_eps), layer["cross"],
-                               enc_k, enc_v, n_heads=cfg.n_heads, head_dim=cfg.hd, impl=impl)
+                               enc_k, enc_v, n_heads=cfg.n_heads, head_dim=cfg.hd, impl=impl,
+                               mesh=mesh)
+
+
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (:func:`_token_rows`); with a mesh,
+    vocabulary-parallel where ``model`` splits the table."""
+    ids = _token_rows(tokens, cfg.vocab)
+    return params["embed"][ids] if mesh is None else sharding.embed_rows(params, ids, mesh)
+
+
+def _head(params, h: torch.Tensor, cfg: ModelConfig, mesh) -> Tuple[torch.Tensor, Optional[int]]:
+    """(logits, lo): the final norm's output times the head; with a mesh
+    that splits the vocabulary, this rank's columns from id ``lo``."""
+    if mesh is None:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return h @ head, None
+    return sharding.head_logits(params, h, cfg.tie_embeddings, mesh)
+
+
+def _whole_logits(logits: torch.Tensor, lo: Optional[int], mesh) -> torch.Tensor:
+    """Logits over the whole vocabulary: gathered over ``model`` where
+    :func:`_head` gave a rank's columns."""
+    return logits if lo is None else sharding.model_gather(logits, mesh, -1)
 
 
 def forward(
@@ -425,12 +458,21 @@ def forward(
     :func:`_block`).  With a ``mesh`` (a ``DeviceMesh``) ``batch`` is this
     rank's rows, and ``params`` may be a
     :class:`~repro_torch.models.sharding.Gathered` view of DTensors; the
-    mesh goes to the MoE layers.  Differentiable: run it under
-    ``torch.no_grad()`` to build no graph."""
+    layers are then tensor parallel over ``model`` (see the module's
+    docstring) and the logits come back whole on every rank.
+    Differentiable: run it under ``torch.no_grad()`` to build no graph."""
+    logits, lo, aux = _forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch,
+                               window=window, remat=remat, mesh=mesh)
+    return _whole_logits(logits, lo, mesh), aux
+
+
+def _forward(params, batch, cfg, *, impl, moe_dispatch, window=None, remat=False, mesh=None):
+    """:func:`forward`'s (logits, lo, aux), the logits as :func:`_head`
+    gives them."""
     at = cfg.arch_type
     tokens = batch["tokens"]
     bsz, s = tokens.shape
-    h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, S, D)
+    h = _embed(params, tokens, cfg, mesh)  # (B, S, D)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(s, device=h.device)[None, :].expand(bsz, s)
     layers = params["layers"].unstack()
@@ -445,7 +487,7 @@ def forward(
                 pos3 = _vision_positions(nv, s, bsz, h.device)
         for layer in layers:
             h, _ = _block(_dense_block, remat, h, layer, positions, cfg, window=window,
-                          impl=impl, mrope_positions=pos3)
+                          impl=impl, mrope_positions=pos3, mesh=mesh)
         if at == "vlm":
             h = h[:, nv:]  # the vision prefix goes before the head
     elif at == "moe":
@@ -458,15 +500,16 @@ def forward(
             h, _ = _block(_ssm_block, remat, h, layer, cfg, impl=impl)
             if at == "hybrid" and (i + 1) % cfg.attn_period == 0:
                 h, _ = _block(_dense_block, remat, h, params["shared_block"], positions, cfg,
-                              window=cfg.sliding_window, impl=impl)
+                              window=cfg.sliding_window, impl=impl, mesh=mesh)
     else:  # audio
-        enc = _encode_audio(params, batch["audio_frames"], cfg, impl=impl, remat=remat)
+        enc = _encode_audio(params, batch["audio_frames"], cfg, impl=impl, remat=remat,
+                            mesh=mesh)
         for layer in layers:
             h = _block(_audio_decoder_block, remat, h, enc, layer, positions, cfg,
-                       window=window, impl=impl)
+                       window=window, impl=impl, mesh=mesh)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head, aux
+    logits, lo = _head(params, h, cfg, mesh)
+    return logits, lo, aux
 
 
 def next_token_loss(
@@ -487,12 +530,17 @@ def next_token_loss(
     ``mesh``, ``batch`` is this rank's rows and the mean is over every
     token of the data axes: each rank's mean weighted by its share of the
     tokens and summed (not a plain mean of the ranks' means); each rank's
-    gradient is its own share."""
-    logits, aux = forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch,
-                          remat=remat, mesh=mesh)
+    gradient is its own share.  Where the mesh's ``model`` splits the
+    vocabulary the negative log-likelihood is vocabulary-parallel
+    (:func:`sharding.vocab_nll`) over each rank's logits."""
+    logits, lo, aux = _forward(params, batch, cfg, impl=impl, moe_dispatch=moe_dispatch,
+                               remat=remat, mesh=mesh)
     targets = batch["tokens"][:, 1:].long()
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if lo is None:
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    else:
+        nll = sharding.vocab_nll(logits[:, :-1], targets, lo, mesh)
     if mesh is None:
         return nll.mean() + aux_weight * aux
     # each rank's mean weighted by its share of the tokens: the global mean,
@@ -578,6 +626,7 @@ def decode_step(
     moe_dispatch: str = "sorted",
     cache_update: str = "scatter",
     mesh=None,
+    slot_offsets: Optional[Mapping[str, int]] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B,) → (logits (B, V), cache).
 
@@ -588,23 +637,35 @@ def decode_step(
     through ``kops.moe_gmm`` with ``impl`` ("auto": the hand-written kernels
     for CUDA tensors, their plain twins for CPU tensors); ``moe_dispatch``
     is "sorted" (the reference's default), "scan" (what serving uses) or
-    "ep" (with a ``mesh``: ``tokens`` and ``cache`` are then this rank's
-    rows, and ``params`` may be a ``Gathered`` view).
+    "ep".  With a ``mesh`` (a ``DeviceMesh``), ``tokens`` and ``cache`` are
+    this rank's rows, ``params`` may be a ``Gathered`` view, and the layers
+    are tensor parallel over ``model``; ``slot_offsets`` maps each
+    attention cache leaf that is split along T over ``model`` (``k``,
+    ``v``, ``shared_k/v``, ``cross_k/v``, ``ckv``, ``krope``) to this
+    rank's first slot, its leaf in ``cache`` being this rank's slice: it is
+    attended by partials combined across the ranks, and each rank writes
+    the new token only where it owns the slot.
     A VLM decodes text positions with M-RoPE, with no offset for a vision
     prefix, as the reference does."""
     at = cfg.arch_type
-    h = params["embed"][_token_rows(tokens, cfg.vocab)]  # (B, D)
+    offsets = slot_offsets or {}
+    h = _embed(params, tokens, cfg, mesh)  # (B, D)
     pos = cache["pos"]
-    kw = dict(impl=impl, cache_update=cache_update, **_attn_kwargs(cfg))
+    kw = dict(impl=impl, cache_update=cache_update, mesh=mesh, **_attn_kwargs(cfg))
     if at in ("dense", "vlm", "moe", "audio"):
         mla = at == "moe" and cfg.use_mla
-        capacity = cache["ckv" if mla else "k"].shape[2]
+        leaf = "ckv" if mla else "k"
+        capacity = cache[leaf].shape[2]
+        if offsets.get(leaf) is not None:
+            capacity *= sharding.model_rank(mesh)[1]
         write_idx, cache_len = _ring(pos, capacity, cfg.sliding_window is not None)
         mrope = cfg.mrope_sections if at == "vlm" and cfg.use_mrope else None
         if at == "audio":
             b = h.shape[0]
-            enc_len = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
-                                 device=h.device)
+            frames = cache["cross_k"].shape[2]
+            if offsets.get("cross_k") is not None:
+                frames *= sharding.model_rank(mesh)[1]
+            enc_len = torch.full((b,), frames, dtype=torch.int32, device=h.device)
         for i in range(cfg.n_layers):
             layer = params["layers"].layer(i)
             x = rms_norm(h, layer["ln1"], cfg.norm_eps)
@@ -613,33 +674,36 @@ def decode_step(
                     x, layer["mla"], pos, cache["ckv"][i], cache["krope"][i], cache_len,
                     write_idx, n_heads=cfg.n_heads, head_dim=cfg.hd,
                     rope_head_dim=cfg.rope_head_dim, theta=cfg.rope_theta,
-                    norm_eps=cfg.norm_eps, impl=impl, cache_update=cache_update,
+                    norm_eps=cfg.norm_eps, impl=impl, cache_update=cache_update, mesh=mesh,
+                    slot_offset=offsets.get("ckv"),
                 )
             else:
                 attn_out, _ = gqa_decode_attention(
                     x, layer, pos, cache["k"][i], cache["v"][i], cache_len, write_idx,
-                    mrope_sections=mrope, **kw,
+                    mrope_sections=mrope, slot_offset=offsets.get("k"), **kw,
                 )
             h = h + attn_out
             if at == "audio":  # cross-attention over the (static) encoder K/V
-                cross = layer["cross"]
-                xq = rms_norm(h, layer["ln_cross"], cfg.norm_eps)
-                q = (xq @ cross["wq"]).reshape(b, cfg.n_heads, cfg.hd)
-                out = kops.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i],
-                                            enc_len, impl=impl)
-                h = h + out.reshape(b, -1) @ cross["wo"]
+                h = h + cross_decode_attention(
+                    rms_norm(h, layer["ln_cross"], cfg.norm_eps), layer["cross"],
+                    cache["cross_k"][i], cache["cross_v"][i], enc_len, n_heads=cfg.n_heads,
+                    n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, impl=impl, mesh=mesh,
+                    slot_offset=offsets.get("cross_k"))
             x2 = rms_norm(h, layer["ln2"], cfg.norm_eps)
             if at == "moe":
                 ffn, _ = moe_mod.moe_ffn(x2[:, None, :], layer["moe"], top_k=cfg.top_k,
                                          dispatch=moe_dispatch, impl=impl, mesh=mesh)
                 h = h + ffn[:, 0]
             else:
-                h = h + swiglu(x2, layer["mlp"])
+                h = h + swiglu(x2, layer["mlp"], mesh)
     else:  # ssm, hybrid
         if at == "hybrid":
             shared = params["shared_block"]
             # the shared block's cache always rings over its window
-            write_idx, cache_len = _ring(pos, cache["shared_k"].shape[2], True)
+            ring = cache["shared_k"].shape[2]
+            if offsets.get("shared_k") is not None:
+                ring *= sharding.model_rank(mesh)[1]
+            write_idx, cache_len = _ring(pos, ring, True)
         for i in range(cfg.n_layers):
             layer = params["layers"].layer(i)
             y, _, _ = ssm_mod.mamba2_decode(
@@ -651,11 +715,12 @@ def decode_step(
                 app = (i + 1) // cfg.attn_period - 1
                 attn_out, _ = gqa_decode_attention(
                     rms_norm(h, shared["ln1"], cfg.norm_eps), shared, pos,
-                    cache["shared_k"][app], cache["shared_v"][app], cache_len, write_idx, **kw,
+                    cache["shared_k"][app], cache["shared_v"][app], cache_len, write_idx,
+                    slot_offset=offsets.get("shared_k"), **kw,
                 )
                 h = h + attn_out
-                h = h + swiglu(rms_norm(h, shared["ln2"], cfg.norm_eps), shared["mlp"])
+                h = h + swiglu(rms_norm(h, shared["ln2"], cfg.norm_eps), shared["mlp"], mesh)
     pos.add_(1)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head, cache
+    logits, lo = _head(params, h, cfg, mesh)
+    return _whole_logits(logits, lo, mesh), cache

@@ -23,13 +23,29 @@ Storage and compute, which the reference leaves to GSPMD:
   ``ParamTree``: each leaf is all-gathered when it is used, and its
   gradient goes back to the leaf's own placements (a reduce-scatter over
   the data axes), so a step over it is ZeRO-3 over the mesh;
-* :func:`data_sum`, :func:`model_sum` and :func:`model_enter` are the
-  collectives the steps and the ``ep`` MoE dispatch differentiate through.
+  :meth:`Gathered.block` gathers a leaf over the data axes only and keeps
+  this rank's block over ``model``;
+* :func:`data_sum`, :func:`model_sum`, :func:`model_enter` and
+  :func:`model_gather` are the collectives the steps differentiate
+  through.
+
+Tensor-parallel compute over ``model`` follows the storage: a weight
+stored with its output dim over ``model`` is column-parallel (the
+replicated activation enters through :func:`model_enter`, each rank
+computes its columns), one stored with its input dim over ``model`` is
+row-parallel (each rank's partial product, one :func:`model_sum`), and
+one that ``model`` does not divide is used whole.  :func:`model_dim`
+reads which, :func:`linear` is a product from a replicated activation to
+a replicated one under any of the three, :func:`embed_rows`,
+:func:`head_logits` and :func:`vocab_nll` are the vocabulary-parallel
+embedding, head and loss, and :func:`kv_heads` picks the K/V heads that
+a rank's query heads read.
 
 Gradients follow one convention.  Over the data axes each rank back-
 propagates its own share of the loss (its rows of the batch), and the
-shares are summed into the parameters' gradients; over ``model`` every
-rank computes the same replicated function, and holds the whole gradient.
+shares are summed into the parameters' gradients; over ``model`` a
+replicated activation holds the whole gradient on every rank, and a
+block of a weight the gradient of its block.
 """
 
 from __future__ import annotations
@@ -138,12 +154,18 @@ def _param_rule(mesh, names: Sequence[str], shape, serve: bool) -> P:
     return P(*([None] * ndim))  # conv_w and anything else: replicated
 
 
+#: The attention caches: (L, B, T, KH, hd) K/V and (L, B, T, latent) MLA
+#: latents, their T over ``model``.
+KV_CACHES = ("k", "v", "shared_k", "shared_v", "cross_k", "cross_v")
+ATTENTION_CACHES = KV_CACHES + ("ckv", "krope")
+
+
 def _cache_rule(mesh, name: str, shape) -> P:
     dp = data_axes(mesh)
     ndim = len(shape)
     if name == "pos":
         return P(_fit(mesh, shape[0], dp))
-    if ndim >= 4 and name in ("k", "v", "shared_k", "shared_v", "cross_k", "cross_v"):
+    if ndim >= 4 and name in KV_CACHES:
         # (L, B, T, KH, hd): batch over data, the cache's sequence over TP
         return P(None, _fit(mesh, shape[1], dp), _fit(mesh, shape[2], TP_AXIS),
                  *([None] * (ndim - 3)))
@@ -274,7 +296,7 @@ class _SumOver(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, groups):
-        y = x.clone()
+        y = x.clone(memory_format=torch.contiguous_format)  # NCCL takes contiguous tensors
         for g in groups:
             dist.all_reduce(y, group=g)
         return y
@@ -294,7 +316,7 @@ class _CopyIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
+        grad = grad.clone(memory_format=torch.contiguous_format)
         for g in ctx.groups:
             dist.all_reduce(grad, group=g)
         return grad, None
@@ -311,22 +333,75 @@ def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
     return data_sum(x, mesh) / _axis_size(mesh, data_axes(mesh))
 
 
+def _one_model_rank(mesh) -> bool:
+    """Whether ``model`` has one rank: its collectives are then the
+    identity, and the helpers below skip them (no call to the group)."""
+    return mesh_sizes(mesh)[TP_AXIS] == 1
+
+
 def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """Partial results summed over ``model``: after it every model rank
     holds the same tensor, and the backward hands each rank's partial the
     whole (replicated) gradient."""
+    if _one_model_rank(mesh):
+        return x
     return _SumOver.apply(x, _groups(mesh, (TP_AXIS,)))
 
 
 def model_enter(x: torch.Tensor, mesh) -> torch.Tensor:
     """A replicated tensor entering work split over ``model``: the
     identity, whose backward sums the ranks' partial gradients."""
+    if _one_model_rank(mesh):
+        return x
     return _CopyIn.apply(x, _groups(mesh, (TP_AXIS,)))
 
 
 def model_rank(mesh) -> Tuple[int, int]:
     """(this rank's index on ``model``, the axis's size)."""
     return mesh.get_local_rank(TP_AXIS), mesh_sizes(mesh)[TP_AXIS]
+
+
+#: One all-gather into a tensor (``all_gather_into_tensor`` where a build
+#: has no ``all_gather_single``).
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+class _GatherOver(torch.autograd.Function):
+    """``all_gather`` over ``group`` along ``dim``, in rank order; the
+    backward takes this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        ctx.n, ctx.r, ctx.dim = n, r, dim
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather(out, x.contiguous(), group=group)
+        if dim == 0:
+            return out
+        shape = list(x.shape)
+        shape[dim] *= n
+        return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.n, ctx.dim)[ctx.r], None, None
+
+
+def model_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every ``model`` rank's ``x`` concatenated along ``dim`` in rank
+    order, the same on every rank; the backward takes this rank's slice."""
+    if _one_model_rank(mesh):
+        return x
+    return _GatherOver.apply(x, mesh.get_group(TP_AXIS), dim % x.dim())
+
+
+def model_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``model``, detached."""
+    if _one_model_rank(mesh):
+        return x.detach()
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.get_group(TP_AXIS))
+    return y
 
 
 class Gathered:
@@ -355,13 +430,22 @@ class Gathered:
         full = val.redistribute(self._mesh, [Replicate()] * len(self._grad))
         return full.to_local(grad_placements=self._grad)
 
+    def whole(self, key: str) -> torch.Tensor:
+        """Leaf ``key`` gathered whole, for work split over ``model`` that
+        reads more than this rank's block (the K/V heads of its query
+        heads): its gradient is each rank's partial, summed back into the
+        storage over every axis."""
+        val = self._tree[key]
+        full = val.redistribute(self._mesh, [Replicate()] * len(self._grad))
+        return full.to_local(grad_placements=[Partial()] * len(self._grad))
+
     def __contains__(self, key: str) -> bool:
         return key in dict(self._tree.items())
 
     def block(self, key: str, dim: int) -> torch.Tensor:
         """This rank's block of leaf ``key`` along ``dim`` over ``model``,
-        whole over the data axes (the ``ep`` dispatch's expert bank and
-        shared-expert slice); its gradient stays this rank's."""
+        whole over the data axes (a tensor-parallel weight's block, the
+        ``ep`` dispatch's expert bank); its gradient stays this rank's."""
         val = self._tree[key]
         names = self._mesh.mesh_dim_names
         want = [Shard(dim) if n == TP_AXIS else Replicate() for n in names]
@@ -430,6 +514,132 @@ def model_block(p, key: str, dim: int, mesh) -> torch.Tensor:
     if isinstance(p, Gathered):
         return p.block(key, dim)
     return p[key].chunk(n, dim)[m]
+
+
+def model_dim(p, key: str, mesh) -> Optional[int]:
+    """The dim of leaf ``key`` that is stored over ``model``, or None: a
+    :class:`Gathered` view's DTensor placement, a plain mapping's
+    :func:`param_pspecs` rule (the training layout; every rank holds the
+    whole tensor)."""
+    if isinstance(p, Gathered):
+        place = p._tree[key].placements[list(mesh.mesh_dim_names).index(TP_AXIS)]
+        return place.dim if isinstance(place, Shard) else None
+    spec = _param_rule(mesh, (key,), tuple(p[key].shape), False)
+    for i, entry in enumerate(spec):
+        if entry == TP_AXIS or (isinstance(entry, tuple) and TP_AXIS in entry):
+            return i
+    return None
+
+
+def whole(p, key: str, mesh) -> torch.Tensor:
+    """``p[key]`` whole on every rank, its gradient each rank's partial
+    (:meth:`Gathered.whole`)."""
+    return p.whole(key) if isinstance(p, Gathered) else p[key]
+
+
+def linear(x: torch.Tensor, p, key: str, mesh=None) -> torch.Tensor:
+    """``x @ p[key]`` (no mesh: as it is).  With a mesh, for an ``x``
+    replicated over ``model``, replicated out, split as the weight is
+    stored: over its output dim each rank computes its columns and
+    :func:`model_gather` joins them; over its input dim each rank
+    multiplies its block of x's features and :func:`model_sum` adds the
+    partials; whole where ``model`` does not split it.  No weight is
+    gathered over ``model``."""
+    if mesh is None:
+        return x @ p[key]
+    where = model_dim(p, key, mesh)
+    if where == 1:
+        return model_gather(model_enter(x, mesh) @ model_block(p, key, 1, mesh), mesh, -1)
+    if where == 0:
+        m, _ = model_rank(mesh)
+        w = model_block(p, key, 0, mesh)
+        k = w.shape[0]
+        return model_sum(model_enter(x, mesh)[..., m * k:(m + 1) * k] @ w, mesh)
+    return x @ p[key]
+
+
+def heads_split(p, mesh, n_heads: int, q: str = "wq", o: str = "wo") -> bool:
+    """Whether attention runs over this rank's ``n_heads / |model|`` query
+    heads: the query projection ``q`` stored column-parallel and the
+    output ``o`` row-parallel, both on whole heads."""
+    _, n = model_rank(mesh)
+    return n_heads % n == 0 and model_dim(p, q, mesh) == 1 and model_dim(p, o, mesh) == 0
+
+
+def kv_heads(n_heads: int, n_kv_heads: int, mesh) -> Tuple[int, int, Optional[List[int]]]:
+    """(lo, hi, per_q): the K/V heads [lo, hi) that this rank's query
+    heads read (head h reads h // (n_heads / n_kv_heads)).  ``per_q`` is
+    None where local query head i reads K/V head lo + i // (its group), as
+    attention groups them; else each local query head's K/V head, from lo
+    (the K/V heads are then expanded to one a query head)."""
+    m, n = model_rank(mesh)
+    hl, g = n_heads // n, n_heads // n_kv_heads
+    reads = [(m * hl + i) // g for i in range(hl)]
+    lo, hi = reads[0], reads[-1] + 1
+    grouped = hl % (hi - lo) == 0 and all(r - lo == i // (hl // (hi - lo))
+                                          for i, r in enumerate(reads))
+    return lo, hi, None if grouped else [r - lo for r in reads]
+
+
+def kv_weight(p, key: str, mesh, n_heads: int, n_kv_heads: int, head_dim: int) -> torch.Tensor:
+    """The columns of the K or V projection ``p[key]`` (D, KH·hd) that this
+    rank's query heads read (:func:`kv_heads`): its block where ``model``
+    splits the K/V heads evenly, else the weight gathered whole and
+    sliced to those heads (``model`` would cut it through a head)."""
+    _, n = model_rank(mesh)
+    if n_kv_heads % n == 0 and model_dim(p, key, mesh) == 1:
+        return model_block(p, key, 1, mesh)
+    lo, hi, _ = kv_heads(n_heads, n_kv_heads, mesh)
+    return whole(p, key, mesh)[:, lo * head_dim:hi * head_dim]
+
+
+def embed_rows(p, ids: torch.Tensor, mesh) -> torch.Tensor:
+    """``p["embed"][ids]`` (ids within the table).  Where the vocabulary is
+    stored over ``model`` each rank looks up the rows it owns, gives 0 for
+    the others', and :func:`model_sum` adds the parts."""
+    if model_dim(p, "embed", mesh) != 0:
+        return p["embed"][ids]
+    m, _ = model_rank(mesh)
+    w = model_block(p, "embed", 0, mesh)
+    v = w.shape[0]
+    local = ids - m * v
+    own = (local >= 0) & (local < v)
+    rows = w[local.clamp(0, v - 1)]
+    return model_sum(torch.where(own[..., None], rows, torch.zeros_like(rows)), mesh)
+
+
+def head_logits(p, h: torch.Tensor, tied: bool, mesh) -> Tuple[torch.Tensor, Optional[int]]:
+    """(logits, lo): ``h`` times the head (``lm_head``, or ``embed.T`` where
+    ``tied``).  Where the vocabulary is stored over ``model`` the head is
+    column-parallel: the logits are this rank's columns, from vocabulary
+    id ``lo``; else they are whole and ``lo`` is None."""
+    key, dim = ("embed", 0) if tied else ("lm_head", 1)
+    if model_dim(p, key, mesh) != dim:
+        w = p[key]
+        return h @ (w.T if tied else w), None
+    m, _ = model_rank(mesh)
+    w = model_block(p, key, dim, mesh)
+    return model_enter(h, mesh) @ (w.T if tied else w), m * w.shape[dim]
+
+
+def vocab_nll(logits: torch.Tensor, targets: torch.Tensor, lo: int, mesh) -> torch.Tensor:
+    """-log softmax(logits)[targets] over a vocabulary split over
+    ``model``, in fp32: ``logits`` (..., V_loc) are this rank's columns,
+    from id ``lo``.  The max over ``model`` (detached), the sum of the
+    exponentials over ``model``, and the target's logit from the rank
+    that owns it: ``log_softmax`` over the whole vocabulary (which it is,
+    op for op, at one ``model`` rank)."""
+    x = logits.float()
+    v = x.shape[-1]
+    if model_rank(mesh)[1] == 1:
+        return -torch.gather(torch.log_softmax(x, dim=-1), -1, targets.long()[..., None])[..., 0]
+    top = model_max(x.amax(dim=-1), mesh)
+    total = model_sum(torch.exp(x - top[..., None]).sum(dim=-1), mesh)
+    local = targets.long() - lo
+    own = (local >= 0) & (local < v)
+    picked = torch.gather(x, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    picked = model_sum(torch.where(own, picked, torch.zeros_like(picked)), mesh)
+    return torch.log(total) + top - picked
 
 
 def local_rows(x: torch.Tensor, mesh, spec: Optional[Sequence] = None) -> torch.Tensor:

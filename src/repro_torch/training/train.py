@@ -20,18 +20,23 @@ reference's jitted steps run over its mesh:
   distributes them), batches and tokens under ``batch_pspecs`` (a
   DTensor, or a plain tensor that every rank holds whole, of which each
   rank takes its rows);
-* **compute** gathers each layer's leaves when the layer runs
-  (:class:`~repro_torch.models.sharding.Gathered`), and their gradients go
-  back to the storage placements as a reduce-scatter: ZeRO-3 over the
-  whole mesh, with the batch split over the data axes.  The loss is the
-  mean over every token of the global batch, ``grad_norm`` comes from
+* **compute** is tensor parallel over ``model`` as the weights are
+  stored (:mod:`repro_torch.models.layers`): each layer's leaves are
+  gathered over the data axes when the layer runs, a rank keeps its block
+  over ``model`` (:class:`~repro_torch.models.sharding.Gathered`), and
+  the gradients go back to the storage placements as a reduce-scatter
+  over the data axes: ZeRO-3 over the data axes, the batch split over
+  them.  The loss is the mean over every token of the global batch,
+  vocabulary-parallel over ``model``; ``grad_norm`` comes from
   all-reduced sums of squares, and AdamW updates each rank's shards.
 
-Tensor-parallel compute is not here: every rank of ``model`` runs its
-rows' whole forward (only the ``ep`` MoE dispatch splits work over
-``model``), and a cache whose sequence is split over ``model`` is
-gathered for the step and each rank writes back its own slots.  At world
-size 1 the same redistributions and collectives run.
+A serve step attends over the attention caches where they lie: a leaf
+split along T over ``model`` by the partials of each rank's slots,
+combined across the ranks, and each rank writes the new token only into
+its own slots; the SSM caches are gathered for the step and each rank
+writes back its part.  The SSM layers and the MoE FFN's ``sorted`` and
+``scan`` dispatches compute on gathered weights.  At world size 1 the
+same redistributions and collectives run.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import Device, mesh_device, resolve_device
 from repro_torch.models import sharding
@@ -229,6 +234,16 @@ def _model_gathered(cache_leaf: DTensor, mesh):
             for n, p in zip(mesh.mesh_dim_names, cache_leaf.placements)]
 
 
+def _slot_offset(cache_leaf: DTensor, mesh) -> Optional[int]:
+    """This rank's first slot of an attention cache leaf (L, B, T, ...)
+    split along T over ``model`` (of more than one rank), else None."""
+    m, n = sharding.model_rank(mesh)
+    place = cache_leaf.placements[list(mesh.mesh_dim_names).index(sharding.TP_AXIS)]
+    if n == 1 or place != Shard(2):
+        return None
+    return m * cache_leaf.to_local().shape[2]
+
+
 def make_serve_step(
     cfg: ModelConfig,
     *,
@@ -246,10 +261,16 @@ def make_serve_step(
 
     With a ``mesh``: the params are DTensors under ``param_pspecs`` (its
     ``serve=serve_layout`` layout) and the cache under ``cache_pspecs``;
-    ``tokens`` is (B,), a DTensor or whole on every rank.  Each step
-    gathers the cache's split dims but the batch for the step, and every
-    rank writes back its own part; the logits come back as a DTensor, its
-    rows over the data axes."""
+    ``tokens`` is (B,), a DTensor or whole on every rank.  The step is
+    tensor parallel over ``model`` as the weights are stored: in the
+    serve layout every weight's contraction dim lies over ``model``, each
+    rank multiplies its block of the activation's features by its block
+    of the weight and ``model_sum`` adds the partials, so no weight is
+    gathered over ``model``.  The attention caches stay where they lie
+    (a leaf split along T is attended by partials, see
+    :func:`repro_torch.models.decode_step`); the SSM caches are gathered
+    over ``model`` for the step and each rank writes back its own part.
+    The logits come back as a DTensor, its rows over the data axes."""
     dev = _device(mesh, device)
 
     def step(params: ParamTree, cache: Dict[str, torch.Tensor], tokens: torch.Tensor):
@@ -261,13 +282,17 @@ def make_serve_step(
                                                                    serve=serve_layout), "param")
         sharding.check_sharded(cache, mesh, sharding.cache_pspecs(mesh, cache), "cache")
         local, split = _local_batch({"tokens": tokens}, mesh, dev, split=False)
-        gathered = {k: _model_gathered(v, mesh) for k, v in cache.items()}
-        work = {k: v.redistribute(mesh, gathered[k]).to_local() for k, v in cache.items()}
+        gathered = {k: _model_gathered(v, mesh) for k, v in cache.items()
+                    if k not in sharding.ATTENTION_CACHES}
+        work = {k: v.redistribute(mesh, gathered[k]).to_local() if k in gathered
+                else v.to_local() for k, v in cache.items()}
+        offsets = {k: _slot_offset(v, mesh) for k, v in cache.items() if k in sharding.ATTENTION_CACHES}
         logits, _ = decode_step(sharding.Gathered(params, mesh), work, local["tokens"], cfg,
-                                impl=impl,
-                                moe_dispatch=moe_dispatch, cache_update=cache_update, mesh=mesh)
-        for k, v in cache.items():  # each rank's own slots, from the gathered copy
-            back = DTensor.from_local(work[k], mesh, gathered[k], run_check=False)
+                                impl=impl, moe_dispatch=moe_dispatch, cache_update=cache_update,
+                                mesh=mesh, slot_offsets=offsets)
+        for k, places in gathered.items():  # each rank's own part, from the gathered copy
+            v = cache[k]
+            back = DTensor.from_local(work[k], mesh, places, run_check=False)
             v.to_local().copy_(back.redistribute(mesh, v.placements).to_local())
         return _rows_out(logits, mesh, split), cache
 

@@ -1187,6 +1187,83 @@ def test_decode_takes_an_offset_view_on_card(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,d,t,ns", [
+    (2, 32, 8, 128, 4096, (1, 2, 4, 16)),   # NeMo's heads
+    (2, 48, 1, 128, 4160, (2, 16)),         # granite's MQA; T_loc 260 and 2,080: partial tiles
+    (2, 16, 16, 64, 1500, (2, 4)),          # whisper's 1,500 encoder frames
+    (2, 16, 16, 192, 320, (4,)),            # MLA's hd + rope dim, T_loc 80
+])
+def test_decode_partials_and_combine_match_the_whole_kernel_on_card(card, b, h, kh, d, t, ns,
+                                                                     dtype):
+    """A cache cut along T into n slices, as a (1, n) mesh's ranks hold it:
+    each slice through ``decode_attention_partials`` (its local length),
+    then ``combine_partials`` in slice order, against the whole kernel
+    and the plain path; the kernel's partials against the plain
+    partials' combine (m in the natural log domain); a row with five slots
+    (every slice but the first empty for it) and one with none; in the
+    second length case the second half of the cache is empty, so the last
+    slice holds no slot of any row: m = -inf, l = 0 and acc = 0."""
+    gen = torch.Generator(device=card).manual_seed(t + h + d)
+    q = torch.randn(b, h, d, generator=gen, device=card, dtype=dtype)
+    k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
+    v = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
+    for lens in ([t, 5], [t // 2 - 3, 0]):
+        n_t = torch.tensor(lens, dtype=torch.int32, device=card)
+        whole = da.decode_attention(q, k, v, n_t).float()
+        plain = da.decode_attention_plain(q, k, v, n_t).float()
+        for n in ns:
+            t_loc = t // n
+            before = (da.partials_launches, da.combine_launches)
+            parts = [da.decode_attention_partials(
+                q, k[:, r * t_loc:(r + 1) * t_loc].contiguous(),
+                v[:, r * t_loc:(r + 1) * t_loc].contiguous(),
+                (n_t - r * t_loc).clamp(0, t_loc).to(torch.int32)) for r in range(n)]
+            m, l, acc = (torch.stack(x) for x in zip(*parts))
+            got = da.combine_partials(m, l, acc, dtype)
+            torch.cuda.synchronize()
+            assert (da.partials_launches, da.combine_launches) == (before[0] + n, before[1] + 1)
+            assert got.dtype == dtype
+            got = got.float()
+            assert decode_close(got, whole, dtype), (n, float((got - whole).abs().max()))
+            assert decode_close(got, plain, dtype), (n, float((got - plain).abs().max()))
+            by_plain = da.combine_partials_plain(m, l, acc, torch.float32)
+            assert decode_close(by_plain, plain, dtype)
+            if lens[1] == 0:
+                assert not got[1].any()
+                if n > 1:
+                    assert bool(torch.isinf(m[-1]).all()) and not l[-1].any() and not acc[-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_partials_take_an_offset_view_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(4)
+    b, h, kh, d, t = 2, 32, 8, 128, 300
+    q = torch.randn(b, h, d, device=card, generator=g).to(dtype)
+    k = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
+    v = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
+    lens = torch.tensor([300, 123], dtype=torch.int32, device=card)
+    got = da.decode_attention_partials(offset_on_card(q), offset_on_card(k), v, lens)
+    want = da.decode_attention_partials(q, k, v, lens)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    parts = [x[None].expand((3,) + x.shape) for x in want]  # strided: copied before the launch
+    assert torch.equal(da.combine_partials(*parts, dtype),
+                       da.combine_partials(*(x.contiguous() for x in parts), dtype))
+    torch.cuda.synchronize()
+
+
+def test_decode_partials_raise_where_the_split_body_cannot_take_the_shape(card):
+    q = torch.randn(1, 80, 64, device=card)  # 80 query rows a KV head: over fp32's 64
+    k = torch.randn(1, 100, 1, 64, device=card)
+    with pytest.raises(ValueError, match="split body"):
+        da.decode_attention_partials(q, k, k, torch.tensor([100], dtype=torch.int32, device=card))
+    with pytest.raises(TypeError, match="fp32 partials"):
+        m = torch.zeros(2, 1, 4, device=card, dtype=torch.bfloat16)
+        da.combine_partials(m, m, m[..., None], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_takes_an_offset_view_on_card(card, dtype):
     g = torch.Generator(device=card).manual_seed(3)
     bs, t, h, p, n, chunk = 2, 300, 4, 64, 128, 128  # test_ssd_kernel_matches_plain_on_card's

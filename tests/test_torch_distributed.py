@@ -1,13 +1,15 @@
 """The port's multi-rank paths on the CPU: one 2-process gloo group runs
 ``tools/mesh_ranks.py`` (the sharded train, serve and prefill steps on
-(2, 1) and (1, 2) ``("data", "model")`` meshes, each held by the ranks
-to their own mesh-less step; ``ep`` and its gradients on (1, 2); the SST
-all-gather on (2, 1)).  Held here against the single-process step (train
-at 1e-5 in fp32, serve token for token), the reference's ``ep`` on a
-(1, 2) mesh of two host devices (run once in a subprocess: 2e-5, aux at
-rtol 1e-5, as ``tests/test_perf_variants.py`` holds ``ep``), and the
-concatenated rows, bit for bit, and the reference's
-``make_sst_allgather`` on one device."""
+(2, 1) and (1, 2) ``("data", "model")`` meshes, tensor parallel over
+``model``, each held by the ranks to their own mesh-less step; ``ep`` and
+its gradients on (1, 2); the vocabulary-parallel embedding and loss on
+(1, 2); the reference's dense, MLA and audio weights tensor parallel on
+(1, 2); the SST all-gather on (2, 1)).  Held here against the
+single-process step (train at 1e-5 in fp32, serve token for token), the
+reference's ``ep`` and its jitted GSPMD prefill on a (1, 2) mesh of two
+host devices (run once in a subprocess: 2e-5, aux at rtol 1e-5, as
+``tests/test_perf_variants.py`` holds ``ep``), and the concatenated rows,
+bit for bit, and the reference's ``make_sst_allgather`` on one device."""
 
 import json
 import os
@@ -38,27 +40,42 @@ import mesh_ranks as worker  # noqa: E402
 TIMEOUT_S = 240
 
 # the reference's ep on a (1, 2) mesh of two host devices, in its own process
+# and the reference's jitted prefill of each TP case under its param_pspecs
 REF_EP = """
 import sys, numpy as np, jax
 from repro import models as jm
 from repro.models.moe import moe_ffn
+from repro.training.train import make_prefill_step
 d = dict(np.load(sys.argv[1] + "/inputs.npz"))
 cfg = jm.ModelConfig(**%(moe)r)
 tokens, x = d.pop("tokens"), d.pop("moe_x")
-tree = {}
-for key, val in d.items():
-    node = tree
-    *parents, last = key.split("/")
-    for p in parents:
-        node = node.setdefault(p, {})
-    node[last] = jax.numpy.asarray(val)
+def read(prefix):
+    tree = {}
+    for key, val in d.items():
+        if not key.startswith(prefix) or (not prefix and key.startswith("tp_")):
+            continue
+        node = tree
+        *parents, last = key[len(prefix):].split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = jax.numpy.asarray(val)
+    return tree
+tree = read("")
 mesh = jax.make_mesh((1, 2), ("data", "model"))
 logits, aux = jm.forward(tree, {"tokens": tokens}, cfg, moe_dispatch="ep", mesh=mesh)
 layer = jax.tree.map(lambda a: a[0], tree["layers"]["moe"])
 y, laux = moe_ffn(jax.numpy.asarray(x), layer, top_k=cfg.top_k, dispatch="ep", mesh=mesh,
                   capacity_factor=0.5)
+tp = {}
+for case, kw in %(tp)r.items():
+    batch = {"tokens": d[f"tp_{case}_tokens"][0]}
+    if f"tp_{case}_frames" in d:
+        batch["audio_frames"] = d[f"tp_{case}_frames"][0]
+    params = read(f"tp_{case}/")
+    _, jit_step = make_prefill_step(jm.ModelConfig(**kw), mesh)
+    tp[f"tp_{case}"] = np.asarray(jit_step(params, batch)(params, batch))
 np.savez(sys.argv[1] + "/ref_ep.npz", logits=np.asarray(logits), y=np.asarray(y),
-         aux=float(laux))
+         aux=float(laux), **tp)
 """
 
 
@@ -83,12 +100,22 @@ def ranks(tmp_path_factory):
     cfg = jm.ModelConfig(**worker.MOE)
     params = jm.init_params(cfg, jax.random.key(0))
     rng = np.random.default_rng(3)
+    tp = {}
+    for i, (case, kw) in enumerate(worker.TP_CASES.items()):
+        ccfg = jm.ModelConfig(**kw)
+        tp.update(flatten(jax.tree.map(np.asarray, jm.init_params(ccfg, jax.random.key(10 + i))),
+                          f"tp_{case}"))
+        tp[f"tp_{case}_tokens"] = rng.integers(0, ccfg.vocab, (2, 2, 12)).astype(np.int32)
+        if ccfg.arch_type == "audio":
+            tp[f"tp_{case}_frames"] = rng.standard_normal(
+                (2, 2, ccfg.n_audio_frames, ccfg.d_model)).astype(np.float32)
     np.savez(work / "inputs.npz", tokens=rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32),
              moe_x=rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32),
-             **flatten(jax.tree.map(np.asarray, params)))
+             **flatten(jax.tree.map(np.asarray, params)), **tp)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=2", OMP_NUM_THREADS="1")
-    ref = subprocess.Popen([sys.executable, "-c", REF_EP % {"moe": worker.MOE}, str(work)],
+    ref = subprocess.Popen([sys.executable, "-c", REF_EP % {"moe": worker.MOE,
+                                                             "tp": worker.TP_CASES}, str(work)],
                            env=env, cwd=ROOT, stderr=subprocess.PIPE, text=True)
     group = dict(env, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
     procs = [subprocess.Popen([sys.executable, str(ROOT / "tools" / "mesh_ranks.py"), "--device",
@@ -108,6 +135,7 @@ def ranks(tmp_path_factory):
         printed.append(out)
     outs = [dict(np.load(work / f"out{r}.npz")) for r in range(2)]
     ref_ep = dict(np.load(work / "ref_ep.npz"))
+    ref_ep["inputs"] = dict(np.load(work / "inputs.npz"))
     ref_ep["moe_x"] = np.load(work / "inputs.npz")["moe_x"]
     ref_ep["summary"] = json.loads(printed[0].strip().splitlines()[-1])
     return outs, ref_ep
@@ -206,3 +234,50 @@ def test_sst_allgather_over_two_ranks(ranks):
     exchange = ref_allgather(ref_debug_mesh(1), axis="data")
     np.testing.assert_array_equal(np.asarray(exchange(jax.numpy.asarray(ref_rows))),
                                   outs[0]["sst_table"])
+
+
+@pytest.mark.parametrize("case", list(worker.TP_CASES))
+def test_tensor_parallel_steps_on_the_references_weights(ranks, case):
+    """Dense MQA, MoE with MLA and audio from the reference's weights on
+    (1, 2): each rank's tensor-parallel prefill logits, train metrics and
+    params within 1e-5 of its mesh-less steps, and the serve tokens equal
+    (the ranks' own checks); both ranks hold the same logits and tokens."""
+    outs, ref = ranks
+    checks = ref["summary"]["checks"]
+    for what in ("prefill", "train metrics", "train params", "serve tokens"):
+        assert checks[f"tp {case} {what} 1x2"], what
+    np.testing.assert_array_equal(outs[0][f"tp_{case}_logits"], outs[1][f"tp_{case}_logits"])
+    np.testing.assert_array_equal(outs[0][f"tp_{case}_serve_tokens"],
+                                  outs[1][f"tp_{case}_serve_tokens"])
+
+
+@pytest.mark.parametrize("case", list(worker.TP_CASES))
+def test_tensor_parallel_prefill_matches_the_references_gspmd_prefill(ranks, case):
+    """The reference's jitted prefill with its ``param_pspecs`` shardings
+    on a (1, 2) mesh of two host devices (GSPMD partitions it) against the
+    port's tensor-parallel prefill over two gloo ranks, at 2e-5."""
+    outs, ref = ranks
+    for out in outs:
+        np.testing.assert_allclose(out[f"tp_{case}_logits"], ref[f"tp_{case}"], atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_vocab_parallel_embedding_and_loss(ranks):
+    """On (1, 2) each rank looks up the embedding rows it owns (ids past
+    the table and negative ids clamped first): the whole table's rows bit
+    for bit; and the vocabulary-parallel NLL over each rank's half of the
+    logits, and its gradient, against ``log_softmax`` over the whole
+    vocabulary at 1e-5."""
+    outs, ref = ranks
+    checks = ref["summary"]["checks"]
+    assert checks["vocab embed 1x2"] and checks["vocab nll 1x2"] and checks["vocab nll grad 1x2"]
+    g = torch.Generator().manual_seed(9)
+    torch.randn(64, 8, generator=g)
+    logits = torch.randn(2, 6, 64, generator=g).requires_grad_(True)
+    targets = torch.randint(0, 64, (2, 6), generator=g)
+    want = -torch.log_softmax(logits, -1).gather(-1, targets[..., None])[..., 0]
+    (want * torch.linspace(-1, 2, 12).view(2, 6)).sum().backward()
+    for r, out in enumerate(outs):
+        np.testing.assert_allclose(out["vocab_nll"], want.detach().numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(out["vocab_nll_grad"], logits.grad.chunk(2, -1)[r].numpy(),
+                                   rtol=1e-5, atol=1e-6)

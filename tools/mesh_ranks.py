@@ -4,22 +4,29 @@ rank's results held to the mesh-less step that the rank runs itself.
 
     torchrun --nproc-per-node N tools/mesh_ranks.py [--device cuda|cpu] [--out DIR]
 
-For a world of W ranks, every ``("data", "model")`` mesh (a, W / a):
+For a world of W ranks, every ``("data", "model")`` mesh (a, W / a), the
+steps tensor parallel over ``model``:
 
 * three ``make_train_step`` steps of a small dense model in fp32 (params
   and moments as DTensors, the batch split over ``data``): loss, grad
   norm and every param within ``REL`` of the mesh-less step's;
 * four greedy ``make_serve_step`` tokens (the serve layout, the cache
-  under ``cache_pspecs``): equal to the mesh-less step's;
+  under ``cache_pspecs``, split along T over ``model``): equal to the
+  mesh-less step's;
 * ``make_prefill_step``'s logits within ``REL``;
 
 then, on (1, W), one MoE layer of the ``ep`` dispatch at a capacity that
 keeps every replica (capacity factor W): its output and the gradients of
-its input, router and experts against the ``sorted`` dispatch's; and on
+its input, router and experts against the ``sorted`` dispatch's; the
+vocabulary-parallel embedding lookup (ids past the table included) and
+negative log-likelihood with its gradient against the whole ones; and on
 (W, 1) the SST all-gather of every rank's row, bit for bit.  With
-``--inputs FILE`` (the reference's MoE params and an input, as
-``tests/test_torch_distributed.py`` writes them) it also runs that model's
-``ep`` prefill and one layer at capacity factor 0.5 on (1, W), and with
+``--inputs FILE`` (the reference's MoE params and an input, and the
+reference's weights and batches of the ``TP_CASES``, as
+``tests/test_torch_distributed.py`` writes them) it also runs that MoE
+model's ``ep`` prefill and one layer at capacity factor 0.5 on (1, W),
+and each ``TP_CASES`` model's prefill, two train steps and six serve
+tokens (the training layout) on (1, W) against the mesh-less steps; with
 ``--out DIR`` each rank writes what it saw to ``DIR/out{RANK}.npz``.
 
 Rank 0 prints one JSON line of the checks; the exit code is 1 when any
@@ -30,6 +37,7 @@ runs over NCCL; on the CPU over gloo.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import sys
 from pathlib import Path
@@ -45,7 +53,32 @@ DENSE = dict(name="tiny", arch_type="dense", n_layers=2, d_model=32, n_heads=2, 
 MOE = dict(name="moe-t", arch_type="moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
            d_ff=0, vocab=97, n_experts=8, top_k=2, d_ff_expert=32, n_shared_experts=1,
            dtype="float32")
+#: The reference's weights run tensor parallel on (1, W): dense MQA (the
+#: K/V head gathered and sliced: one K/V head for every query head), MoE
+#: with MLA (a vocabulary that ``model`` does not divide: a whole head),
+#: and audio (tied embeddings, a cross cache split along T).
+TP_CASES = {
+    "dense": dict(name="tp-dense", arch_type="dense", n_layers=2, d_model=32, n_heads=4,
+                  n_kv_heads=1, d_ff=64, vocab=96, dtype="float32"),
+    "mla": dict(name="tp-mla", arch_type="moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                d_ff=0, vocab=97, n_experts=4, top_k=2, d_ff_expert=32, n_shared_experts=1,
+                use_mla=True, kv_lora_rank=16, q_lora_rank=16, rope_head_dim=8,
+                dtype="float32"),
+    "audio": dict(name="tp-audio", arch_type="audio", n_layers=2, d_model=32, n_heads=4,
+                  n_kv_heads=2, d_ff=64, vocab=64, n_encoder_layers=2, n_audio_frames=12,
+                  tie_embeddings=True, dtype="float32"),
+}
+TP_SERVE_TOKENS, TP_CAPACITY = 6, 8
+#: The dense case writes its caches by the one-hot select, the others by
+#: the indexed write.
+TP_CACHE_UPDATE = {"dense": "onehot"}
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
+#: The TP cases' AdamW: an eps that keeps an update proportional to its
+#: gradient where the gradient is small.  With the default 1e-8 an element
+#: whose gradient is ~1e-4 of its leaf's largest takes a near-whole lr
+#: step, and the fp32 rounding that tensor-parallel sums change in it
+#: (5e-7 of the leaf's largest) moves the param by more than REL.
+TP_OPT = dict(OPT, eps=1e-3)
 TRAIN_STEPS, SERVE_TOKENS = 3, 4
 REL = 1e-5  # fp32: the ranks' shares sum in another order than one device's
 
@@ -216,13 +249,7 @@ def ep_of_the_reference(mesh, inputs: str, out: Dict[str, np.ndarray]) -> None:
 
     arrays = dict(np.load(inputs))
     tokens, x = torch.as_tensor(arrays.pop("tokens")), torch.as_tensor(arrays.pop("moe_x"))
-    tree: Dict = {}
-    for key, val in arrays.items():
-        node = tree
-        *parents, last = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[last] = val
+    tree = read_tree({k: a for k, a in arrays.items() if not k.startswith("tp_")})
     cfg = ModelConfig(**MOE)
     dev = mesh_device(mesh)
     params = params_from_numpy(tree, cfg, dev)
@@ -233,6 +260,139 @@ def ep_of_the_reference(mesh, inputs: str, out: Dict[str, np.ndarray]) -> None:
         y, aux = moe_ffn(x.to(dev), params["layers"].layer(0)["moe"], top_k=cfg.top_k,
                          dispatch="ep", impl="ref", mesh=mesh, capacity_factor=0.5)
     out["ep_layer_y"], out["ep_layer_aux"] = y.cpu().numpy(), np.float64(aux)
+
+
+def read_tree(arrays: Dict[str, np.ndarray], prefix: str = "") -> Dict:
+    """The nested param tree of the ``prefix``ed ``a/b/c`` keys."""
+    tree: Dict = {}
+    for key, val in arrays.items():
+        if not key.startswith(prefix):
+            continue
+        node = tree
+        *parents, last = key[len(prefix):].split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = val
+    return tree
+
+
+def tp_steps(case, cfg, params, batches, dev, mesh=None):
+    """(prefill logits, train metrics, trained params, serve tokens) of the
+    ``case`` model (its cache update by ``TP_CACHE_UPDATE``) from the same
+    weights, mesh-less or over ``mesh`` (the training
+    layout): prefill of the first batch, a train step on each batch, and
+    ``TP_SERVE_TOKENS`` greedy tokens from a cache of ``TP_CAPACITY``
+    slots (its cross cache, if any, seeded)."""
+    import torch
+    from repro_torch.models import init_cache, sharding
+    from repro_torch.training import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train import NO_CARD_BACKWARD
+
+    def place(tree):
+        if mesh is None:
+            return tree
+        return sharding.shard_tree(tree, mesh, sharding.param_pspecs(mesh, tree, cfg))
+
+    kw = dict(mesh=mesh) if mesh is not None else dict(device=dev)
+    full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
+    logits = full(make_prefill_step(cfg, **kw)(place(params), batches[0]))
+    trained = place(copy.deepcopy(params))
+    state = opt.init(trained)
+    # the MoE family has no backward kernel on a card: it trains on the plain path there
+    impl = "ref" if dev.type == "cuda" and cfg.arch_type in NO_CARD_BACKWARD else "auto"
+    step = make_train_step(cfg, opt.AdamWConfig(**TP_OPT), impl=impl, **kw)
+    metrics = []
+    for batch in batches:
+        trained, state, m = step(trained, state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    leaves = dict(opt.leaves(sharding.gather_tree(trained) if mesh is not None else trained))
+    cache = init_cache(cfg, 2, TP_CAPACITY, device=dev)
+    if "cross_k" in cache:
+        g = torch.Generator().manual_seed(4)
+        for k in ("cross_k", "cross_v"):
+            cache[k].copy_(torch.randn(cache[k].shape, generator=g))
+    if mesh is not None:
+        cache = sharding.shard_tree(cache, mesh, sharding.cache_pspecs(mesh, cache))
+    serve = make_serve_step(cfg, cache_update=TP_CACHE_UPDATE.get(case, "scatter"), **kw)
+    served = place(params)
+    tok, toks = torch.ones(2, dtype=torch.int32, device=dev), []
+    for _ in range(TP_SERVE_TOKENS):
+        out, cache = serve(served, cache, tok)
+        tok = full(out).argmax(-1).to(torch.int32)
+        toks.append(tok.cpu().numpy())
+    return logits, metrics, leaves, np.stack(toks)
+
+
+def tp_of_the_reference(mesh, inputs: str, checks: Dict[str, bool],
+                        out: Dict[str, np.ndarray]) -> None:
+    """Each ``TP_CASES`` model from the reference's weights (``inputs``):
+    its steps over ``mesh`` against the mesh-less ones on this rank, the
+    prefill, train metrics and params within ``REL`` and the serve tokens
+    equal; the mesh prefill's logits go to ``out`` (the tests hold them
+    to the reference's jitted prefill on the same mesh)."""
+    import torch
+    from repro_torch.device import mesh_device
+    from repro_torch.models import ModelConfig, params_from_numpy, sharding
+
+    arrays = dict(np.load(inputs))
+    dev = mesh_device(mesh)
+    tag = "x".join(str(n) for n in sharding.mesh_sizes(mesh).values())
+    for case, kw in TP_CASES.items():
+        cfg = ModelConfig(**kw)
+        batches = []
+        for i in range(2):
+            batch = {"tokens": torch.as_tensor(arrays[f"tp_{case}_tokens"][i])}
+            if f"tp_{case}_frames" in arrays:
+                batch["audio_frames"] = torch.as_tensor(arrays[f"tp_{case}_frames"][i])
+            batches.append(batch)
+        params = params_from_numpy(read_tree(arrays, f"tp_{case}/"), cfg, dev)
+        want = tp_steps(case, cfg, params, batches, dev)
+        got = tp_steps(case, cfg, params, batches, dev, mesh)
+        checks[f"tp {case} prefill {tag}"] = close(got[0], want[0])
+        checks[f"tp {case} train metrics {tag}"] = close(got[1], want[1])
+        checks[f"tp {case} train params {tag}"] = all(close(got[2][p], t)
+                                                      for p, t in want[2].items())
+        checks[f"tp {case} serve tokens {tag}"] = bool((got[3] == want[3]).all())
+        out[f"tp_{case}_logits"] = got[0].detach().cpu().numpy()
+        out[f"tp_{case}_serve_tokens"] = got[3]
+
+
+def vocab_pieces(mesh, dev, checks: Dict[str, bool], out: Dict[str, np.ndarray]) -> None:
+    """The vocabulary-parallel embedding lookup over a table stored vocab
+    over ``model`` (ids past the table and negative ones clamped, as
+    JAX's gather does) against the whole table's, bit for bit; and
+    ``vocab_nll`` over each rank's block of the logits, with its gradient,
+    against ``log_softmax`` over the whole vocabulary within ``REL``."""
+    import torch
+    from repro_torch.models import ModelConfig, sharding
+    from repro_torch.models.model import _embed, _token_rows
+
+    m, n = sharding.model_rank(mesh)
+    v, d = 64, 8
+    cfg = ModelConfig(name="v", arch_type="dense", n_layers=1, d_model=d, n_heads=1,
+                      n_kv_heads=1, d_ff=8, vocab=v, dtype="float32")
+    g = torch.Generator().manual_seed(9)
+    table = {"embed": torch.randn(v, d, generator=g)}
+    ids = torch.tensor([[-1, 0, 5, 63, 64, 200], [-70, 31, 32, 33, 1, 130000]])
+    stored = sharding.shard_tree({k: t.to(dev) for k, t in table.items()}, mesh,
+                                 sharding.param_pspecs(mesh, table))
+    rows = _embed(sharding.Gathered(stored, mesh), ids.to(dev), cfg, mesh).cpu()
+    tag = "x".join(str(k) for k in sharding.mesh_sizes(mesh).values())
+    checks[f"vocab embed {tag}"] = torch.equal(rows, table["embed"][_token_rows(ids, v)])
+    logits = torch.randn(2, 6, v, generator=g)
+    targets = torch.randint(0, v, (2, 6), generator=g)
+    weight = torch.linspace(-1, 2, 12).view(2, 6)
+    block = logits.chunk(n, -1)[m].clone().to(dev).requires_grad_(True)
+    nll = sharding.vocab_nll(block, targets.to(dev), m * (v // n), mesh)
+    (nll * weight.to(dev)).sum().backward()
+    whole = logits.clone().requires_grad_(True)
+    want = -torch.log_softmax(whole, -1).gather(-1, targets[..., None])[..., 0]
+    (want * weight).sum().backward()
+    checks[f"vocab nll {tag}"] = close(nll.detach(), want.detach())
+    checks[f"vocab nll grad {tag}"] = close(block.grad, whole.grad.chunk(n, -1)[m])
+    out["vocab_nll"] = nll.detach().cpu().numpy()
+    out["vocab_nll_grad"] = block.grad.cpu().numpy()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -261,8 +421,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         on_mesh(make_mesh(shape, ("data", "model"), args.device), dev, want, checks, out)
     model_mesh = make_mesh((1, world), ("data", "model"), args.device)
     ep_against_sorted(model_mesh, dev, checks)
+    vocab_pieces(model_mesh, dev, checks, out)
     if args.inputs:
         ep_of_the_reference(model_mesh, args.inputs, out)
+        tp_of_the_reference(model_mesh, args.inputs, checks, out)
     table = make_sst_allgather(first, axis="data")(sst_row(rank)[None]).cpu().numpy()
     out["sst_table"] = table
     checks[f"sst all-gather {world}x1"] = bool(
