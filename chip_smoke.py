@@ -144,7 +144,16 @@ any phase fails.  Phases:
    ``decode_attention_partials`` on each slice, then ``combine_partials``,
    against the whole kernel and the plain path (phase 2's check; an
    all-empty slice gives (-inf, 0, 0)), and one rank's work at n = 16
-   timed in turns with the whole kernel.
+   timed in turns with the whole kernel; (7f) mamba2-780m at full width
+   and depth over the mesh, its Mamba-2 layers on the head-split path
+   (every head at one ``model`` rank): 16 serve steps at B = 4 and a
+   prefill at B = 2, S = 2048, logits bit for bit the mesh-less steps',
+   every SSD launch on chunked; (7g) the SSD scan of mamba2's and
+   zamba2's heads (phase 2c's bf16 inputs) cut into 2, 4 and 16 slices
+   of heads, as a (1, n) mesh's ranks compute them, side by side against
+   the whole kernel and the plain path (phase 2c's check; bit for bit
+   printed), and one rank's call at n = 16 timed in turns with the whole
+   call, beside its bound.
 8. the analysis tooling: (8a) ``python -m repro_torch.launch.dryrun``
    over a fake 16x16 mesh of 256 ranks, one process a call
    (``DRYRUN_CALLS``: every arch's prefill and decode shapes but the SSM
@@ -3433,10 +3442,170 @@ def mesh_partials():
     return rows
 
 
+MESH_SSM = dict(model="mamba2-780m", batch=4, steps=16)
+
+
+def mesh_ssm(mesh):
+    """7f: mamba2-780m at full width and depth in bf16 over the mesh, its
+    Mamba-2 layers on the head-split path (at one ``model`` rank every
+    head, and no collective over ``model``): 16 serve steps at B = 4
+    beside the mesh-less ``make_serve_step`` on the same params (logits
+    bit for bit, the ``ssm`` cache where it lies), then a prefill at
+    B = 2, S = 2048 beside the mesh-less prefill (logits bit for bit,
+    every SSD launch on chunked)."""
+    import torch
+    from repro_torch.models import init_cache, sharding
+    from repro_torch.training import make_prefill_step, make_serve_step
+
+    cfg, params, out = load_full_width(MESH_SSM["model"])
+    dev = torch.device("cuda")
+    heads = sharding.ssm_heads(cfg, mesh)
+    if heads != (0, cfg.n_ssm_heads):
+        raise AssertionError(f"7f: the rank's heads are {heads}, expected all {cfg.n_ssm_heads}")
+    stored = sharding.shard_tree(params, mesh, sharding.param_pspecs(mesh, params, cfg))
+    b, steps = MESH_SSM["batch"], MESH_SSM["steps"]
+    cache = init_cache(cfg, b, 16, device=dev)
+    mcache = sharding.shard_tree(init_cache(cfg, b, 16, device=dev), mesh,
+                                 sharding.cache_pspecs(mesh, cache))
+    plain, meshed = make_serve_step(cfg, device=dev), make_serve_step(cfg, mesh=mesh)
+    tok = torch.ones((b,), dtype=torch.int32, device=dev)
+    serve_equal, walls = True, dict(plain=[], mesh=[])
+    for _ in range(steps):
+        for way, fn in (("plain", lambda: plain(params, cache, tok)),
+                        ("mesh", lambda: meshed(stored, mcache, tok))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_i, _ = fn()
+            torch.cuda.synchronize()
+            walls[way].append(time.perf_counter() - t0)
+            if way == "plain":
+                want_logits = logits_i
+        serve_equal &= bool(torch.equal(logits_i.full_tensor(), want_logits))
+        tok = want_logits.argmax(-1).to(torch.int32)
+    state_equal = bool(torch.equal(mcache["ssm"].to_local(), cache["ssm"]))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                                     device=dev)}
+    want = make_prefill_step(cfg, device=dev)(params, batch)
+    mesh_prefill = make_prefill_step(cfg, mesh=mesh)
+    read = counts_zeroed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = mesh_prefill(stored, batch).full_tensor()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_body = read(), bodies()
+    prefill_equal = bool(torch.equal(got, want))
+    med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    out.update(batch=b, steps=steps, serve_logits_bitwise_equal=serve_equal,
+               ssm_cache_bitwise_equal=state_equal, serve_ms=med, prefill_wall_s=wall,
+               prefill_logits_bitwise_equal=prefill_equal, launches=launches,
+               launches_by_body=by_body)
+    print(f"7f {cfg.name} over the mesh (bf16, heads {heads}): {steps} serve steps at B={b} "
+          f"against the mesh-less step, logits bit for bit {serve_equal}, ssm cache bit for bit "
+          f"{state_equal}, median ms a step (eager, host clock, in turns) mesh {med['mesh']:.2f}, "
+          f"mesh-less {med['plain']:.2f}; prefill B={PREFILL_B} S={PREFILL_S} {wall:.3f} s, "
+          f"logits bit for bit {prefill_equal}, launches {launches} by body {by_body}",
+          flush=True)
+    del params, stored, cache, mcache, got, want
+    release_models()
+    n = cfg.n_layers
+    if launches != dict(decode_attention=0, flash_attention=0, ssd_scan=n, moe_gmm=0) \
+            or by_body["ssd_scan"] != {"chunked": n}:
+        raise AssertionError(f"7f: launches {launches} by body {by_body}, expected {n} SSD "
+                             f"launches on chunked")
+    if not (serve_equal and state_equal and prefill_equal):
+        raise AssertionError("7f: the mesh steps differ from the mesh-less steps")
+    return out
+
+
+#: 7g: the SSD scan of one ``model`` rank: phase 2c's bf16 inputs of
+#: mamba2's and zamba2's heads cut into n slices of heads, as the ranks of
+#: a (1, n) mesh compute them
+SSD_HEAD_MODELS = ("mamba2-780m", "zamba2-7b")
+SSD_HEAD_SLICES = (2, 4, 16)
+
+
+def mesh_ssd_heads():
+    """7g: mamba2's (H = 48) and zamba2's (H = 112) heads at B = 2,
+    T = 2,048 in bf16, cut into 2, 4 and 16 slices of heads: each slice's
+    x, dt, a, B and C through ``ssd_scan``, the y and final states side by
+    side, held against the whole kernel and the plain path to phase 2c's
+    check, and whether they are the whole kernel's bit for bit.  Then at
+    n = 16 (3 and 7 heads) one rank's call, timed in turns with the whole
+    call, beside the plain path's time and the bound (the whole call's
+    over 16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, t, dtype = PREFILL_B, PREFILL_S, "bfloat16"
+    rows = []
+    for model in SSD_HEAD_MODELS:
+        cfg = ARCHS[model]
+        h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        x = (torch.randn(b, t, h, p, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        dt = F.softplus(torch.randn(b, t, h, generator=gen, device=dev))
+        a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
+        bb = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        cc = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        whole = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+        plain = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk)
+        errs, bitwise = {}, {}
+        for k in SSD_HEAD_SLICES:
+            ranks = [tuple(z.contiguous() for z in (x[:, :, s], dt[:, :, s], a[s], bb[:, :, s],
+                                                   cc[:, :, s]))
+                     for s in (slice(i * h // k, (i + 1) * h // k) for i in range(k))]
+            before = ssd.launches
+            parts = [ssd.ssd_scan(*r, chunk=chunk) for r in ranks]
+            y, state = torch.cat([y for y, _ in parts], dim=2), torch.cat([s for _, s in parts], 1)
+            torch.cuda.synchronize()
+            if ssd.launches != before + k:
+                raise AssertionError(f"7g {model} n={k}: {ssd.launches - before} launches, "
+                                     f"expected {k}")
+            errs[f"n={k}"] = float((y.float() - plain[0].float()).abs().max())
+            bitwise[f"n={k}"] = bool(torch.equal(y, whole[0]) and torch.equal(state, whole[1]))
+            for want_y, want_state in (whole, plain):
+                if not (torch.allclose(y.float(), want_y.float(), **SSD_TOL[dtype])
+                        and torch.allclose(state, want_state, **SSD_TOL["float32"])):
+                    raise AssertionError(f"7g {model} n={k}: the head slices differ from the "
+                                         f"whole kernel or the plain path (y "
+                                         f"{float((y.float() - want_y.float()).abs().max())})")
+        k, rank = SSD_HEAD_SLICES[-1], ranks[0]
+        hl = h // k
+        rank_ms, whole_ms, turns = in_turns(lambda: ssd.ssd_scan(*rank, chunk=chunk),
+                                            lambda: ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk),
+                                            flush, 25)
+        plain_ms = cuda_time_ms(lambda: ssd.ssd_scan_plain(*rank, chunk=chunk), flush, reps=10)
+        bound_ms, nbytes, flops, bound_by = ssd_bound(b, t, hl, p, n, chunk, dtype, 2)
+        body = ssd.body_for(torch.bfloat16, p, n, chunk, b * hl, sms)
+        row = dict(model=model, b=b, t=t, h=h, slices=k, heads=hl, p=p, n=n, chunk=chunk,
+                   dtype=dtype, body=body, ctas=b * hl * -(-t // chunk),
+                   max_abs_err=max(errs.values()), errs=errs, bitwise_equal=bitwise, ms=rank_ms,
+                   whole_kernel_ms=whole_ms, turns_ms=turns, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bytes=nbytes, flops=flops, bound_by=bound_by,
+                   library_ms=None, launches=sum(SSD_HEAD_SLICES))
+        rows.append(row)
+        print(f"7g {model} bf16 B={b} T={t} H={h} P={p} N={n} over n = {SSD_HEAD_SLICES} slices "
+              f"of heads: against the whole kernel and plain path, max err "
+              f"{row['max_abs_err']:.2e}, bit for bit the whole kernel {bitwise}; at n={k} "
+              f"({hl} heads, {row['ctas']} CTAs on {body}) one rank's call "
+              f"{rank_ms * 1e3:.1f} us against the whole call's {whole_ms * 1e3:.1f} us in "
+              f"turns; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})",
+              flush=True)
+        del x, dt, bb, cc, whole, plain, ranks, parts, y, state
+    return rows
+
+
 def mesh_on_card():
     """Phase 7, in a fresh process so that its process group stays out of
     the other phases: a one-rank NCCL group and ``make_debug_mesh``'s
-    (1, 1) mesh, then 7a-7e.  A failure in any part fails the phase."""
+    (1, 1) mesh, then 7a-7g.  A failure in any part fails the phase."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
@@ -3456,6 +3625,8 @@ def mesh_on_card():
         out["train"] = mesh_train(mesh)
         out["sst"] = mesh_sst(mesh)
         out["partials"] = mesh_partials()
+        out["ssm"] = mesh_ssm(mesh)
+        out["ssd_heads"] = mesh_ssd_heads()
     finally:
         dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
@@ -3936,7 +4107,7 @@ def main() -> None:
         "decode_attention": {"7a mesh serve": meshed["serve"]["launches"]["decode_attention"]},
         "flash_attention": {"7b ep prefill": meshed["ep"]["launches"]["flash_attention"],
                             "7c mesh training": meshed["train"]["launches"]["flash_attention"]},
-        "ssd_scan": {},
+        "ssd_scan": {"7f mesh prefill": meshed["ssm"]["launches"]["ssd_scan"]},
         "moe_gmm": {"7b ep prefill": meshed["ep"]["launches"]["moe_gmm"]},
         "flash_attention_bwd": {"7c mesh training": meshed["train"]["bwd_launches"]},
     }
@@ -3945,6 +4116,8 @@ def main() -> None:
     # phase 7e: the partials path of a cache split along T (one rank's work
     # at n = 16 beside the whole kernel)
     kernels[0]["partials"] = meshed["partials"]
+    # phase 7g: the SSD scan on one rank's heads (n = 16) beside the whole call
+    kernels[2]["heads"] = meshed["ssd_heads"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

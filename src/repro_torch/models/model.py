@@ -26,9 +26,11 @@ decoder with cross-attention).
   vocabulary (:func:`sharding.embed_rows`, :func:`sharding.head_logits`),
   and the loss is vocabulary-parallel (:func:`sharding.vocab_nll`); the
   logits that ``forward`` and ``decode_step`` return are gathered over
-  ``model`` once, at the end.  The SSM layers and the MoE FFN's ``sorted``
-  and ``scan`` dispatches compute on gathered weights, and ``ep`` splits
-  the experts.
+  ``model`` once, at the end.  The Mamba-2 layers compute a rank's SSD
+  heads where ``model`` divides them (:mod:`repro_torch.models.ssm`; the
+  ``ssm`` cache's shard is those heads' states), whole on every rank
+  where it does not.  The MoE FFN's ``sorted`` and ``scan`` dispatches
+  compute on gathered weights, and ``ep`` splits the experts.
 """
 
 from __future__ import annotations
@@ -362,10 +364,10 @@ def _moe_block(h, layer, positions, cfg, *, window, impl, dispatch, mesh=None):
     return h + ffn_out, aux
 
 
-def _ssm_block(h, layer, cfg, *, impl, initial_state=None):
+def _ssm_block(h, layer, cfg, *, impl, initial_state=None, mesh=None):
     y, state = ssm_mod.mamba2_block(
         rms_norm(h, layer["ln"], cfg.norm_eps), layer, cfg,
-        initial_state=initial_state, impl=impl,
+        initial_state=initial_state, impl=impl, mesh=mesh,
     )
     return h + y, state
 
@@ -497,7 +499,7 @@ def _forward(params, batch, cfg, *, impl, moe_dispatch, window=None, remat=False
             aux = aux + a
     elif at in ("ssm", "hybrid"):
         for i, layer in enumerate(layers):
-            h, _ = _block(_ssm_block, remat, h, layer, cfg, impl=impl)
+            h, _ = _block(_ssm_block, remat, h, layer, cfg, impl=impl, mesh=mesh)
             if at == "hybrid" and (i + 1) % cfg.attn_period == 0:
                 h, _ = _block(_dense_block, remat, h, params["shared_block"], positions, cfg,
                               window=cfg.sliding_window, impl=impl, mesh=mesh)
@@ -644,7 +646,9 @@ def decode_step(
     ``v``, ``shared_k/v``, ``cross_k/v``, ``ckv``, ``krope``) to this
     rank's first slot, its leaf in ``cache`` being this rank's slice: it is
     attended by partials combined across the ranks, and each rank writes
-    the new token only where it owns the slot.
+    the new token only where it owns the slot.  Where ``model`` splits the
+    SSD heads (:func:`sharding.ssm_heads`) the ``ssm`` leaf is this rank's
+    heads' shard and ``conv`` is whole.
     A VLM decodes text positions with M-RoPE, with no offset for a vision
     prefix, as the reference does."""
     at = cfg.arch_type
@@ -708,7 +712,7 @@ def decode_step(
             layer = params["layers"].layer(i)
             y, _, _ = ssm_mod.mamba2_decode(
                 rms_norm(h, layer["ln"], cfg.norm_eps), layer, cfg,
-                cache["conv"][i], cache["ssm"][i],
+                cache["conv"][i], cache["ssm"][i], mesh,
             )
             h = h + y
             if at == "hybrid" and (i + 1) % cfg.attn_period == 0:

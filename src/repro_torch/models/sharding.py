@@ -38,8 +38,9 @@ one that ``model`` does not divide is used whole.  :func:`model_dim`
 reads which, :func:`linear` is a product from a replicated activation to
 a replicated one under any of the three, :func:`embed_rows`,
 :func:`head_logits` and :func:`vocab_nll` are the vocabulary-parallel
-embedding, head and loss, and :func:`kv_heads` picks the K/V heads that
-a rank's query heads read.
+embedding, head and loss, :func:`kv_heads` picks the K/V heads that a
+rank's query heads read, and :func:`ssm_heads` the Mamba-2 heads that a
+rank computes.
 
 Gradients follow one convention.  Over the data axes each rank back-
 propagates its own share of the loss (its rows of the batch), and the
@@ -564,6 +565,19 @@ def heads_split(p, mesh, n_heads: int, q: str = "wq", o: str = "wo") -> bool:
     output ``o`` row-parallel, both on whole heads."""
     _, n = model_rank(mesh)
     return n_heads % n == 0 and model_dim(p, q, mesh) == 1 and model_dim(p, o, mesh) == 0
+
+
+def ssm_heads(cfg, mesh) -> Optional[Tuple[int, int]]:
+    """The SSD heads [lo, hi) of a Mamba-2 layer that this rank computes:
+    its H / n of the config's H heads where ``model``'s n ranks divide H
+    (all of them at n = 1), else None, and the layer runs whole on every
+    rank, as the reference's ``_fit`` replicates a dim that an axis does
+    not divide.  Where n divides H it divides d_inner, so ``w_out``'s
+    stored block over ``model`` is exactly these heads' rows, and the
+    ``ssm`` cache's local shard exactly their states."""
+    m, n = model_rank(mesh)
+    h = cfg.n_ssm_heads
+    return (m * h // n, (m + 1) * h // n) if h % n == 0 else None
 
 
 def kv_heads(n_heads: int, n_kv_heads: int, mesh) -> Tuple[int, int, Optional[List[int]]]:

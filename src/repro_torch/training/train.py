@@ -33,10 +33,11 @@ reference's jitted steps run over its mesh:
 A serve step attends over the attention caches where they lie: a leaf
 split along T over ``model`` by the partials of each rank's slots,
 combined across the ranks, and each rank writes the new token only into
-its own slots; the SSM caches are gathered for the step and each rank
-writes back its part.  The SSM layers and the MoE FFN's ``sorted`` and
-``scan`` dispatches compute on gathered weights.  At world size 1 the
-same redistributions and collectives run.
+its own slots.  The Mamba-2 layers compute each rank's SSD heads where
+``model`` divides them, on its shard of the ``ssm`` cache, which is
+never gathered.  The MoE FFN's ``sorted`` and ``scan`` dispatches
+compute on gathered weights.  At one ``model`` rank the collectives over
+``model`` are skipped.
 """
 
 from __future__ import annotations
@@ -234,14 +235,21 @@ def _model_gathered(cache_leaf: DTensor, mesh):
             for n, p in zip(mesh.mesh_dim_names, cache_leaf.placements)]
 
 
+def _model_split_dim(cache_leaf: DTensor, mesh) -> Optional[int]:
+    """The dim of ``cache_leaf`` stored split over ``model`` (of more than
+    one rank), else None."""
+    place = cache_leaf.placements[list(mesh.mesh_dim_names).index(sharding.TP_AXIS)]
+    if sharding.model_rank(mesh)[1] == 1 or not isinstance(place, Shard):
+        return None
+    return place.dim
+
+
 def _slot_offset(cache_leaf: DTensor, mesh) -> Optional[int]:
     """This rank's first slot of an attention cache leaf (L, B, T, ...)
     split along T over ``model`` (of more than one rank), else None."""
-    m, n = sharding.model_rank(mesh)
-    place = cache_leaf.placements[list(mesh.mesh_dim_names).index(sharding.TP_AXIS)]
-    if n == 1 or place != Shard(2):
+    if _model_split_dim(cache_leaf, mesh) != 2:
         return None
-    return m * cache_leaf.to_local().shape[2]
+    return sharding.model_rank(mesh)[0] * cache_leaf.to_local().shape[2]
 
 
 def make_serve_step(
@@ -268,9 +276,14 @@ def make_serve_step(
     of the weight and ``model_sum`` adds the partials, so no weight is
     gathered over ``model``.  The attention caches stay where they lie
     (a leaf split along T is attended by partials, see
-    :func:`repro_torch.models.decode_step`); the SSM caches are gathered
-    over ``model`` for the step and each rank writes back its own part.
-    The logits come back as a DTensor, its rows over the data axes."""
+    :func:`repro_torch.models.decode_step`), and so does the ``ssm`` cache:
+    its shard over ``model`` is the rank's SSD heads, which the rank
+    computes (:func:`repro_torch.models.sharding.ssm_heads`).  The
+    ``conv`` cache, whole on every rank, is stored split along its K − 1
+    where |model| divides K − 1 (3 in every config of the zoo): only there
+    is it gathered over ``model`` for the step, each rank writing back its
+    own part.  The logits come back as a DTensor, its rows over the data
+    axes."""
     dev = _device(mesh, device)
 
     def step(params: ParamTree, cache: Dict[str, torch.Tensor], tokens: torch.Tensor):
@@ -282,8 +295,11 @@ def make_serve_step(
                                                                    serve=serve_layout), "param")
         sharding.check_sharded(cache, mesh, sharding.cache_pspecs(mesh, cache), "cache")
         local, split = _local_batch({"tokens": tokens}, mesh, dev, split=False)
+        # the one leaf that decode reads whole and the rules may split over
+        # ``model``: ``conv`` (L, B, K - 1, C), along K - 1 where |model|
+        # divides it (the reference's rule for the SSM caches' dim 2)
         gathered = {k: _model_gathered(v, mesh) for k, v in cache.items()
-                    if k not in sharding.ATTENTION_CACHES}
+                    if k == "conv" and _model_split_dim(v, mesh) is not None}
         work = {k: v.redistribute(mesh, gathered[k]).to_local() if k in gathered
                 else v.to_local() for k, v in cache.items()}
         offsets = {k: _slot_offset(v, mesh) for k, v in cache.items() if k in sharding.ATTENTION_CACHES}

@@ -1288,3 +1288,74 @@ def test_ssd_takes_an_offset_view_on_card(card, dtype):
                          bs, t, h, p, n, chunk, ssd._DTYPES[dtype], ssd.BODIES["serial"], stream)
     assert refused(rc)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,p,n", [(48, 64, 128), (112, 64, 64)], ids=["mamba2", "zamba2"])
+def test_ssd_on_head_slices_matches_the_whole_kernel_on_card(card, h, p, n, dtype):
+    """Phase 2c's inputs (B = 2, T = 2,048, chunk 128; mamba2's and
+    zamba2's heads) cut into 2, 4 and 16 slices of heads, as the ranks of
+    a (1, n) mesh compute them: each slice's x, dt, a, B and C through
+    ``ssd_scan``, the y and final states side by side, against the whole
+    kernel and the plain path at phase 2c's tolerance."""
+    g = torch.Generator(device=card).manual_seed(h)
+    b, t, chunk = 2, 2048, 128
+    x = (torch.randn(b, t, h, p, generator=g, device=card) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=g, device=card))
+    a = -torch.exp(torch.randn(h, generator=g, device=card) * 0.3)
+    bb = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    cc = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    whole = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    plain = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk)
+    for k in (2, 4, 16):
+        cuts = [slice(i * h // k, (i + 1) * h // k) for i in range(k)]
+        before = ssd.launches
+        parts = [ssd.ssd_scan(x[:, :, s].contiguous(), dt[:, :, s].contiguous(), a[s],
+                              bb[:, :, s].contiguous(), cc[:, :, s].contiguous(), chunk=chunk)
+                 for s in cuts]
+        torch.cuda.synchronize()
+        assert ssd.launches == before + k
+        y, state = torch.cat([y for y, _ in parts], dim=2), torch.cat([s for _, s in parts], dim=1)
+        for want_y, want_state in (whole, plain):
+            torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+            torch.testing.assert_close(state, want_state, **SSD_TOL[torch.float32])
+
+
+def test_mamba2_over_the_one_rank_nccl_mesh_is_the_mesh_less_step_on_card(card):
+    """The reduced mamba2 in bf16 over ``make_debug_mesh``'s (1, 1) NCCL
+    mesh, where its layers take the head-split path with every head and
+    no collective over ``model``: eight serve steps (B = 4) and a prefill
+    (B = 2, S = 256, every SSD launch on chunked), logits bit for bit the
+    mesh-less steps'."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import sharding
+    from repro_torch.training import make_serve_step
+
+    cfg = ARCHS["mamba2-780m"].reduced(dtype="bfloat16")
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        assert sharding.ssm_heads(cfg, mesh) == (0, cfg.n_ssm_heads)
+        params = tm.init_params(cfg, torch.Generator(device=card).manual_seed(3), card)
+        stored = sharding.shard_tree(params, mesh, sharding.param_pspecs(mesh, params, cfg))
+        cache = tm.init_cache(cfg, 4, 16, device=card)
+        mcache = sharding.shard_tree(tm.init_cache(cfg, 4, 16, device=card), mesh,
+                                     sharding.cache_pspecs(mesh, cache))
+        plain, meshed = make_serve_step(cfg, device=card), make_serve_step(cfg, mesh=mesh)
+        tok = torch.ones(4, dtype=torch.int32, device=card)
+        for _ in range(8):
+            want, _ = plain(params, cache, tok)
+            got, _ = meshed(stored, mcache, tok)
+            assert torch.equal(got.full_tensor(), want)
+            tok = want.argmax(-1).to(torch.int32)
+        tokens = torch.randint(0, cfg.vocab, (2, 256), generator=torch.Generator().manual_seed(4))
+        want = make_prefill_step(cfg, device=card)(params, {"tokens": tokens})
+        before = dict(ssd.launches_by_body)
+        got = make_prefill_step(cfg, mesh=mesh)(stored, {"tokens": tokens}).full_tensor()
+        torch.cuda.synchronize()
+        assert ssd.launches_by_body.get("chunked", 0) - before.get("chunked", 0) == cfg.n_layers
+        assert sum(ssd.launches_by_body.values()) - sum(before.values()) == cfg.n_layers
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -105,7 +105,8 @@ def ranks(tmp_path_factory):
         ccfg = jm.ModelConfig(**kw)
         tp.update(flatten(jax.tree.map(np.asarray, jm.init_params(ccfg, jax.random.key(10 + i))),
                           f"tp_{case}"))
-        tp[f"tp_{case}_tokens"] = rng.integers(0, ccfg.vocab, (2, 2, 12)).astype(np.int32)
+        tp[f"tp_{case}_tokens"] = rng.integers(
+            0, ccfg.vocab, (2, 2, worker.TP_SEQ.get(case, 12))).astype(np.int32)
         if ccfg.arch_type == "audio":
             tp[f"tp_{case}_frames"] = rng.standard_normal(
                 (2, 2, ccfg.n_audio_frames, ccfg.d_model)).astype(np.float32)
@@ -238,13 +239,16 @@ def test_sst_allgather_over_two_ranks(ranks):
 
 @pytest.mark.parametrize("case", list(worker.TP_CASES))
 def test_tensor_parallel_steps_on_the_references_weights(ranks, case):
-    """Dense MQA, MoE with MLA and audio from the reference's weights on
-    (1, 2): each rank's tensor-parallel prefill logits, train metrics and
-    params within 1e-5 of its mesh-less steps, and the serve tokens equal
-    (the ranks' own checks); both ranks hold the same logits and tokens."""
+    """Dense MQA, MoE with MLA, audio, Mamba-2 (its heads split; the
+    hybrid's beside a shared attention block; H = 3, whole) from the
+    reference's weights on (1, 2): each rank's tensor-parallel prefill
+    logits, train metrics and params within 1e-5 of its mesh-less steps,
+    and the serve tokens equal in both layouts (the ranks' own checks);
+    both ranks hold the same logits and tokens."""
     outs, ref = ranks
     checks = ref["summary"]["checks"]
-    for what in ("prefill", "train metrics", "train params", "serve tokens"):
+    for what in ("prefill", "train metrics", "train params", "serve tokens",
+                 "serve-layout tokens"):
         assert checks[f"tp {case} {what} 1x2"], what
     np.testing.assert_array_equal(outs[0][f"tp_{case}_logits"], outs[1][f"tp_{case}_logits"])
     np.testing.assert_array_equal(outs[0][f"tp_{case}_serve_tokens"],

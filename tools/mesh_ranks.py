@@ -26,8 +26,10 @@ reference's weights and batches of the ``TP_CASES``, as
 ``tests/test_torch_distributed.py`` writes them) it also runs that MoE
 model's ``ep`` prefill and one layer at capacity factor 0.5 on (1, W),
 and each ``TP_CASES`` model's prefill, two train steps and six serve
-tokens (the training layout) on (1, W) against the mesh-less steps; with
-``--out DIR`` each rank writes what it saw to ``DIR/out{RANK}.npz``.
+tokens in each layout on (1, W) against the mesh-less steps (dense MQA,
+MLA, audio, and Mamba-2: its heads split over ``model``, beside a shared
+attention block, and H = 3 run whole); with ``--out DIR`` each rank
+writes what it saw to ``DIR/out{RANK}.npz``.
 
 Rank 0 prints one JSON line of the checks; the exit code is 1 when any
 failed.  On cards each rank takes the card ``LOCAL_RANK`` and the group
@@ -67,7 +69,26 @@ TP_CASES = {
     "audio": dict(name="tp-audio", arch_type="audio", n_layers=2, d_model=32, n_heads=4,
                   n_kv_heads=2, d_ff=64, vocab=64, n_encoder_layers=2, n_audio_frames=12,
                   tie_embeddings=True, dtype="float32"),
+    # H = 4 SSD heads; w_in's 148 columns split evenly over 2 and 4 ranks,
+    # so a rank's stored block cuts through its heads' z | x | B | C | dt
+    "ssm": dict(name="tp-ssm", arch_type="ssm", n_layers=2, d_model=32, n_heads=0,
+                n_kv_heads=0, d_ff=0, vocab=96, ssm_state=8, ssm_head_dim=16, ssm_chunk=8,
+                dtype="float32"),
+    # zamba2-like: a shared attention block (4 heads, a window of 4 slots)
+    # after every second of 4 Mamba-2 layers
+    "hybrid": dict(name="tp-hybrid", arch_type="hybrid", n_layers=4, d_model=32, n_heads=4,
+                   n_kv_heads=4, d_ff=64, vocab=96, ssm_state=8, ssm_head_dim=16, ssm_chunk=8,
+                   attn_period=2, sliding_window=4, dtype="float32"),
+    # H = 3 and w_in's 115 columns: 2 divides neither, so the layer runs
+    # whole on every rank
+    "ssm-whole": dict(name="tp-ssm-whole", arch_type="ssm", n_layers=2, d_model=24, n_heads=0,
+                      n_kv_heads=0, d_ff=0, vocab=96, ssm_state=8, ssm_head_dim=16,
+                      ssm_chunk=8, dtype="float32"),
 }
+#: Each case's tokens a row (default 12).  The ssm case's B·S = 48 rows
+#: pass its D = 32, so its prefill and training gather ``w_in`` whole and
+#: multiply by a rank's columns; the hybrid case's 24 move the activations.
+TP_SEQ = {"ssm": 24}
 TP_SERVE_TOKENS, TP_CAPACITY = 6, 8
 #: The dense case writes its caches by the one-hot select, the others by
 #: the indexed write.
@@ -282,7 +303,8 @@ def tp_steps(case, cfg, params, batches, dev, mesh=None):
     weights, mesh-less or over ``mesh`` (the training
     layout): prefill of the first batch, a train step on each batch, and
     ``TP_SERVE_TOKENS`` greedy tokens from a cache of ``TP_CAPACITY``
-    slots (its cross cache, if any, seeded)."""
+    slots (its cross cache, if any, seeded); over ``mesh`` the tokens in
+    the training layout, then in the serve layout."""
     import torch
     from repro_torch.models import init_cache, sharding
     from repro_torch.training import make_prefill_step, make_serve_step, make_train_step
@@ -299,7 +321,7 @@ def tp_steps(case, cfg, params, batches, dev, mesh=None):
     logits = full(make_prefill_step(cfg, **kw)(place(params), batches[0]))
     trained = place(copy.deepcopy(params))
     state = opt.init(trained)
-    # the MoE family has no backward kernel on a card: it trains on the plain path there
+    # the MoE and SSM families have no backward kernel on a card: they train on the plain path
     impl = "ref" if dev.type == "cuda" and cfg.arch_type in NO_CARD_BACKWARD else "auto"
     step = make_train_step(cfg, opt.AdamWConfig(**TP_OPT), impl=impl, **kw)
     metrics = []
@@ -307,21 +329,29 @@ def tp_steps(case, cfg, params, batches, dev, mesh=None):
         trained, state, m = step(trained, state, batch)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
     leaves = dict(opt.leaves(sharding.gather_tree(trained) if mesh is not None else trained))
-    cache = init_cache(cfg, 2, TP_CAPACITY, device=dev)
-    if "cross_k" in cache:
-        g = torch.Generator().manual_seed(4)
-        for k in ("cross_k", "cross_v"):
-            cache[k].copy_(torch.randn(cache[k].shape, generator=g))
-    if mesh is not None:
-        cache = sharding.shard_tree(cache, mesh, sharding.cache_pspecs(mesh, cache))
-    serve = make_serve_step(cfg, cache_update=TP_CACHE_UPDATE.get(case, "scatter"), **kw)
-    served = place(params)
-    tok, toks = torch.ones(2, dtype=torch.int32, device=dev), []
-    for _ in range(TP_SERVE_TOKENS):
-        out, cache = serve(served, cache, tok)
-        tok = full(out).argmax(-1).to(torch.int32)
-        toks.append(tok.cpu().numpy())
-    return logits, metrics, leaves, np.stack(toks)
+    served = []
+    for layout in (False,) if mesh is None else (False, True):
+        cache = init_cache(cfg, 2, TP_CAPACITY, device=dev)
+        if "cross_k" in cache:
+            g = torch.Generator().manual_seed(4)
+            for k in ("cross_k", "cross_v"):
+                cache[k].copy_(torch.randn(cache[k].shape, generator=g))
+        if mesh is None:
+            weights, layout_kw = params, {}
+        else:
+            cache = sharding.shard_tree(cache, mesh, sharding.cache_pspecs(mesh, cache))
+            weights = sharding.shard_tree(params, mesh, sharding.param_pspecs(
+                mesh, params, cfg, serve=layout))
+            layout_kw = dict(serve_layout=layout)
+        serve = make_serve_step(cfg, cache_update=TP_CACHE_UPDATE.get(case, "scatter"),
+                                **kw, **layout_kw)
+        tok, toks = torch.ones(2, dtype=torch.int32, device=dev), []
+        for _ in range(TP_SERVE_TOKENS):
+            out, cache = serve(weights, cache, tok)
+            tok = full(out).argmax(-1).to(torch.int32)
+            toks.append(tok.cpu().numpy())
+        served.append(np.stack(toks))
+    return logits, metrics, leaves, served
 
 
 def tp_of_the_reference(mesh, inputs: str, checks: Dict[str, bool],
@@ -353,9 +383,10 @@ def tp_of_the_reference(mesh, inputs: str, checks: Dict[str, bool],
         checks[f"tp {case} train metrics {tag}"] = close(got[1], want[1])
         checks[f"tp {case} train params {tag}"] = all(close(got[2][p], t)
                                                       for p, t in want[2].items())
-        checks[f"tp {case} serve tokens {tag}"] = bool((got[3] == want[3]).all())
+        checks[f"tp {case} serve tokens {tag}"] = bool((got[3][0] == want[3][0]).all())
+        checks[f"tp {case} serve-layout tokens {tag}"] = bool((got[3][1] == want[3][0]).all())
         out[f"tp_{case}_logits"] = got[0].detach().cpu().numpy()
-        out[f"tp_{case}_serve_tokens"] = got[3]
+        out[f"tp_{case}_serve_tokens"] = got[3][0]
 
 
 def vocab_pieces(mesh, dev, checks: Dict[str, bool], out: Dict[str, np.ndarray]) -> None:
