@@ -36,7 +36,18 @@ any phase fails.  Phases:
    (10·H·D flops a visible pair),
    the plain version's and the backward of
    ``scaled_dot_product_attention``, and the forward with and without
-   its LSE store, in turns;
+   its LSE store, in turns; then (2f) the SSD scan's backward kernel
+   against ``ssd_scan_bwd_plain`` on the states the forward kernel keeps
+   (mamba2's B = 2, T = 2048, H = 48, P = 64, N = 128 and zamba2's H =
+   112, N = 64 in bf16, mamba2's in fp32, a ragged T from an initial state
+   with a nonzero dstate; each gradient within 5e-5 of its largest value
+   plus 5e-4 of itself, bf16 outputs within 2e-2 of the largest) and the
+   grouped matmul's dx (the forward kernel reading w transposed; wgmma
+   against mma in turns) and dw against their plain twins at Qwen3-MoE's
+   32,768 routed rows over 128 experts, 2048 <-> 768 in bf16 and 2048 ->
+   768 in fp32, and over empty groups (whose dw must be zero), each with
+   its time, bound, the plain backward's time and ``torch._grouped_mm``'s
+   for dx and dw where it takes the layout;
 3. the decode path at full width in bf16: a 3-worker ServingCluster on one
    card serving 10 pipeline requests (prompts (2, 64)) over
    mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
@@ -126,6 +137,17 @@ any phase fails.  Phases:
    one more step under the profiler; then one step at 2 layers, kernel
    path against plain path (``impl="ref"``): loss, grad norm and every
    leaf's gradient (cosine, and max error against the leaf's largest).
+6b. the SSM, hybrid and MoE families training through their kernels,
+   after phase 6's models are released: mamba2-780m whole, zamba2-7b at
+   12 of its 81 layers (its shared attention block twice) and Qwen3-MoE
+   at 4 of its 48 (the sorted dispatch), at full width in bf16 with fp32
+   AdamW moments, B = 2, S = 2048: one warm-up and five timed steps each,
+   every kernel's launches by body against what the layers and remat
+   predict (mamba2: 96 forward and 48 backward scans a step; Qwen3: 24
+   grouped matmuls, 12 dx and 12 dw a step), finite losses, moved params,
+   the step time, tokens/s and peak memory; then each family at 2 layers,
+   kernel path against plain path as phase 6 holds NeMo (the MoE router's
+   choices recorded on the kernel path and replayed on the plain one).
 7. the mesh, in a fresh process: a one-rank NCCL group and
    ``make_debug_mesh``'s (1, 1) ``("data", "model")`` mesh; (7a)
    ``repro_torch.launch.serve``'s step on mistral-nemo-12b at full width
@@ -190,6 +212,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1100,6 +1123,269 @@ def flash_bwd_vs_plain():
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: the SSD scan's and the grouped matmul's backward kernels
+# ---------------------------------------------------------------------------
+# (model, B, T, dtype, initial_state and dstate, timed): mamba2's and
+# zamba2's training shapes in bf16 (B = 2, T = 2048), mamba2's in fp32, and
+# a ragged T from a given initial state with a nonzero dstate
+SSD_BWD_SHAPES = [
+    ("mamba2-780m", PREFILL_B, PREFILL_S, "bfloat16", False, True),
+    ("zamba2-7b", PREFILL_B, PREFILL_S, "bfloat16", False, True),
+    ("mamba2-780m", PREFILL_B, PREFILL_S, "float32", False, True),
+    ("mamba2-780m", PREFILL_B, 2000, "bfloat16", True, False),
+]
+SSD_BWD_MAIN = dict(model="mamba2-780m", t=PREFILL_S, dtype="bfloat16")
+SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "d_init")
+# the grouped matmul's gradient at Qwen3-MoE's prefill rows (B·S·top_k =
+# 32768 over 128 experts, both directions of its expert FFN)
+GMM_BWD_MAIN = dict(model="qwen3 prefill", d_in=2048, d_out=768, dtype="bfloat16")
+
+
+def ssd_bwd_bound(b, t, h, p, n, chunk, dtype, itemsize, with_state):
+    """Least time (ms) of the SSD gradient: x, b, c, dy and dt read once and
+    the fp32 states entering each chunk but the first, which is zero unless
+    an initial state is given (and then dstate read and the initial state's
+    gradient written), dx, db, dc and d(dt) written once; against the
+    flops of the distinct products per chunk of l steps and head:
+    l(l+1)(3N + 2P) for C Bᵀ and dY Xᵀ on the pairs j ≤ i and the three
+    products of the masked tiles (dc, dx, db), and 8lPN for the chunk's own
+    S̄ term, C·S_inᵀ in dc, and the state terms of dx and db.  Returns (ms,
+    bytes, flops, bound_by)."""
+    nc = -(-t // chunk)
+    nbytes = (b * t * h * ((3 * p + 4 * n) * itemsize + 8)
+              + 4 * b * (nc - 1 + with_state) * h * p * n
+              + 4 * h + (2 if with_state else 0) * 4 * b * h * p * n)
+    lengths = [chunk] * (t // chunk) + ([t % chunk] if t % chunk else [])
+    flops = b * h * sum(l * (l + 1) * (3 * n + 2 * p) + 8 * l * p * n for l in lengths)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_grad_close(got, want, dtype):
+    """Phase 2f's check of an SSD gradient against the plain backward's
+    (tests/test_torch_cuda.py's): tests/test_kernels.py's 5e-5 absolute
+    and 5e-4 relative, the absolute part scaled to the tensor's largest
+    |want|; a gradient the kernel writes in bf16 (dx, db, dc from bf16
+    inputs) within 2e-2 of that largest value.  Returns (ok, max error)."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if dtype == "bfloat16":
+        ok = bool((err <= 2e-2 * scale).all())
+    else:
+        ok = bool((err <= 5e-5 * scale + 5e-4 * want.abs()).all())
+    return ok, float(err.max())
+
+
+def gmm_dw_bound(t, d_in, d_out, e, dtype, itemsize):
+    """Least time (ms) of the weight gradient: x and dy read once, every
+    expert's dw written once (zeros for an empty group), the sizes read;
+    2·T·d_in·d_out flops.  Returns (ms, bytes, flops, bound_by)."""
+    nbytes = (t * d_in + t * d_out + e * d_in * d_out) * itemsize + 4 * e
+    flops = 2 * t * d_in * d_out
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grouped_mm_grad_calls(x, w, dy, sizes):
+    """``torch._grouped_mm`` computing dx = dy·w[e]ᵀ and dw[e] = x_eᵀ·dy_e on
+    the same inputs (timed only; the port never calls it), each with the
+    first layout it takes, or the reason there is none."""
+    import torch
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return {k: (None, "this PyTorch has no torch._grouped_mm") for k in ("dx", "dw")}
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    wt = w.transpose(1, 2)
+    tries = {"dx": [(dy, wt), (dy, wt.contiguous())],
+             "dw": [(x.t(), dy), (x.t().contiguous(), dy), (x.t(), dy.t().contiguous().t())]}
+    out = {}
+    for what, pairs in tries.items():
+        errors = []
+        for a, b in pairs:
+            try:
+                fn(a, b, offs=offs)
+                torch.cuda.synchronize()
+                out[what] = ((lambda a=a, b=b: fn(a, b, offs=offs)), None)
+                break
+            except (RuntimeError, TypeError, ValueError) as e:
+                errors.append(str(e).splitlines()[0][:160])
+        else:
+            out[what] = (None, "torch._grouped_mm refused these inputs: " + " | ".join(errors))
+    return out
+
+
+def ssd_bwd_vs_plain(flush, gen):
+    """Phase 2f's SSD rows: the backward kernel against
+    ``ssd_scan_bwd_plain`` on the forward kernel's saved states."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    dev = flush.device
+    rows = []
+    for model, b, t, dtype, with_state, timed in SSD_BWD_SHAPES:
+        cfg = ARCHS[model]
+        h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        tdt = getattr(torch, dtype)
+        x = (torch.randn(b, t, h, p, generator=gen, device=dev) * 0.5).to(tdt)
+        dt = F.softplus(torch.randn(b, t, h, generator=gen, device=dev))
+        a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
+        bb = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(tdt)
+        cc = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(tdt)
+        dy = (torch.randn(b, t, h, p, generator=gen, device=dev) * 0.5).to(tdt)
+        init = torch.randn(b, h, p, n, generator=gen, device=dev) if with_state else None
+        dstate = torch.randn(b, h, p, n, generator=gen, device=dev) if with_state else None
+        # the training path's input: the states the forward kernel leaves
+        _, _, states = ssd._launch(x, dt, a, bb, cc, chunk, init, None, True)
+        args = (x, dt, a, bb, cc, init, states, dy, dstate)
+        got = sb.ssd_scan_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = sb.ssd_scan_bwd_plain(*args, chunk=chunk)
+        errs = {}
+        for name, g, w in zip(SSD_BWD_NAMES, got, want):
+            if w is None:
+                continue
+            ok, err = ssd_grad_close(g, w, dtype if name in ("dx", "db", "dc") else "float32")
+            errs[name] = err
+            if not ok:
+                raise AssertionError(f"ssd backward {model} {dtype} B={b} T={t} {name}: max err "
+                                     f"{err} of {float(w.abs().max())}")
+        del got, want
+        bound_ms, nbytes, flops, bound_by = ssd_bwd_bound(b, t, h, p, n, chunk, dtype,
+                                                          x.element_size(), with_state)
+        row = dict(model=model, b=b, t=t, h=h, p=p, n=n, chunk=chunk, dtype=dtype,
+                   body=sb.BODY, initial_state=with_state, max_abs_err=max(errs.values()),
+                   errors=errs, bound_ms=bound_ms, bytes=nbytes, flops=flops,
+                   bound_by=bound_by, library_ms=None, ctas=b * h * -(-t // chunk))
+        if timed:
+            row["kernel_ms"] = cuda_time_ms(lambda: sb.ssd_scan_bwd(*args, chunk=chunk), flush)
+            row["plain_ms"] = cuda_time_ms(lambda: sb.ssd_scan_bwd_plain(*args, chunk=chunk),
+                                           flush, reps=10, warmup=1)
+            row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
+            # the kernel's four launches: (a'), (b'), (c'1), (c'2)
+            row["by_kernel"] = kernel_split(lambda: sb.ssd_scan_bwd(*args, chunk=chunk),
+                                            ("ssd_bwd_chunk_state", "ssd_bwd_state_pass",
+                                             "ssd_bwd_rows", "ssd_bwd_cols"))
+        rows.append(row)
+        err_txt = " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+        times = (f"kernel={row['kernel_ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
+                 f"{row['kernel_tflops']:.2f} TFLOP/s; by launch {row['by_kernel']}"
+                 if timed else "not timed")
+        print(f"{model:18s} {dtype:8s} B={b} T={t:5d} H={h} P={p} N={n} L={chunk}"
+              f"{' from a given state, dstate' if with_state else ''} err {err_txt} {times} "
+              f"library=- bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+        del x, dt, bb, cc, dy, states, args
+    return rows
+
+
+def gmm_bwd_vs_plain(flush, gen):
+    """Phase 2f's grouped-matmul rows: dx (the forward kernel, w read as its
+    transpose) and dw against their plain twins at Qwen3-MoE's prefill in
+    both directions (bf16; 2048 -> 768 in fp32 once) and over empty groups."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_bwd as gb
+
+    dev = flush.device
+    qwen = ARCHS["qwen3-moe-30b-a3b"]
+    sizes = routed_sizes(gen, PREFILL_B * PREFILL_S, qwen.d_model, qwen.n_experts, qwen.top_k)
+    empty = torch.zeros(128, dtype=torch.int32, device=dev)
+    empty[[3, 40, 41, 99, 127]] = torch.tensor([1000, 1, 2000, 95, 1000], dtype=torch.int32,
+                                               device=dev)
+    d, f = qwen.d_model, qwen.d_ff_expert
+    cases = [("qwen3 prefill", d, f, sizes, "bfloat16", True),
+             ("qwen3 prefill", f, d, sizes, "bfloat16", True),
+             ("qwen3 prefill", d, f, sizes, "float32", True),
+             ("empty groups", d, f, empty, "bfloat16", False)]
+    rows = []
+    for model, d_in, d_out, gs, dtype, timed in cases:
+        t, e = int(gs.sum()), gs.numel()
+        host_sizes = gs.tolist()
+        tdt = getattr(torch, dtype)
+        x = torch.randn(t, d_in, generator=gen, device=dev, dtype=tdt)
+        w = (torch.randn(e, d_in, d_out, generator=gen, device=dev) * 0.02).to(tdt)
+        dy = torch.randn(t, d_out, generator=gen, device=dev, dtype=tdt)
+        lib = grouped_mm_grad_calls(x, w, dy, gs) if timed else {}
+        for what in ("dx", "dw"):
+            if what == "dx":
+                run = lambda: gb.moe_gmm_dx(dy, w, gs)  # noqa: E731
+                plain = lambda: gb.moe_gmm_dx_plain(dy, w, gs)  # noqa: E731
+                body = gmm.body_for(tdt, d_out, d_in, n_experts=e)
+                old_body = "mma" if body == "wgmma" else None
+                bound = gmm_bound(t, d_out, d_in, host_sizes, dtype, x.element_size())
+            else:
+                run = lambda: gb.moe_gmm_dw(x, dy, gs, e)  # noqa: E731
+                plain = lambda: gb.moe_gmm_dw_plain(x, dy, gs, e)  # noqa: E731
+                body, old_body = gb.dw_bodies_for(tdt, d_in, d_out, True)[0], None
+                bound = gmm_dw_bound(t, d_in, d_out, e, dtype, x.element_size())
+            got = run().float()
+            torch.cuda.synchronize()
+            want = plain().float()
+            err = float((got - want).abs().max())
+            tol = GMM_TOL[dtype]
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                raise AssertionError(f"gmm {what} {model} {dtype} T={t} {d_in}->{d_out} E={e}: "
+                                     f"max err {err} outside {tol}")
+            if what == "dw":
+                zero = [i for i, s in enumerate(host_sizes) if s == 0 and i != e - 1]
+                if got[zero].any():
+                    raise AssertionError(f"gmm dw {model}: an empty group's dw is not zero")
+            del got, want
+            bound_ms, nbytes, flops, bound_by = bound
+            row = dict(kernel=f"moe_gmm_{what}", model=model, t=t, e=e, d_in=d_in, d_out=d_out,
+                       dtype=dtype, body=body, old_body=old_body, old_body_ms=None,
+                       nonempty=sum(1 for s in host_sizes if s > 0), max_abs_err=err,
+                       bound_ms=bound_ms, bytes=nbytes, flops=flops, bound_by=bound_by,
+                       library_ms=None)
+            if timed:
+                reps = 25 if dtype == "bfloat16" else 10
+                if old_body:  # dx on wgmma against the mma body, in turns
+                    row["kernel_ms"], row["old_body_ms"], row["turns_ms"] = in_turns(
+                        run, lambda: gb.moe_gmm_dx(dy, w, gs, body=old_body), flush, reps)
+                else:
+                    row["kernel_ms"] = cuda_time_ms(run, flush, reps=reps)
+                row["plain_ms"] = cuda_time_ms(plain, flush, reps=10)
+                call, why = lib[what]
+                row["library_note"] = why
+                if call is not None:
+                    row["library_ms"] = cuda_time_ms(call, flush, reps=reps)
+                row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
+                row["kernel_tb_per_s"] = nbytes / row["kernel_ms"] / 1e9
+            rows.append(row)
+            if timed:
+                lib_txt = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
+                           else f"- ({row['library_note']})")
+                old_txt = (f" ({old_body} {row['old_body_ms']:.4f} ms in turns)" if old_body
+                           else "")
+                times = (f"kernel={row['kernel_ms']:.4f} ms{old_txt} plain={row['plain_ms']:.4f} "
+                         f"ms library={lib_txt} {row['kernel_tflops']:.1f} TFLOP/s "
+                         f"{row['kernel_tb_per_s']:.2f} TB/s")
+            else:
+                times = "not timed"
+            print(f"{what} {model:14s} {dtype:8s} {body:8s} T={t:5d} E={e:3d} ({row['nonempty']} "
+                  f"non-empty) {d_in:4d}->{d_out:4d} err={err:.2e} {times} "
+                  f"bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+        del x, w, dy, lib
+    return rows
+
+
+def bwd_kernels_vs_plain():
+    """Phase 2f: the SSD scan's backward kernel and the grouped matmul's dx
+    and dw against their plain backwards at the training shapes."""
+    import torch
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    return dict(ssd=ssd_bwd_vs_plain(flush, gen), gmm=gmm_bwd_vs_plain(flush, gen))
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 def serve_full_width():
@@ -1952,14 +2238,19 @@ def counts_zeroed(*engines):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_bwd as gb
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssd_scan_bwd as sb
 
-    # the backward's count is zeroed too, and read by phase 6 alone; so are
-    # the partials path's, read by phase 7e alone
-    da.launches = fa.launches = fb.launches = ssd.launches = gmm.launches = 0
+    # the backward kernels' counts are zeroed too, and read by phases 6, 6b
+    # and 7c alone; so are the partials path's, read by phase 7e alone
+    da.launches = fa.launches = fb.launches = ssd.launches = gmm.launches = sb.launches = 0
+    gb.dx_launches = gb.dw_launches = 0
     da.partials_launches = da.combine_launches = 0
-    for mod in (da, fa, fb, ssd, gmm):
-        mod.launches_by_body.clear()
+    for counts in (da.launches_by_body, fa.launches_by_body, fb.launches_by_body,
+                   ssd.launches_by_body, gmm.launches_by_body, sb.launches_by_body,
+                   gb.dx_by_body, gb.dw_by_body):
+        counts.clear()
     for e in engines:
         e.reset_counts()
 
@@ -2943,16 +3234,22 @@ TRAIN_COS = 0.99
 TRAIN_LEAF_TOL = 0.05
 
 
-def train_step_run(cfg, steps):
-    """``make_train_step`` (remat, fp32 AdamW moments) on NeMo's width at
-    ``cfg``'s depth over the synthetic pipeline: one warm-up step, then
-    ``steps`` timed steps, the counts set to 0 just before them and read
-    just after."""
+def train_step_run(cfg, steps, probe="wq"):
+    """``make_train_step`` (remat, fp32 AdamW moments) on ``cfg`` over the
+    synthetic pipeline: one warm-up step, then ``steps`` timed steps, the
+    counts set to 0 just before them and read just after (every kernel's,
+    forward and backward, by body); the first values of the layers' leaf
+    ``probe`` show that the params moved."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_bwd as gb
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssd_scan_bwd as sb
     from repro_torch.models import init_params
     from repro_torch.training import make_train_step, optimizer as opt
 
@@ -2965,7 +3262,7 @@ def train_step_run(cfg, steps):
                            device=dev)
     data = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=PREFILL_S, global_batch=PREFILL_B,
                                     seed=3))
-    probe_leaf = params["layers"]["wq"][0, :64, :64].detach().clone()
+    probe_leaf = params["layers"].get_parameter(probe).detach().flatten()[:4096].clone()
     params, state, metrics = step(params, state, next(data))  # warm-up
     torch.cuda.synchronize()
     warm_loss = float(metrics["loss"])
@@ -2983,12 +3280,18 @@ def train_step_run(cfg, steps):
     launches = read()
     fwd_by_body, bwd_launches = dict(fa.launches_by_body), fb.launches
     bwd_by_body = dict(fb.launches_by_body)
+    by_body = {name: dict(counts) for name, counts in (
+        ("ssd_scan", ssd.launches_by_body), ("ssd_scan_bwd", sb.launches_by_body),
+        ("flash_attention", fa.launches_by_body), ("flash_attention_bwd", fb.launches_by_body),
+        ("moe_gmm", gmm.launches_by_body), ("moe_gmm_dx", gb.dx_by_body),
+        ("moe_gmm_dw", gb.dw_by_body), ("decode_attention", da.launches_by_body))}
     peak = torch.cuda.max_memory_allocated()
-    moved = float((params["layers"]["wq"][0, :64, :64].detach() - probe_leaf).abs().max())
+    moved = float((params["layers"].get_parameter(probe).detach().flatten()[:4096]
+                   - probe_leaf).abs().max())
     out = dict(layers=cfg.n_layers, params=n, steps=steps, wall_s=walls, losses=losses,
                grad_norms=norms, warm_up_loss=warm_loss, launches=launches,
                flash_by_body=fwd_by_body, bwd_launches=bwd_launches, bwd_by_body=bwd_by_body,
-               peak_bytes=peak, moved=moved)
+               by_body=by_body, peak_bytes=peak, moved=moved)
     return params, state, step, data, out
 
 
@@ -3006,7 +3309,7 @@ def train_full_width():
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
-    from repro_torch.models import init_params, next_token_loss
+    from repro_torch.models import init_params
 
     release_models()
     dev = torch.device("cuda")
@@ -3067,15 +3370,106 @@ def train_full_width():
     params = init_params(cfg2, torch.Generator(device=dev).manual_seed(19), dev)
     params.requires_grad_(True)
     toks = torch.as_tensor(batch["tokens"], device=dev)
+    out["compare"] = dict(layers=TRAIN_COMPARE_LAYERS, **grad_paths(
+        cfg2, params, toks, f"{TRAIN_MODEL}@{TRAIN_COMPARE_LAYERS}"))
+    del params, toks
+    release_models()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the SSM, hybrid and MoE families training through their kernels
+# ---------------------------------------------------------------------------
+# (model, layers): mamba2 whole; zamba2 cut to 12 layers, where its shared
+# attention block (every 6 layers) runs twice; Qwen3-MoE cut to 4 of its 48
+# layers (the sorted dispatch)
+FAMILY_TRAIN = (("mamba2-780m", None), ("zamba2-7b", 12), ("qwen3-moe-30b-a3b", 4))
+#: The leaf whose first values show that a step moved the params.
+FAMILY_PROBE = {"ssm": "w_in", "hybrid": "w_in", "moe": "moe.wg"}
+
+
+class RouteReplay:
+    """The MoE router's expert ids, recorded on one path of a comparison
+    (``recording``) and replayed on the other (``replaying``, call by call
+    in the same order): a near tie that bf16 breaks one way on the kernel
+    path and the other way on the plain path would move a token's gradient
+    to another expert, which says nothing about the kernels.  The replay
+    keeps that path's own ``route`` for everything but the ids: its aux
+    loss, and its probabilities (``route`` over all experts) from which
+    the recorded ids' gates are gathered and renormalised as ``route``
+    does.  ``flips`` counts, per replayed call, the tokens whose own top-k
+    differs from the recorded one."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.module, self.route, self.ids, self.flips = moe_mod, moe_mod.route, [], []
+
+    @contextlib.contextmanager
+    def recording(self):
+        def recorded(x, router_w, top_k):
+            gates, idx, aux = self.route(x, router_w, top_k)
+            self.ids.append(idx)
+            return gates, idx, aux
+
+        self.module.route = recorded
+        try:
+            yield self
+        finally:
+            self.module.route = self.route
+
+    @contextlib.contextmanager
+    def replaying(self):
+        import torch
+
+        calls = iter(self.ids)
+
+        def replayed(x, router_w, top_k):
+            idx = next(calls)
+            _, own, aux = self.route(x, router_w, top_k)
+            self.flips.append(int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum()))
+            ranked, order, _ = self.route(x, router_w, router_w.shape[-1])
+            probs = torch.empty_like(ranked).scatter_(-1, order, ranked)
+            gates = probs.gather(-1, idx)
+            return gates / gates.sum(dim=-1, keepdim=True), idx, aux
+
+        self.module.route = replayed
+        try:
+            yield self
+        finally:
+            self.module.route = self.route
+        if next(calls, None) is not None:
+            raise AssertionError("the plain path routed fewer times than the kernel path")
+
+
+def grad_paths(cfg, params, toks, what):
+    """One step's loss, grad norm and every leaf's gradient, kernel path
+    (``impl="auto"``) against plain path (``impl="ref"``), remat on, each
+    leaf held at cosine >= ``TRAIN_COS`` and max error within
+    ``TRAIN_LEAF_TOL`` of the leaf's largest |gradient|; an MoE model's
+    routing recorded on the kernel path and replayed on the plain one
+    (:class:`RouteReplay`)."""
+    import torch
+    from repro_torch.models import next_token_loss
+
+    replay = RouteReplay() if cfg.arch_type == "moe" else None
     runs = {}
     for impl in ("auto", "ref"):
-        loss = next_token_loss(params, {"tokens": toks}, cfg2, impl=impl, remat=True)
-        loss.backward()
-        grads = {n: p.grad.float() for n, p in params.named_parameters()}
+        ctx = (contextlib.nullcontext() if replay is None
+               else replay.recording() if impl == "auto" else replay.replaying())
+        with ctx:
+            loss = next_token_loss(params, {"tokens": toks}, cfg, impl=impl, remat=True)
+            loss.backward()
+        # a leaf the step does not reach (zamba2's shared block below its
+        # period) has no gradient on either path
+        grads = {n: p.grad.float() for n, p in params.named_parameters() if p.grad is not None}
         norm = float(torch.sqrt(sum((g * g).sum() for g in grads.values())))
-        runs[impl] = (float(loss), norm, grads)
+        runs[impl] = (float(loss.detach()), norm, grads)
         params.zero_grad(set_to_none=True)
     (la, na, ga), (lr_, nr, gr) = runs["auto"], runs["ref"]
+    if ga.keys() != gr.keys():
+        raise AssertionError(f"{what}: the two paths reach different leaves: "
+                             f"{sorted(ga.keys() ^ gr.keys())}")
     leaves = {}
     for n, g in gr.items():
         cos = float(torch.nn.functional.cosine_similarity(ga[n].flatten(), g.flatten(), dim=0))
@@ -3083,19 +3477,110 @@ def train_full_width():
         leaves[n] = dict(cosine=cos, max_err_share=rel)
     worst_cos = min(v["cosine"] for v in leaves.values())
     worst_rel = max(v["max_err_share"] for v in leaves.values())
-    print(f"{TRAIN_MODEL}@{TRAIN_COMPARE_LAYERS} one step, kernel path against plain path: "
-          f"loss {la:.5f} / {lr_:.5f}, grad norm {na:.5f} / {nr:.5f}; per leaf: lowest cosine "
-          f"{worst_cos:.5f}, largest max error {worst_rel:.4f} of the leaf's largest", flush=True)
+    flips = replay.flips if replay is not None else None
+    print(f"{what} one step, kernel path against plain path: loss {la:.5f} / {lr_:.5f}, grad "
+          f"norm {na:.5f} / {nr:.5f}; per leaf: lowest cosine {worst_cos:.5f}, largest max "
+          f"error {worst_rel:.4f} of the leaf's largest"
+          + (f"; routing replayed, tokens whose own top-k differed per call {flips}"
+             if flips is not None else ""), flush=True)
     for n, v in sorted(leaves.items()):
         print(f"  {n}: cosine {v['cosine']:.5f}, max err {v['max_err_share']:.4f}")
-    out["compare"] = dict(layers=TRAIN_COMPARE_LAYERS, loss=(la, lr_), grad_norm=(na, nr),
-                          leaves=leaves)
+    out = dict(loss=(la, lr_), grad_norm=(na, nr), leaves=leaves, route_flips=flips)
     if not (abs(la - lr_) <= TOL["bfloat16"] * abs(lr_) and abs(na - nr) <= TOL["bfloat16"] * nr):
-        raise AssertionError("the kernel path's loss or grad norm differs from the plain path's")
+        raise AssertionError(f"{what}: the kernel path's loss or grad norm differs from the "
+                             f"plain path's")
     if worst_cos < TRAIN_COS or worst_rel > TRAIN_LEAF_TOL:
-        raise AssertionError(f"gradients differ: cosine {worst_cos}, max err {worst_rel}")
-    del params, runs, ga, gr, grads, loss, g
+        raise AssertionError(f"{what}: gradients differ: cosine {worst_cos}, max err {worst_rel}")
+    return out
+
+
+def family_train_expected(cfg, steps):
+    """Each kernel's launches over ``steps`` train steps (remat: every
+    forward twice a step, every backward once), by body."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_bwd as gb
+
+    n, at = cfg.n_layers, cfg.arch_type
+    ssm = n if at in ("ssm", "hybrid") else 0
+    attn = n // cfg.attn_period if at == "hybrid" else n if at == "moe" else 0
+    moe = n if at == "moe" else 0
+    bf16 = torch.bfloat16
+    hd = cfg.head_dim
+    return {
+        "ssd_scan": {"chunked": 2 * steps * ssm} if ssm else {},
+        "ssd_scan_bwd": {"fp32": steps * ssm} if ssm else {},
+        "flash_attention": {fa.body_for(bf16, hd): 2 * steps * attn} if attn else {},
+        "flash_attention_bwd": {fb.body_for(bf16, hd): steps * attn} if attn else {},
+        "moe_gmm": ({gmm.body_for(bf16, cfg.d_model, cfg.d_ff_expert, n_experts=cfg.n_experts):
+                     6 * steps * moe} if moe else {}),
+        "moe_gmm_dx": ({gmm.body_for(bf16, cfg.d_ff_expert, cfg.d_model,
+                                     n_experts=cfg.n_experts): 3 * steps * moe} if moe else {}),
+        "moe_gmm_dw": ({gb.dw_bodies_for(bf16, cfg.d_model, cfg.d_ff_expert, True)[0]:
+                        3 * steps * moe} if moe else {}),
+        "decode_attention": {},
+    }
+
+
+def train_families():
+    """Phase 6b: mamba2-780m whole, zamba2-7b at 12 layers and Qwen3-MoE
+    at 4 layers, full width, bf16 params and fp32 AdamW moments, B = 2,
+    S = 2048 of the synthetic pipeline, through ``make_train_step`` (remat,
+    the sorted dispatch): one warm-up and five timed steps each, the
+    counts set to 0 just before them (the SSD scan's forward and backward,
+    the grouped matmul's forward, dx and dw, flash where the model has
+    attention, each against what the layers and remat predict, by body),
+    finite losses, moved params, the step time, tokens/s and peak memory;
+    then each family at 2 layers, kernel path against plain path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
     release_models()
+    dev = torch.device("cuda")
+    out = {}
+    for name, layers in FAMILY_TRAIN:
+        base = ARCHS[name]
+        cfg = base if layers is None else dataclasses.replace(base, n_layers=layers)
+        cut = None if layers is None else f"{base.n_layers} -> {layers} layers"
+        params, state, step, data, row = train_step_run(cfg, TRAIN_STEPS,
+                                                        FAMILY_PROBE[cfg.arch_type])
+        batch = next(data)
+        del params, state, step, data
+        release_models()
+        med = statistics.median(row["wall_s"])
+        tokens = PREFILL_B * PREFILL_S
+        want = family_train_expected(cfg, TRAIN_STEPS)
+        row.update(cut=cut, step_s=med, tokens_per_s=tokens / med, expected_by_body=want)
+        print(f"{name}@{cfg.n_layers}{f' (cut {cut})' if cut else ''}: "
+              f"{row['params'] / 1e9:.3f} B params; steps "
+              f"{', '.join(f'{w:.4f}' for w in row['wall_s'])} s (median {med:.4f} s), "
+              f"{tokens / med:.0f} tokens/s; peak {row['peak_bytes'] / 1e9:.2f} GB; losses "
+              f"{', '.join(f'{x:.4f}' for x in row['losses'])} (warm-up "
+              f"{row['warm_up_loss']:.4f}); grad norms "
+              f"{', '.join(f'{x:.3f}' for x in row['grad_norms'])}; launches by body "
+              f"{row['by_body']} (expected {want}); params moved by {row['moved']:.3e}",
+              flush=True)
+        if not all(np.isfinite(row["losses"])) or not all(np.isfinite(row["grad_norms"])):
+            raise AssertionError(f"{name}: non-finite training loss or grad norm")
+        if not row["moved"] > 0:
+            raise AssertionError(f"{name}: the params did not move")
+        if row["by_body"] != want:
+            raise AssertionError(f"{name}: launches by body {row['by_body']}, expected {want}")
+
+        # the kernel path against the plain path, at 2 layers
+        cfg2 = dataclasses.replace(base, n_layers=TRAIN_COMPARE_LAYERS)
+        params = init_params(cfg2, torch.Generator(device=dev).manual_seed(19), dev)
+        params.requires_grad_(True)
+        toks = torch.as_tensor(batch["tokens"], device=dev)
+        row["compare"] = dict(layers=TRAIN_COMPARE_LAYERS, **grad_paths(
+            cfg2, params, toks, f"{name}@{TRAIN_COMPARE_LAYERS}"))
+        del params, toks
+        release_models()
+        out[name] = row
     return out
 
 
@@ -3934,6 +4419,8 @@ def main() -> None:
     gmm_rows = phases.run("phase 2d: moe_gmm against plain", gmm_vs_plain) if built else None
     bwd_rows = phases.run("phase 2e: flash_attention backward against plain", flash_bwd_vs_plain) \
         if built else None
+    grad_rows = phases.run("phase 2f: ssd_scan and moe_gmm backward against plain",
+                           bwd_kernels_vs_plain) if built else None
     served = phases.run("phase 3: serving at full width (bf16)", serve_full_width) if built else None
     prefill = phases.run("phase 3b: prefill at full width (bf16)", prefill_full_width) \
         if built else None
@@ -3960,6 +4447,9 @@ def main() -> None:
     training = phases.run(f"phase 6: {TRAIN_MODEL} training at full width, {TRAIN_LAYERS} layers "
                           f"(bf16)", train_full_width) if built else None
     release_models()
+    families = phases.run("phase 6b: mamba2, zamba2@12 and Qwen3-MoE@4 training at full width "
+                          "(bf16)", train_families) if built else None
+    release_models()
     meshed = phases.run("phase 7: the mesh at world size 1 (NCCL)", in_fresh_process,
                         "mesh_on_card") if built else None
     dry = phases.run("phase 8a: the dry-run over a fake 16x16 mesh, and its roofline",
@@ -3974,7 +4464,8 @@ def main() -> None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, build=built, kernels=rows, flash=flash_rows, ssd=ssd_rows,
-                 gmm=gmm_rows, flash_bwd=bwd_rows, training=training, serving=served, prefill=prefill, planes=planes,
+                 gmm=gmm_rows, flash_bwd=bwd_rows, grads=grad_rows, training=training,
+                 training_families=families, serving=served, prefill=prefill, planes=planes,
                  qwen3_moe=qwen,
                  deepseek_v2=deepseek, zamba2=zamba, whisper=whisper, qwen2_vl=vlm,
                  reduced=reduced, planner=planner, constants=constants,
@@ -3989,6 +4480,11 @@ def main() -> None:
     gmm_row = next(r for r in gmm_rows if all(r[k] == GMM_MAIN[k] for k in GMM_MAIN))
     granite_row = next(r for r in rows if all(r[k] == GRANITE_SHAPE[k] for k in GRANITE_SHAPE))
     bwd_row = next(r for r in bwd_rows if all(r[k] == BWD_MAIN[k] for k in BWD_MAIN))
+    ssd_bwd_row = next(r for r in grad_rows["ssd"]
+                       if all(r[k] == SSD_BWD_MAIN[k] for k in SSD_BWD_MAIN))
+    gmm_grad_rows = {what: next(r for r in grad_rows["gmm"] if r["kernel"] == f"moe_gmm_{what}"
+                                and all(r[k] == GMM_BWD_MAIN[k] for k in GMM_BWD_MAIN))
+                     for what in ("dx", "dw")}
 
     def decode_shape(r):
         return {k: r[k] for k in ("model", "b", "h", "kh", "d", "t", "dtype", "body", "splits",
@@ -4015,6 +4511,13 @@ def main() -> None:
         "flash_attention_bwd": [shape_of(r, ("model", "b", "s", "sk", "h", "kh", "d", "case",
                                              "splits", "dkdv_ctas", "old_body", "old_body_ms"))
                                 for r in bwd_rows],
+        "ssd_scan_bwd": [shape_of(r, ("model", "b", "t", "h", "p", "n", "initial_state"))
+                         for r in grad_rows["ssd"]],
+        "moe_gmm_dx": [shape_of(r, ("model", "t", "e", "d_in", "d_out", "old_body",
+                                    "old_body_ms"))
+                       for r in grad_rows["gmm"] if r["kernel"] == "moe_gmm_dx"],
+        "moe_gmm_dw": [shape_of(r, ("model", "t", "e", "d_in", "d_out"))
+                       for r in grad_rows["gmm"] if r["kernel"] == "moe_gmm_dw"],
     }
     family_phases = {"3e zamba2-7b": zamba, "3f whisper-medium": whisper,
                      f"3g qwen2-vl-72b@{QWEN2_VL_LAYERS}": vlm}
@@ -4095,11 +4598,45 @@ def main() -> None:
         "bound_ms": bwd_row["bound_ms"],
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
-    }]
+    }, {
+        "name": "ssd_scan_bwd",
+        "body": ssd_bwd_row["body"],
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        # the gradient of the TPU kernel (XLA's of ssd_chunked_ref: no Pallas backward)
+        "replaces": "src/repro/kernels/ssd_scan.py:130",
+        "launches": families["mamba2-780m"]["by_body"]["ssd_scan_bwd"].get(ssd_bwd_row["body"], 0),
+        "max_abs_err": ssd_bwd_row["max_abs_err"],
+        "ms": ssd_bwd_row["kernel_ms"],
+        "plain_ms": ssd_bwd_row["plain_ms"],
+        "bound_ms": ssd_bwd_row["bound_ms"],
+        "bound_by": ssd_bwd_row["bound_by"],
+        "library_ms": None,
+    }] + [{
+        "name": f"moe_gmm_{what}",
+        "body": row["body"],
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        # the gradient of the TPU kernel (XLA's of moe_gmm_ref: no Pallas backward)
+        "replaces": "src/repro/kernels/moe_gmm.py:90",
+        "launches": sum(families["qwen3-moe-30b-a3b"]["by_body"][f"moe_gmm_{what}"].values()),
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for what, row in gmm_grad_rows.items()]
     for k in kernels:
         k.update(slice_shapes=slice_rows[k["name"]],
-                 launches_by_phase=phase_launches(k["name"]) if k["name"] != "flash_attention_bwd"
-                 else {f"6 {TRAIN_MODEL}@{training['layers']}": training["bwd_launches"]})
+                 launches_by_phase=phase_launches(k["name"]) if k["name"] in (
+                     "decode_attention", "flash_attention", "ssd_scan", "moe_gmm")
+                 else {f"6 {TRAIN_MODEL}@{training['layers']}": training["bwd_launches"]}
+                 if k["name"] == "flash_attention_bwd" else {})
+        for model, r in families.items():  # phase 6b's training runs
+            n = sum(r["by_body"].get(k["name"], {}).values())
+            if n:
+                k["launches_by_phase"][f"6b {model}@{r['layers']} (training)"] = n
     kernels[1]["launches_by_phase"][f"6 {TRAIN_MODEL}@{training['layers']} (training)"] = \
         training["launches"]["flash_attention"]
     # phase 7's runs over the (1, 1) NCCL mesh
@@ -4112,7 +4649,7 @@ def main() -> None:
         "flash_attention_bwd": {"7c mesh training": meshed["train"]["bwd_launches"]},
     }
     for k in kernels:
-        k["launches_by_phase"].update(mesh_phase[k["name"]])
+        k["launches_by_phase"].update(mesh_phase.get(k["name"], {}))
     # phase 7e: the partials path of a cache split along T (one rank's work
     # at n = 16 beside the whole kernel)
     kernels[0]["partials"] = meshed["partials"]

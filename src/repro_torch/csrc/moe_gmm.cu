@@ -54,9 +54,24 @@
 //   2e-4).  A 64 x 64 output tile per CTA of 256 threads, each a 4 x 4
 //   block, from 16-deep shared slices (x transposed), on the mma body's grid.
 //
+// The gradient (kernels/moe_gmm_bwd.py; the Pallas kernel has none, the
+// reference differentiates moe_gmm_ref with XLA):
+//
+// * dx = dy . w[e]^T runs on these bodies with trans_w set: w (E, d_out,
+//   d_in) as stored is read as each block's transpose, with no transposed
+//   copy.  wgmma takes w's slices K-major (one 64 x 128 TMA box a stage)
+//   with B's transpose bit off; mma stages them n-major and loads B with
+//   ldmatrix without .trans; fp32 stages them transposed.
+// * dw[e] = x_e^T . dy_e is a kernel of its own (gmm_wgrad_*): a grid of
+//   (d_in x d_out tiles, E), each CTA summing its tile over its group's
+//   rows in fp32 (x's slice is A transposed: ldmatrix .trans), its group
+//   found on the device as locate_tile finds it; an empty group writes
+//   zeros.  Bound by bytes at Qwen3-MoE's shapes: x and dy read once, every
+//   expert's dw (403 MB) written once, 175 us.
+//
 // What it does not do yet: a variant for a few rows per expert (decode
-// multiplies a whole 64-row half tile for one row), or a TMA store of the
-// output tile.
+// multiplies a whole 64-row half tile for one row), a TMA store of the
+// output tile, or dw on wgmma.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
@@ -129,6 +144,7 @@ constexpr int BK = 32;     // depth of one shared slice
 constexpr int NT = 128;    // 4 warps, 2 x 2, each 32 x 64
 constexpr int AS = BK + 8; // row stride of the x slice (elements): a 16-byte pad
 constexpr int WS = BN + 8; // row stride of the w slice
+constexpr int WT = BK + 8; // row stride of a transposed w slice (n-major)
 
 using hopper::cp_async16;
 using hopper::cp_async_commit;
@@ -137,13 +153,15 @@ using hopper::ldsm_x4_trans;
 using hopper::mma_bf16;
 
 // VEC: d_in and d_out are whole 16-byte vectors and x, w are 16-byte aligned.
-template <bool VEC>
+// TW: w is (E, d_out, d_in) and each expert's block is read as its
+// transpose (the input gradient: dy . w[e]^T), staged n-major.
+template <bool VEC, bool TW>
 __global__ void __launch_bounds__(NT) gmm_bf16_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out, int T, int E, int d_in,
     int d_out) {
   __shared__ __align__(16) __nv_bfloat16 Xs[2][BM * AS];
-  __shared__ __align__(16) __nv_bfloat16 Ws[2][BK * WS];
+  __shared__ __align__(16) __nv_bfloat16 Ws[2][TW ? BN * WT : BK * WS];
   const Tile tile = locate_tile<BM>(group_sizes, E, T, blockIdx.x);
   if (tile.expert < 0) return;
   const int rows = tile.row1 - tile.row0;
@@ -164,10 +182,18 @@ __global__ void __launch_bounds__(NT) gmm_bf16_kernel(
         const bool ok = r < rows && k0 + c < d_in;
         cp_async16(&Xs[s][r * AS + c], ok ? xb + (size_t)r * d_in + k0 + c : x, ok);
       }
-      for (int i = tid; i < BK * BN / 8; i += NT) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        const bool ok = k0 + r < d_in && n0 + c < d_out;
-        cp_async16(&Ws[s][r * WS + c], ok ? wb + (size_t)(k0 + r) * d_out + n0 + c : w, ok);
+      if (TW) {
+        for (int i = tid; i < BN * BK / 8; i += NT) {
+          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+          const bool ok = n0 + r < d_out && k0 + c < d_in;
+          cp_async16(&Ws[s][r * WT + c], ok ? wb + (size_t)(n0 + r) * d_in + k0 + c : w, ok);
+        }
+      } else {
+        for (int i = tid; i < BK * BN / 8; i += NT) {
+          const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+          const bool ok = k0 + r < d_in && n0 + c < d_out;
+          cp_async16(&Ws[s][r * WS + c], ok ? wb + (size_t)(k0 + r) * d_out + n0 + c : w, ok);
+        }
       }
     } else {
       for (int i = tid; i < BM * BK; i += NT) {
@@ -175,9 +201,15 @@ __global__ void __launch_bounds__(NT) gmm_bf16_kernel(
         Xs[s][r * AS + c] = r < rows && k0 + c < d_in ? xb[(size_t)r * d_in + k0 + c] : zero;
       }
       for (int i = tid; i < BK * BN; i += NT) {
-        const int r = i / BN, c = i % BN;
-        Ws[s][r * WS + c] =
-            k0 + r < d_in && n0 + c < d_out ? wb[(size_t)(k0 + r) * d_out + n0 + c] : zero;
+        if (TW) {
+          const int r = i / BK, c = i % BK;
+          Ws[s][r * WT + c] =
+              n0 + r < d_out && k0 + c < d_in ? wb[(size_t)(n0 + r) * d_in + k0 + c] : zero;
+        } else {
+          const int r = i / BN, c = i % BN;
+          Ws[s][r * WS + c] =
+              k0 + r < d_in && n0 + c < d_out ? wb[(size_t)(k0 + r) * d_out + n0 + c] : zero;
+        }
       }
     }
     cp_async_commit();
@@ -212,8 +244,12 @@ __global__ void __launch_bounds__(NT) gmm_bf16_kernel(
 #pragma unroll
       for (int nj = 0; nj < 8; nj += 2) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(b0, b1, b2, b3,
-                      ws + (kk * 16 + lr + 8 * (lm & 1)) * WS + wn * 64 + nj * 8 + 8 * (lm >> 1));
+        if (TW)
+          ldsm_x4(b0, b1, b2, b3,
+                  ws + (wn * 64 + nj * 8 + lr + 8 * (lm >> 1)) * WT + kk * 16 + 8 * (lm & 1));
+        else
+          ldsm_x4_trans(b0, b1, b2, b3,
+                        ws + (kk * 16 + lr + 8 * (lm & 1)) * WS + wn * 64 + nj * 8 + 8 * (lm >> 1));
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           mma_bf16(acc[mi][nj], a[mi], b0, b1);
@@ -256,6 +292,7 @@ constexpr int F_NT = 256;         // 16 x 16 threads, each a 4 x 4 block
 constexpr int F_XS = F_BM + 4;    // row stride of the transposed x slice (float4-aligned)
 constexpr int F_WS = F_BN + 4;    // row stride of the w slice
 
+template <bool TW>
 __global__ void __launch_bounds__(F_NT) gmm_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const int* __restrict__ group_sizes,
     float* __restrict__ out, int T, int E, int d_in, int d_out) {
@@ -281,9 +318,15 @@ __global__ void __launch_bounds__(F_NT) gmm_f32_kernel(
       Xt[k * F_XS + r] = r < rows && k0 + k < d_in ? xb[(size_t)r * d_in + k0 + k] : 0.f;
     }
     for (int i = tid; i < F_BK * F_BN; i += F_NT) {
-      const int k = i / F_BN, c = i % F_BN;
-      Ws[k * F_WS + c] =
-          k0 + k < d_in && n0 + c < d_out ? wb[(size_t)(k0 + k) * d_out + n0 + c] : 0.f;
+      if (TW) {  // neighbouring threads, neighbouring k of w's rows
+        const int k = i % F_BK, c = i / F_BK;
+        Ws[k * F_WS + c] =
+            k0 + k < d_in && n0 + c < d_out ? wb[(size_t)(n0 + c) * d_in + k0 + k] : 0.f;
+      } else {
+        const int k = i / F_BN, c = i % F_BN;
+        Ws[k * F_WS + c] =
+            k0 + k < d_in && n0 + c < d_out ? wb[(size_t)(k0 + k) * d_out + n0 + c] : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -309,6 +352,207 @@ __global__ void __launch_bounds__(F_NT) gmm_f32_kernel(
     for (int j = 0; j < 4; ++j) {
       const int c = n0 + tx * 4 + j;
       if (c < d_out) orow[c] = acc[i][j];
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// the weight gradient: dw[e] = x_e^T . dy_e, one (d_in, d_out) sum per expert
+// ---------------------------------------------------------------------------
+// Rows [start, end) of expert e's group, as locate_tile assigns them; warp 0
+// does the walk, every thread of the CTA calls it.
+__device__ void group_rows(const int* __restrict__ group_sizes, int E, int T, int e, int& start,
+                           int& end) {
+  __shared__ int info[2];
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    int rows_before = 0;
+    for (int base = 0; base < E && base <= e; base += 32) {
+      const int g = base + tid;
+      const int size = g < E ? min(max(group_sizes[g], 0), T) : 0;
+      const int rows_incl = warp_scan(size, tid);
+      if (g == e) {
+        info[0] = min(rows_before + rows_incl - size, T);
+        info[1] = e == E - 1 ? T : min(rows_before + rows_incl, T);
+      }
+      rows_before = min(rows_before + __shfl_sync(FULL, rows_incl, 31), T);
+    }
+  }
+  __syncthreads();
+  start = info[0];
+  end = info[1];
+}
+
+// bf16 on mma.sync: a BM (d_in) x BN (d_out) tile of dw[e] per CTA of 4
+// warps, each 32 x 64, summed in fp32 over the group's rows in BK-deep
+// slices (x's slice k-major is A transposed, dy's is B), through a
+// two-stage cp.async ring; rows past the group's end load as 0, so an empty
+// group writes zeros.  Grid (d_in tiles x d_out tiles, E).
+constexpr int XT = BM + 8;  // row stride of the x slice (d_in wide)
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT) gmm_wgrad_bf16_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+    const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ dw, int T, int E, int d_in,
+    int d_out) {
+  __shared__ __align__(16) __nv_bfloat16 Xs[2][BK * XT];
+  __shared__ __align__(16) __nv_bfloat16 Ds[2][BK * WS];
+  const int e = blockIdx.y;
+  int start, end;
+  group_rows(group_sizes, E, T, e, start, end);
+  const int tiles_n = (d_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  auto load = [&](int s, int r0) {
+    if (VEC) {
+      for (int i = tid; i < BK * BM / 8; i += NT) {
+        const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+        const bool ok = r0 + r < end && m0 + c < d_in;
+        cp_async16(&Xs[s][r * XT + c], ok ? x + (size_t)(r0 + r) * d_in + m0 + c : x, ok);
+      }
+      for (int i = tid; i < BK * BN / 8; i += NT) {
+        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+        const bool ok = r0 + r < end && n0 + c < d_out;
+        cp_async16(&Ds[s][r * WS + c], ok ? dy + (size_t)(r0 + r) * d_out + n0 + c : dy, ok);
+      }
+    } else {
+      for (int i = tid; i < BK * BM; i += NT) {
+        const int r = i / BM, c = i % BM;
+        Xs[s][r * XT + c] = r0 + r < end && m0 + c < d_in ? x[(size_t)(r0 + r) * d_in + m0 + c]
+                                                         : zero;
+      }
+      for (int i = tid; i < BK * BN; i += NT) {
+        const int r = i / BN, c = i % BN;
+        Ds[s][r * WS + c] =
+            r0 + r < end && n0 + c < d_out ? dy[(size_t)(r0 + r) * d_out + n0 + c] : zero;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
+
+  const int nk = (end - start + BK - 1) / BK;
+  if (nk > 0) load(0, start);
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk)
+      load((kt + 1) & 1, start + (kt + 1) * BK);
+    else
+      cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* xs = Xs[kt & 1];
+    const __nv_bfloat16* ds = Ds[kt & 1];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)  // A (m, k) = x[k][m]: the transposed slice
+        ldsm_x4_trans(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
+                      xs + (kk * 16 + lr + 8 * (lm >> 1)) * XT + wm * 32 + mi * 16 + 8 * (lm & 1));
+#pragma unroll
+      for (int nj = 0; nj < 8; nj += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(b0, b1, b2, b3,
+                      ds + (kk * 16 + lr + 8 * (lm & 1)) * WS + wn * 64 + nj * 8 + 8 * (lm >> 1));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][nj], a[mi], b0, b1);
+          mma_bf16(acc[mi][nj + 1], a[mi], b2, b3);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  __nv_bfloat16* we = dw + (size_t)e * d_in * d_out;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + wm * 32 + mi * 16 + g + 8 * hf;
+      if (m >= d_in) continue;
+      __nv_bfloat16* row = we + (size_t)m * d_out;
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        const int c = n0 + wn * 64 + nj * 8 + 2 * t4;
+        const float v0 = acc[mi][nj][2 * hf], v1 = acc[mi][nj][2 * hf + 1];
+        if (VEC) {
+          if (c < d_out) *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < d_out) row[c] = __float2bfloat16(v0);
+          if (c + 1 < d_out) row[c + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+}
+
+// fp32 on the CUDA cores: a 64 x 64 tile of dw[e] per CTA of 256 threads,
+// each a 4 x 4 block, over 16-row slices.  Grid (d_in tiles x d_out tiles, E).
+__global__ void __launch_bounds__(F_NT) gmm_wgrad_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy, const int* __restrict__ group_sizes,
+    float* __restrict__ dw, int T, int E, int d_in, int d_out) {
+  __shared__ __align__(16) float Xs[F_BK * F_XS];  // x slice: row-major, d_in along the row
+  __shared__ __align__(16) float Ds[F_BK * F_WS];
+  const int e = blockIdx.y;
+  int start, end;
+  group_rows(group_sizes, E, T, e, start, end);
+  const int tiles_n = (d_out + F_BN - 1) / F_BN;
+  const int m0 = (blockIdx.x / tiles_n) * F_BM, n0 = (blockIdx.x % tiles_n) * F_BN;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int r0 = start; r0 < end; r0 += F_BK) {
+    for (int i = tid; i < F_BK * F_BM; i += F_NT) {
+      const int k = i / F_BM, c = i % F_BM;
+      Xs[k * F_XS + c] = r0 + k < end && m0 + c < d_in ? x[(size_t)(r0 + k) * d_in + m0 + c] : 0.f;
+    }
+    for (int i = tid; i < F_BK * F_BN; i += F_NT) {
+      const int k = i / F_BN, c = i % F_BN;
+      Ds[k * F_WS + c] =
+          r0 + k < end && n0 + c < d_out ? dy[(size_t)(r0 + k) * d_out + n0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < F_BK; ++k) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + k * F_XS + ty * 4);
+      const float4 dv = *reinterpret_cast<const float4*>(Ds + k * F_WS + tx * 4);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+      const float da[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], da[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* we = dw + (size_t)e * d_in * d_out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= d_in) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx * 4 + j;
+      if (c < d_out) we[(size_t)m * d_out + c] = acc[i][j];
     }
   }
 }
@@ -344,6 +588,9 @@ __device__ __forceinline__ int expert_of(const int* tiles_end, int E, int rt) {
   return lo;
 }
 
+// TW: w is (E, d_out, d_in), read as each block's transpose: its slices
+// arrive K-major (one 64 x 128 box a stage) and B's transpose bit is 0.
+template <bool TW>
 __global__ void __launch_bounds__(THREADS, 1) gmm_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
     const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out, int T, int E,
@@ -408,10 +655,14 @@ __global__ void __launch_bounds__(THREADS, 1) gmm_wgmma_kernel(
           uint8_t* st = smem + s * STAGE_BYTES;
           hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
           hopper::tma_load_2d(st, &xmap, &full[s], kb * BK, row0);
+          if (TW) {
+            hopper::tma_load_3d(st + X_BYTES, &wmap, &full[s], kb * BK, n0, e);
+          } else {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            hopper::tma_load_3d(st + X_BYTES + c * W_BLOCK, &wmap, &full[s], n0 + 64 * c,
-                                kb * BK, e);
+            for (int c = 0; c < BN / 64; ++c)
+              hopper::tma_load_3d(st + X_BYTES + c * W_BLOCK, &wmap, &full[s], n0 + 64 * c,
+                                  kb * BK, e);
+          }
         }
       }
     }
@@ -439,8 +690,13 @@ __global__ void __launch_bounds__(THREADS, 1) gmm_wgmma_kernel(
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk) {
             const uint64_t da = hopper::desc_sw128(st + wgi * 64 * 128 + kk * 32, 16, 1024);
-            const uint64_t db = hopper::desc_sw128(st + X_BYTES + kk * 16 * 128, W_BLOCK, 1024);
-            hopper::wgmma_ss<BN, 1>(acc, da, db, kb > 0 || kk > 0);
+            if (TW) {
+              const uint64_t db = hopper::desc_sw128(st + X_BYTES + kk * 32, 16, 1024);
+              hopper::wgmma_ss<BN, 0>(acc, da, db, kb > 0 || kk > 0);
+            } else {
+              const uint64_t db = hopper::desc_sw128(st + X_BYTES + kk * 16 * 128, W_BLOCK, 1024);
+              hopper::wgmma_ss<BN, 1>(acc, da, db, kb > 0 || kk > 0);
+            }
           }
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
@@ -463,30 +719,33 @@ __global__ void __launch_bounds__(THREADS, 1) gmm_wgmma_kernel(
 }
 
 cudaError_t launch(const void* x, const void* w, const int* gs, void* out, int T, int E, int d_in,
-                   int d_out, cudaStream_t stream) {
+                   int d_out, bool tw, cudaStream_t stream) {
   if (d_in == 0) return cudaMemsetAsync(out, 0, (size_t)T * d_out * 2, stream);
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[2] = {(cuuint64_t)d_in, (cuuint64_t)T};
   const cuuint64_t xstrides[1] = {(cuuint64_t)d_in * 2};
   const cuuint32_t xbox[2] = {64, BM};
-  const cuuint64_t wdims[3] = {(cuuint64_t)d_out, (cuuint64_t)d_in, (cuuint64_t)E};
-  const cuuint64_t wstrides[2] = {(cuuint64_t)d_out * 2, (cuuint64_t)d_in * d_out * 2};
-  const cuuint32_t wbox[3] = {64, BK, 1};
+  // w's rows: d_in of d_out (the forward), or d_out of d_in (tw); the box
+  // is 64 wide along the contiguous dimension either way
+  const cuuint64_t wdims[3] = {(cuuint64_t)(tw ? d_in : d_out), (cuuint64_t)(tw ? d_out : d_in),
+                               (cuuint64_t)E};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)(tw ? d_in : d_out) * 2,
+                                  (cuuint64_t)d_in * d_out * 2};
+  const cuuint32_t wbox[3] = {64, (cuuint32_t)(tw ? BN : BK), 1};
   cudaError_t e = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstrides, xbox);
   if (e == cudaSuccess) e = hopper::encode_bf16_map(&wmap, w, 3, wdims, wstrides, wbox);
   if (e != cudaSuccess) return e;
   const size_t smem = smem_bytes(E);
-  e = cudaFuncSetAttribute(gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  auto kernel = tw ? gmm_wgmma_kernel<true> : gmm_wgmma_kernel<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   // one CTA per SM, or fewer when there are fewer tiles than SMs
   const long long tiles = ((T + BM - 1) / BM + (long long)E) * ((d_out + BN - 1) / BN);
   const int sms = hopper::sm_count();
   if (sms == 0) return cudaErrorInvalidDevice;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  gmm_wgmma_kernel<<<grid, THREADS, smem, stream>>>(xmap, wmap, gs,
-                                                    static_cast<__nv_bfloat16*>(out), T, E,
-                                                    d_in, d_out);
+  kernel<<<grid, THREADS, smem, stream>>>(xmap, wmap, gs, static_cast<__nv_bfloat16*>(out), T, E,
+                                          d_in, d_out);
   return cudaGetLastError();
 }
 
@@ -499,13 +758,15 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // Dynamic shared memory of the wgmma body over E experts.
 extern "C" size_t moe_gmm_wgmma_smem_bytes(int E) { return wg::smem_bytes(E); }
 
-// x (T, d_in), w (E, d_in, d_out), out (T, d_out): contiguous, of one dtype
-// (0 = fp32, 1 = bf16); group_sizes (E,) int32 on the device, read only by
-// the kernel.  body: 0 = fp32, 1 = mma_elem, 2 = mma, 3 = wgmma (see the
-// note at the top); a body that cannot take these inputs is refused.
-// Returns a cudaError_t code, 0 on success.
+// x (T, d_in), w (E, d_in, d_out) or, with trans_w, (E, d_out, d_in) read
+// as each block's transpose (the input gradient dy . w[e]^T: x is dy, out
+// is dx), out (T, d_out): contiguous, of one dtype (0 = fp32, 1 = bf16);
+// group_sizes (E,) int32 on the device, read only by the kernel.  body: 0 =
+// fp32, 1 = mma_elem, 2 = mma, 3 = wgmma (see the note at the top); a body
+// that cannot take these inputs is refused.  Returns a cudaError_t code, 0
+// on success.
 extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_sizes, void* out,
-                              int T, int E, int d_in, int d_out, int dtype, int body,
+                              int T, int E, int d_in, int d_out, int dtype, int body, int trans_w,
                               void* stream) {
   if (T < 0 || E <= 0 || d_in < 0 || d_out < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -520,23 +781,56 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_si
   if (T == 0 || d_out == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
-  if (body == 3) return (int)wg::launch(x, w, gs, out, T, E, d_in, d_out, s);
+  const bool tw = trans_w != 0;
+  if (body == 3) return (int)wg::launch(x, w, gs, out, T, E, d_in, d_out, tw, s);
   const int bm = dtype == 0 ? F_BM : BM, bn = dtype == 0 ? F_BN : BN;
   // the static grid: every row tile a group can need, and no more than T
   const long long row_tiles = (T + bm - 1) / bm + (long long)E;
   dim3 grid((unsigned)(row_tiles < T ? row_tiles : T), (d_out + bn - 1) / bn);
   if (body == 0) {
-    gmm_f32_kernel<<<grid, F_NT, 0, s>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(w), gs,
-                                         static_cast<float*>(out), T, E, d_in, d_out);
+    auto kernel = tw ? gmm_f32_kernel<true> : gmm_f32_kernel<false>;
+    kernel<<<grid, F_NT, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(w), gs,
+                                 static_cast<float*>(out), T, E, d_in, d_out);
   } else {
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-    if (body == 2)
-      gmm_bf16_kernel<true><<<grid, NT, 0, s>>>(xb, wb, gs, ob, T, E, d_in, d_out);
-    else
-      gmm_bf16_kernel<false><<<grid, NT, 0, s>>>(xb, wb, gs, ob, T, E, d_in, d_out);
+    auto kernel = body == 2 ? (tw ? gmm_bf16_kernel<true, true> : gmm_bf16_kernel<true, false>)
+                            : (tw ? gmm_bf16_kernel<false, true> : gmm_bf16_kernel<false, false>);
+    kernel<<<grid, NT, 0, s>>>(xb, wb, gs, ob, T, E, d_in, d_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The weight gradient: x (T, d_in) and dy (T, d_out) sorted by expert, dw
+// (E, d_in, d_out) written whole (zeros for an empty group), all contiguous
+// and of one dtype (0 = fp32, 1 = bf16); group_sizes as above.  body: 0 =
+// fp32, 1 = mma_elem, 2 = mma (d_in and d_out whole 16-byte vectors, x, dy
+// and dw 16-byte aligned).  Returns a cudaError_t code, 0 on success.
+extern "C" int moe_gmm_wgrad_launch(const void* x, const void* dy, const void* group_sizes,
+                                    void* dw, int T, int E, int d_in, int d_out, int dtype,
+                                    int body, void* stream) {
+  if (T < 0 || E <= 0 || d_in < 0 || d_out < 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = d_in % 8 == 0 && d_out % 8 == 0 && aligned16(x) && aligned16(dy) &&
+                   aligned16(dw);
+  const bool ok = body == 0 ? dtype == 0 : body == 1 ? dtype == 1 : body == 2 ? dtype == 1 && vec
+                                                                             : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (d_in == 0 || d_out == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* gs = static_cast<const int*>(group_sizes);
+  if (body == 0) {
+    const dim3 grid(((d_in + F_BM - 1) / F_BM) * ((d_out + F_BN - 1) / F_BN), E);
+    gmm_wgrad_f32_kernel<<<grid, F_NT, 0, s>>>(static_cast<const float*>(x),
+                                               static_cast<const float*>(dy), gs,
+                                               static_cast<float*>(dw), T, E, d_in, d_out);
+  } else {
+    const dim3 grid(((d_in + BM - 1) / BM) * ((d_out + BN - 1) / BN), E);
+    auto kernel = body == 2 ? gmm_wgrad_bf16_kernel<true> : gmm_wgrad_bf16_kernel<false>;
+    kernel<<<grid, NT, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
+                               static_cast<const __nv_bfloat16*>(dy), gs,
+                               static_cast<__nv_bfloat16*>(dw), T, E, d_in, d_out);
   }
   return (int)cudaGetLastError();
 }

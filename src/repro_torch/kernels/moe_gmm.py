@@ -19,9 +19,13 @@ the expert count; a caller may name one with ``body=`` to time or test it.
 ``moe_gmm`` launches the kernel for CUDA tensors and counts each launch in
 the module-level ``launches`` and, by body, in ``launches_by_body``; for CPU
 tensors it runs ``moe_gmm_plain``.  There is no fallback: a CUDA input that
-no body takes, or a named body that cannot take it, raises, and so does a
-CUDA call under grad mode with an input that requires grad (no backward
-kernel yet).
+no body takes, or a named body that cannot take it, raises.
+
+Under grad mode, when x or w requires grad, the call goes through
+:class:`MoeGmm`, a ``torch.autograd.Function`` whose backward is the
+hand-written gradient (:mod:`repro_torch.kernels.moe_gmm_bwd`: dx on this
+kernel with w read as its transpose, dw on a kernel of its own); on CPU
+tensors, the plain twins.  The result is differentiable either way.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._autograd import refuse_grad
+from repro_torch.kernels._autograd import wants_grad
 from repro_torch.kernels.ref import grouped_matmul
 
 #: Kernel launches since import (or since the caller last reset it).
@@ -82,9 +86,11 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -
     return grouped_matmul(x, w, group_sizes, True)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
-    """Shapes, dtypes, devices and layout; reads no value of any tensor."""
-    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+           trans_w: bool = False) -> None:
+    """Shapes, dtypes, devices and layout; reads no value of any tensor.
+    ``trans_w``: w is read as each block's transpose, (E, d_out, d_in)."""
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[2 if trans_w else 1]:
         raise ValueError(
             f"want x (T, d_in) and w (E, d_in, d_out); got {tuple(x.shape)}, {tuple(w.shape)}"
         )
@@ -111,26 +117,19 @@ def _entry():
     fn = _build.load("moe_gmm").moe_gmm_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return fn
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
-            body: Optional[str] = None) -> torch.Tensor:
-    """x: (T, d_in) rows sorted by expert; w: (E, d_in, d_out); group_sizes:
-    (E,) int32 summing to T → (T, d_out) in x's dtype.  CUDA tensors launch
-    the kernel on the current stream without reading ``group_sizes`` on the
-    host, through ``body`` (one of ``BODIES``) or, when it is None, the body
-    :func:`body_for` picks; CPU tensors take :func:`moe_gmm_plain`."""
-    global launches
-    if x.device.type == "cpu":
-        return moe_gmm_plain(x, w, group_sizes)
-    if x.device.type != "cuda":
-        raise ValueError(f"moe_gmm runs on CUDA or CPU, not {x.device}")
-    refuse_grad("moe_gmm", x, w)
-    _check(x, w, group_sizes)
+def launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, body: Optional[str],
+           trans_w: bool = False) -> Tuple[torch.Tensor, Optional[str]]:
+    """The kernel on CUDA tensors: (x @ w[e] for each group, or with
+    ``trans_w`` x @ w[e]ᵀ, the body that ran or None where nothing was
+    launched).  It counts nothing: its callers do."""
+    _check(x, w, group_sizes, trans_w)
     t, d_in = x.shape
-    e, _, d_out = w.shape
+    e = w.shape[0]
+    d_out = w.shape[1 if trans_w else 2]
     out = x.new_empty((t, d_out))
     aligned = all(z.data_ptr() % 16 == 0 for z in (x, w, out))
     found = bodies_for(x.dtype, d_in, d_out, aligned, e)
@@ -140,14 +139,64 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         raise ValueError(f"the {body!r} body does not take {x.dtype} {d_in}->{d_out} over {e} "
                          f"experts{'' if aligned else ' (unaligned)'}; bodies that do: {found}")
     if out.numel() == 0:  # nothing to compute: no launch
-        return out
+        return out, None
     fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-                t, e, d_in, d_out, _DTYPES[x.dtype], BODIES[body], stream)
+                t, e, d_in, d_out, _DTYPES[x.dtype], BODIES[body], int(trans_w), stream)
     if rc != 0:
-        raise RuntimeError(f"moe_gmm kernel ({body}) launch failed: cudaError {rc}")
-    launches += 1
-    launches_by_body[body] = launches_by_body.get(body, 0) + 1
+        raise RuntimeError(f"moe_gmm kernel ({body}{', w transposed' if trans_w else ''}) "
+                           f"launch failed: cudaError {rc}")
+    return out, body
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+             body: Optional[str]) -> torch.Tensor:
+    """The kernel, counted, on CUDA tensors; the plain twin on CPU ones."""
+    global launches
+    if x.device.type == "cpu":
+        return moe_gmm_plain(x, w, group_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm runs on CUDA or CPU, not {x.device}")
+    out, ran = launch(x, w, group_sizes, body)
+    if ran is not None:
+        launches += 1
+        launches_by_body[ran] = launches_by_body.get(ran, 0) + 1
     return out
+
+
+class MoeGmm(torch.autograd.Function):
+    """The grouped matmul with its gradient: on CUDA tensors the forward
+    kernel and the backward kernels of :mod:`moe_gmm_bwd`, on CPU tensors
+    their plain twins."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, body):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _forward(x, w, group_sizes, body)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels import moe_gmm_bwd as _bwd  # it imports this module
+
+        x, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = _bwd.moe_gmm_dx(dy, w, group_sizes) if ctx.needs_input_grad[0] else None
+        dw = (_bwd.moe_gmm_dw(x, dy, group_sizes, w.shape[0]) if ctx.needs_input_grad[1]
+              else None)
+        return dx, dw, None, None
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+            body: Optional[str] = None) -> torch.Tensor:
+    """x: (T, d_in) rows sorted by expert; w: (E, d_in, d_out); group_sizes:
+    (E,) int32 summing to T → (T, d_out) in x's dtype.  CUDA tensors launch
+    the kernel on the current stream without reading ``group_sizes`` on the
+    host, through ``body`` (one of ``BODIES``) or, when it is None, the body
+    :func:`body_for` picks; CPU tensors take :func:`moe_gmm_plain`.  Under
+    grad mode with x or w requiring grad, the result is differentiable
+    (:class:`MoeGmm`)."""
+    if wants_grad(x, w):
+        return MoeGmm.apply(x, w, group_sizes, body)
+    return _forward(x, w, group_sizes, body)

@@ -229,7 +229,11 @@ def ssd_chunked_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD in the dual (attention-like) form, in fp32: per chunk of
     L steps a masked (L×L) product plus a carried (P×N) state.  Padded
-    steps get dt = 0, so they neither decay nor feed the state."""
+    steps get dt = 0, so they neither decay nor feed the state.  The mask
+    goes into the exponent (−inf above the diagonal): there s_i − s_j > 0
+    passes exp's fp32 range at full width (a·dt summed over a chunk), and
+    a mask applied after the exp would send 0 × inf = NaN into the
+    gradient."""
     bs, t, h, p = x.shape
     n = b.shape[-1]
     chunk = min(chunk, t)
@@ -253,11 +257,11 @@ def ssd_chunked_ref(
     for ci in range(nchunks):
         xc, dtc, bc, cc = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci]
         s = torch.cumsum(a[None, None, :] * dtc, dim=1)             # (B,L,H)
-        gamma = torch.where(
+        gamma = torch.exp(torch.where(
             causal[None, :, :, None],
-            torch.exp(s[:, :, None, :] - s[:, None, :, :]),
-            torch.zeros((), device=x.device),
-        ) * dtc[:, None, :, :]                                       # (B,L,L,H)
+            s[:, :, None, :] - s[:, None, :, :],
+            torch.full((), float("-inf"), device=x.device),
+        )) * dtc[:, None, :, :]                                      # (B,L,L,H)
         cb = torch.einsum("blhn,bmhn->blmh", cc, bc)
         y_intra = torch.einsum("blmh,bmhp->blhp", cb * gamma, xc)
         y_inter = torch.exp(s)[..., None] * torch.einsum("bhpn,blhn->blhp", state, cc)

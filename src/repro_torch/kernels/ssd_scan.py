@@ -21,9 +21,15 @@ may name one with ``body=``.
 the module-level ``launches`` (one per call, whatever the body launches)
 and, by body, in ``launches_by_body``; for CPU tensors it runs
 ``ssd_scan_plain``.  There is no fallback: a CUDA input that the kernel
-does not take, or a named body that cannot take it, raises, and so does a
-CUDA call under grad mode with an input that requires grad (the kernel
-has no backward yet).
+does not take, or a named body that cannot take it, raises.
+
+Under grad mode, when an input requires grad, the call goes through
+:class:`SsdScan`, a ``torch.autograd.Function``: its forward is the
+chunked body, which then also leaves the fp32 state entering each chunk
+(B, n_chunks, H, P, N) for the backward, and its backward is the
+hand-written gradient kernel (:mod:`repro_torch.kernels.ssd_scan_bwd`); on
+CPU tensors, the plain forward, its steps (a) and (b) for those states, and
+the plain backward.  The result is differentiable either way.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._autograd import refuse_grad
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels._autograd import wants_grad
 
 #: Kernel calls since import (or since the caller last reset it).
 launches = 0
@@ -86,7 +92,7 @@ def body_for(dtype: torch.dtype, p: int, n: int, chunk: int, bh: int, sms: int) 
     return found[0]
 
 
-def _in_chunks(z: torch.Tensor, length: int) -> torch.Tensor:
+def in_chunks(z: torch.Tensor, length: int) -> torch.Tensor:
     """(B, T, ...) → (B, n_chunks, length, ...) in fp32, zeros past T."""
     t = z.shape[1]
     pad = -(-t // length) * length - t
@@ -96,7 +102,7 @@ def _in_chunks(z: torch.Tensor, length: int) -> torch.Tensor:
 
 def _cumsum(dt: torch.Tensor, a: torch.Tensor, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """dt in chunks (B, n_chunks, L, H) and s = cumsum(a dt) within each."""
-    dtc = _in_chunks(dt, length)
+    dtc = in_chunks(dt, length)
     return dtc, torch.cumsum(a[None, None, None, :] * dtc, dim=2)
 
 
@@ -107,7 +113,7 @@ def ssd_chunk_states_plain(x, dt, a, b, *, chunk: int = 128) -> Tuple[torch.Tens
     length = chunk_length(chunk, x.shape[1])
     dtc, s = _cumsum(dt, a, length)
     w = torch.exp(s[:, :, -1:, :] - s) * dtc
-    xc, bc = _in_chunks(x, length), _in_chunks(b, length)
+    xc, bc = in_chunks(x, length), in_chunks(b, length)
     states = torch.einsum("bclhp,bclhn->bchpn", xc * w[..., None], bc)
     return states, torch.exp(s[:, :, -1, :])
 
@@ -133,7 +139,7 @@ def ssd_chunk_out_plain(x, dt, a, b, c, s_in, *, chunk: int = 128) -> torch.Tens
     bs, t, h, p = x.shape
     length = chunk_length(chunk, t)
     dtc, s = _cumsum(dt, a, length)
-    xc, bc, cc = (_in_chunks(z, length) for z in (x, b, c))
+    xc, bc, cc = (in_chunks(z, length) for z in (x, b, c))
     li = torch.arange(length, device=x.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
     gamma = torch.where(causal, torch.exp(s[:, :, :, None, :] - s[:, :, None, :, :]),
@@ -212,10 +218,108 @@ def _entry():
     fn, smem_bytes = lib.ssd_scan_launch, lib.ssd_scan_smem_bytes
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         smem_bytes.restype = ctypes.c_size_t
         smem_bytes.argtypes = [ctypes.c_int] * 5
     return fn, smem_bytes
+
+
+def _launch(x, dt, a, b, c, chunk, initial_state, body, keep):
+    """The kernel on CUDA tensors: (y, the final state, and with ``keep``
+    the fp32 states entering each chunk, else None).  ``keep`` runs the
+    chunked body, which leaves those states in its scratch."""
+    global launches
+    x, b, c = _prepare(x, dt, a, b, c, chunk, initial_state)
+    bs, t, h, p = x.shape
+    n = b.shape[3]
+    length = chunk_length(chunk, t)
+    props = torch.cuda.get_device_properties(x.device)
+    found = bodies_for(x.dtype, p, n, length, bs * h, props.multi_processor_count)
+    if keep:
+        if body not in (None, "chunked"):
+            raise ValueError(f"the gradient needs the chunked body, not {body!r}")
+        if "chunked" not in found:
+            raise ValueError(f"the gradient needs the chunked body, which does not take "
+                             f"{x.dtype} with P={p}, N={n} and chunk {length}")
+        body = "chunked"
+    if body is None:
+        body = found[0]
+    elif body not in found:
+        raise ValueError(f"the {body!r} body does not take {x.dtype} with P={p}, N={n} and "
+                         f"chunk {length}; bodies that do: {found}")
+    y = torch.empty_like(x)
+    state = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
+    nc = -(-t // length)
+
+    def kept():  # where no launch fills them: nothing to keep
+        return torch.empty((bs, nc, h, p, n), dtype=torch.float32, device=x.device)
+
+    if bs == 0 or h == 0:  # nothing to compute: no launch
+        return y, state, kept() if keep else None
+    fn, smem_bytes = _entry()
+    need = smem_bytes(length, p, n, _DTYPES[x.dtype], BODIES[body])
+    limit = props.shared_memory_per_block_optin
+    if need > limit:
+        raise ValueError(
+            f"the {body} body at chunk {length}, P={p}, N={n} needs {need} bytes of shared "
+            f"memory, more than the {limit} a block may use on this card"
+        )
+    # the chunked body's scratch: chunk states and decays in fp32 (the
+    # states entering each chunk when it is done: in fp32 always, in bf16
+    # with ``keep``) and, in bf16, those states as a bf16 high part and the
+    # rest
+    scratch = [None, None, None]
+    if body == "chunked" and t > 0:
+        scratch[:2] = [torch.empty(shape, dtype=torch.float32, device=x.device)
+                       for shape in ((bs, nc, h, p, n), (bs, nc, h))]
+        if x.dtype == torch.bfloat16:
+            scratch[2] = torch.empty((bs, nc, h, 2, p, n), dtype=torch.bfloat16, device=x.device)
+    init = initial_state.data_ptr() if initial_state is not None else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                init, y.data_ptr(), state.data_ptr(),
+                *(z.data_ptr() if z is not None else None for z in scratch),
+                bs, t, h, p, n, length, _DTYPES[x.dtype], BODIES[body], int(keep), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel ({body}) launch failed: cudaError {rc}")
+    launches += 1
+    launches_by_body[body] = launches_by_body.get(body, 0) + 1
+    if not keep:
+        return y, state, None
+    return y, state, scratch[0] if scratch[0] is not None else kept()
+
+
+class SsdScan(torch.autograd.Function):
+    """The SSD scan with its gradient: on CUDA tensors the chunked body
+    (keeping the fp32 states entering each chunk) and the backward kernel,
+    on CPU tensors their plain twins."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, initial_state, chunk, body):
+        if x.device.type == "cpu":
+            y, state = ssd_scan_plain(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
+            states = ssd_state_pass_plain(*ssd_chunk_states_plain(x, dt, a, b, chunk=chunk),
+                                          initial_state)[0]
+        else:
+            if x.device.type != "cuda":
+                raise ValueError(f"ssd_scan runs on CUDA or CPU, not {x.device}")
+            y, state, states = _launch(x, dt, a, b, c, chunk, initial_state, body, True)
+        ctx.save_for_backward(x, dt, a, b, c, initial_state, states)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, initial_state, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        from repro_torch.kernels import ssd_scan_bwd as _bwd  # it imports this module
+
+        dx, ddt, da, db, dc, d_init = _bwd.ssd_scan_bwd(
+            x, dt, a, b, c, initial_state, states, dy.contiguous(),
+            None if dstate is None else dstate.contiguous(), chunk=ctx.chunk)
+        return dx, ddt, da, db, dc, d_init, None, None
 
 
 def ssd_scan(
@@ -235,54 +339,13 @@ def ssd_scan(
     ``BODIES``) or, when it is None, the body :func:`body_for` picks; CPU
     tensors take :func:`ssd_scan_plain`.  Every body loads x, b and c 16
     bytes a thread: one off a 16-byte boundary is copied before the launch
-    (a copy, not another body)."""
-    global launches
+    (a copy, not another body).  Under grad mode with an input that
+    requires grad, the result is differentiable (:class:`SsdScan`, on the
+    chunked body)."""
+    if wants_grad(x, dt, a, b, c, initial_state):
+        return SsdScan.apply(x, dt, a, b, c, initial_state, chunk, body)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU, not {x.device}")
-    refuse_grad("ssd_scan", x, dt, a, b, c, initial_state)
-    x, b, c = _prepare(x, dt, a, b, c, chunk, initial_state)
-    bs, t, h, p = x.shape
-    n = b.shape[3]
-    length = chunk_length(chunk, t)
-    props = torch.cuda.get_device_properties(x.device)
-    found = bodies_for(x.dtype, p, n, length, bs * h, props.multi_processor_count)
-    if body is None:
-        body = found[0]
-    elif body not in found:
-        raise ValueError(f"the {body!r} body does not take {x.dtype} with P={p}, N={n} and "
-                         f"chunk {length}; bodies that do: {found}")
-    y = torch.empty_like(x)
-    state = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
-    if bs == 0 or h == 0:  # nothing to compute: no launch
-        return y, state
-    fn, smem_bytes = _entry()
-    need = smem_bytes(length, p, n, _DTYPES[x.dtype], BODIES[body])
-    limit = props.shared_memory_per_block_optin
-    if need > limit:
-        raise ValueError(
-            f"the {body} body at chunk {length}, P={p}, N={n} needs {need} bytes of shared "
-            f"memory, more than the {limit} a block may use on this card"
-        )
-    # the chunked body's scratch: chunk states and decays in fp32 and, in
-    # bf16, the states entering each chunk as a bf16 high part and the rest
-    scratch = [None, None, None]
-    if body == "chunked" and t > 0:
-        nc = -(-t // length)
-        scratch[:2] = [torch.empty(shape, dtype=torch.float32, device=x.device)
-                       for shape in ((bs, nc, h, p, n), (bs, nc, h))]
-        if x.dtype == torch.bfloat16:
-            scratch[2] = torch.empty((bs, nc, h, 2, p, n), dtype=torch.bfloat16, device=x.device)
-    init = initial_state.data_ptr() if initial_state is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                init, y.data_ptr(), state.data_ptr(),
-                *(z.data_ptr() if z is not None else None for z in scratch),
-                bs, t, h, p, n, length, _DTYPES[x.dtype], BODIES[body], stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel ({body}) launch failed: cudaError {rc}")
-    launches += 1
-    launches_by_body[body] = launches_by_body.get(body, 0) + 1
-    return y, state
+    return _launch(x, dt, a, b, c, chunk, initial_state, body, False)[:2]

@@ -7,11 +7,9 @@ data pipeline (every rank draws the same global batch and takes its rows)
 and writes checkpoints through ``training/checkpoint.py``: every rank
 gathers the params, rank 0 writes them.
 
-On a card the dense, VLM and audio families train through the flash
-kernels and their backward (``impl="auto"``); the SSM, hybrid and MoE
-families train on the plain path (``impl="ref"``, printed), as the
-reference trains every family: the SSD scan and the grouped matmul have
-no backward kernel yet (``training/train.py``'s ``NO_CARD_BACKWARD``).
+Every family trains with ``impl="auto"``: on a card through the
+hand-written kernels and their backward kernels (flash attention, the SSD
+scan, the grouped matmul), on the CPU through their plain twins.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mistral-nemo-12b --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m --device cpu --steps 5
@@ -34,7 +32,6 @@ from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import init_params
 from repro_torch.models import sharding
 from repro_torch.training import checkpoint, make_train_step, optimizer as opt
-from repro_torch.training.train import NO_CARD_BACKWARD
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -59,18 +56,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     mesh = (make_production_mesh(device=args.device) if args.production_mesh
             else make_debug_mesh(device=args.device))
     dev = mesh_device(mesh)
-    impl = "ref" if dev.type == "cuda" and cfg.arch_type in NO_CARD_BACKWARD else "auto"
     lead = dist.get_rank() == 0
     if lead:
         print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-              f"mesh={sharding.mesh_sizes(mesh)} device={dev.type} impl={impl}", flush=True)
+              f"mesh={sharding.mesh_sizes(mesh)} device={dev.type}", flush=True)
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     params = sharding.shard_tree(params, mesh, sharding.param_pspecs(mesh, params, cfg))
     state = opt.init(params)
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                            total_steps=args.steps)
-    step = make_train_step(cfg, ocfg, impl=impl, moe_dispatch=args.moe_dispatch, remat=False,
+    step = make_train_step(cfg, ocfg, moe_dispatch=args.moe_dispatch, remat=False,
                            accum_steps=args.accum, mesh=mesh)
     data = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
     dtype = getattr(torch, cfg.dtype)
@@ -101,7 +97,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         save(args.steps)
         if lead:
             print(f"checkpoint → {args.ckpt}", flush=True)
-    return dict(losses=losses, params=params, impl=impl)
+    return dict(losses=losses, params=params, impl="auto")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Step factories, mirroring ``repro.training.train``.
 
 * ``make_train_step``: (params, opt_state, batch) → (params, opt_state,
-  metrics): the gradient of ``next_token_loss`` by autograd (attention's
-  through the flash kernel and its hand-written backward on a card),
+  metrics): the gradient of ``next_token_loss`` by autograd (on a card
+  through the hand-written kernels and their backward kernels: flash
+  attention, the SSD scan and the grouped matmul),
   optional microbatch accumulation and per-layer rematerialisation, and
   an AdamW step.
 * ``make_serve_step``: the one-token decode step, (params, cache, tokens)
@@ -53,11 +54,6 @@ from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import ParamTree, decode_step, forward, next_token_loss
 from repro_torch.training import optimizer as opt
-
-#: The impls under which every op of the step is plain PyTorch.
-PLAIN_IMPLS = ("ref", "ref_grouped", "ref_chunked", "ref_sequential")
-#: The families whose kernels have no backward on the card yet.
-NO_CARD_BACKWARD = ("ssm", "hybrid", "moe")
 
 
 def _batch_on(batch: Mapping[str, torch.Tensor], dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -147,22 +143,11 @@ def make_train_step(
     ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)``), so
     attention (and, with a mesh, each weight's gather) runs again in the
     backward pass.  With a mesh the global batch must divide over the data
-    axes.
-
-    On a card, with ``impl`` "auto" or "kernel", the SSM, hybrid and MoE
-    families raise ``NotImplementedError``: the SSD scan and the grouped
-    matmul have no backward kernel yet (ROADMAP Queue 2).  A ``ref*`` impl
-    is plain PyTorch on any device."""
+    axes.  A ``ref*`` impl is plain PyTorch on any device."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1; got {accum_steps}")
     opt_cfg = opt_cfg or opt.AdamWConfig()
     dev = _device(mesh, device)
-    if dev.type == "cuda" and impl not in PLAIN_IMPLS and cfg.arch_type in NO_CARD_BACKWARD:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.arch_type}) cannot train on the card yet: the backward "
-            f"kernels of ssd_scan and moe_gmm are ROADMAP Queue 2; pass device='cpu' or "
-            f"impl='ref'"
-        )
 
     def loss_and_grads(view, batch: Dict[str, torch.Tensor]):
         loss = next_token_loss(view, batch, cfg, impl=impl, moe_dispatch=moe_dispatch,

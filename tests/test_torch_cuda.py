@@ -1076,30 +1076,290 @@ def test_train_step_on_card_equals_the_cpus(card, name, dtype):
         assert metrics["card"][key] == pytest.approx(metrics["cpu"][key], rel=tol)
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b", "qwen3-moe-30b-a3b"])
-def test_families_without_a_card_backward_raise(card, name):
-    from repro_torch.training import make_train_step
-
-    cfg = ARCHS[name].reduced(dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        make_train_step(cfg, device=card)
-    make_train_step(cfg, impl="ref", device=card)  # the caller's choice: plain PyTorch
+TRAIN_KERNEL_FAMILIES = ["mamba2-780m", "zamba2-7b", "qwen3-moe-30b-a3b"]
 
 
-def test_ssd_and_gmm_wrappers_raise_under_grad(card):
-    x = torch.zeros(1, 8, 2, 64, device=card, dtype=torch.bfloat16, requires_grad=True)
-    b = torch.zeros(1, 8, 2, 16, device=card, dtype=torch.bfloat16)
-    dt = torch.zeros(1, 8, 2, device=card)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ssd.ssd_scan(x, dt, torch.zeros(2, device=card), b, b)
+def kernel_counts():
+    """The launch counts of the SSD scan and the grouped matmul, forward
+    and backward."""
+    from repro_torch.kernels import moe_gmm_bwd as gb
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    return dict(ssd=ssd.launches, ssd_bwd=sb.launches, gmm=gmm.launches, dx=gb.dx_launches,
+                dw=gb.dw_launches)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", TRAIN_KERNEL_FAMILIES)
+def test_ssm_hybrid_moe_train_step_on_card_equals_the_cpus(card, name, dtype):
+    """The SSM, hybrid and MoE train steps on the card (the SSD scan's and
+    the grouped matmul's forward and backward kernels) against the CPU's
+    (the plain twins): loss, grad norm and per-leaf gradients, as the
+    dense test above holds them, and each kernel's launches a step."""
+    from repro_torch.training import make_train_step, optimizer as opt
+
+    cfg = ARCHS[name].reduced(dtype=dtype)
+    cpu = tm.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    gpu = tm.init_params(cfg, torch.Generator().manual_seed(4), "cpu").to(card)
+    batch = train_batch(cfg)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    grads = {}
+    for where, params in (("cpu", cpu), ("card", gpu)):
+        params.requires_grad_(True)
+        tm.next_token_loss(params, {"tokens": batch["tokens"].to(params["embed"].device)}, cfg,
+                           remat=True).backward()
+        grads[where] = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+    for n, want in grads["cpu"].items():
+        got = grads["card"][n]
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+        assert float(cos) >= 1 - tol, f"{n}: cosine {float(cos)}"
+    before = kernel_counts()
+    metrics = {}
+    for where, params in (("cpu", cpu), ("card", gpu)):
+        step = make_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1),
+                               device=params["embed"].device)
+        _, state, m = step(params, opt.init(params), batch)
+        assert int(state.step) == 1
+        metrics[where] = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in kernel_counts().items()}
+    ssm_layers = cfg.n_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    gmm_layers = cfg.n_layers if cfg.arch_type == "moe" else 0
+    # forward twice a layer (remat runs it again), backward once
+    assert ran == dict(ssd=2 * ssm_layers, ssd_bwd=ssm_layers, gmm=6 * gmm_layers,
+                       dx=3 * gmm_layers, dw=3 * gmm_layers), ran
+    for key in ("loss", "grad_norm", "lr"):
+        assert metrics["card"][key] == pytest.approx(metrics["cpu"][key], rel=tol)
+
+
+def test_decode_attention_refuses_grad_on_card(card):
+    """Decode attention serves inference and has no backward: under grad
+    mode with an input that requires grad it raises, and under no_grad it
+    launches."""
+    q = torch.zeros(1, 4, 64, device=card, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(1, 8, 4, 64, device=card, dtype=torch.bfloat16)
+    lens = torch.tensor([8], dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        da.decode_attention(q, k, k, lens)
     with torch.no_grad():
-        ssd.ssd_scan(x, dt, torch.zeros(2, device=card), b, b)
-    w = torch.zeros(2, 64, 32, device=card, dtype=torch.bfloat16, requires_grad=True)
-    sizes = torch.tensor([4, 4], dtype=torch.int32, device=card)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        gmm.moe_gmm(torch.zeros(8, 64, device=card, dtype=torch.bfloat16), w, sizes)
-    with torch.no_grad():
-        gmm.moe_gmm(torch.zeros(8, 64, device=card, dtype=torch.bfloat16), w, sizes)
+        da.decode_attention(q, k, k, lens)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's and the grouped matmul's backward kernels
+# ---------------------------------------------------------------------------
+def ssd_grad_close(got, want, dtype):
+    """chip_smoke.py's phase 2f check of an SSD gradient against the plain
+    backward's: tests/test_kernels.py's 5e-5 absolute and 5e-4 relative,
+    the absolute part scaled to the tensor's largest |want|; a gradient
+    the kernel writes in bf16 (dx, db, dc from bf16 inputs) within 2e-2 of
+    that largest value."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if dtype == torch.bfloat16:
+        return bool((err <= 2e-2 * scale).all())
+    return bool((err <= 5e-5 * scale + 5e-4 * want.abs()).all())
+
+
+def ssd_bwd_inputs(card, b, t, h, p, n, chunk, with_state, with_dstate, dtype, seed):
+    """Seeded inputs, the gradients of y and (where asked) of the final
+    state, and the fp32 states the forward's chunked body leaves."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn(b, t, h, p, generator=g, device=card) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=g, device=card))
+    a = -torch.exp(torch.randn(h, generator=g, device=card) * 0.3)
+    bb = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    cc = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
+    init = torch.randn(b, h, p, n, generator=g, device=card) if with_state else None
+    dy = (torch.randn(b, t, h, p, generator=g, device=card) * 0.5).to(dtype)
+    dstate = torch.randn(b, h, p, n, generator=g, device=card) if with_dstate else None
+    _, _, states = ssd._launch(x, dt, a, bb, cc, chunk, init, None, True)
+    return x, dt, a, bb, cc, init, states, dy, dstate
+
+
+# (b, t, h, p, n, chunk, initial_state, dstate): ragged T, a given state
+# with a nonzero dstate, mamba2's and zamba2's P, N and chunk
+SSD_BWD_SHAPES = [
+    (1, 64, 2, 32, 16, 16, False, False),
+    (2, 100, 3, 32, 16, 32, True, True),       # ragged chunks
+    (2, 300, 4, 64, 128, 128, True, True),     # mamba2-780m's P, N and chunk, ragged T
+    (2, 256, 4, 64, 64, 128, False, True),     # zamba2-7b's
+    (1, 5, 2, 64, 128, 128, True, False),      # one short chunk
+    (2, 70, 3, 16, 8, 16, False, False),       # narrow P and N (one 16-byte vector of bf16 N)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain_on_card(card, shape, dtype):
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    b, t, h, p, n, chunk, with_state, with_dstate = shape
+    args = ssd_bwd_inputs(card, *shape, dtype, seed=t * h + p)
+    before = sb.launches
+    got = sb.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sb.launches == before + 1
+    want = sb.ssd_scan_bwd_plain(*args, chunk=chunk)
+    names = ("dx", "ddt", "da", "db", "dc", "d_init")
+    for name, gt, w in zip(names, got, want):
+        if w is None:
+            assert gt is None, name
+            continue
+        kernel_dtype = dtype if name in ("dx", "db", "dc") else torch.float32
+        assert gt.dtype == kernel_dtype and gt.shape == w.shape, name
+        assert ssd_grad_close(gt, w, kernel_dtype), \
+            f"{name}: max err {float((gt.float() - w).abs().max())} of {float(w.abs().max())}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_takes_an_offset_view_and_repeats_bit_for_bit(card, dtype):
+    """x and dy off a 16-byte boundary are copied, not refused; the same
+    gradients again on a second call (no atomics); the C entry refuses an
+    unaligned pointer."""
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    args = list(ssd_bwd_inputs(card, 2, 300, 4, 64, 128, 128, True, True, dtype, seed=9))
+    want = sb.ssd_scan_bwd(*args, chunk=128)
+    again = sb.ssd_scan_bwd(*args, chunk=128)
+    off = list(args)
+    off[0], off[7] = offset_on_card(args[0]), offset_on_card(args[7])
+    got = sb.ssd_scan_bwd(*off, chunk=128)
+    torch.cuda.synchronize()
+    for x, y, z in zip(want, again, got):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    x, dt, a, bb, cc, init, states, dy, dstate = args
+    bs, t, h, p = x.shape
+    outs = [torch.empty_like(z) for z in (x, dt, bb, cc)]
+    rc = sb._entry()(offset_on_card(x).data_ptr(), dt.data_ptr(), a.data_ptr(), bb.data_ptr(),
+                     cc.data_ptr(), dy.data_ptr(), states.data_ptr(), None,
+                     *(z.data_ptr() for z in outs), None, *(states.data_ptr(),) * 4,
+                     bs, t, h, p, bb.shape[3], 128, sb._DTYPES[dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    assert refused(rc)
+    torch.cuda.synchronize()
+
+
+def test_ssd_function_launches_forward_and_backward(card):
+    """Under grad mode the wrapper goes through SsdScan: one forward (on
+    the chunked body) and one backward launch, the gradients those of the
+    plain backward on the forward's states."""
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    x, dt, a, bb, cc, init, states, dy, dstate = ssd_bwd_inputs(
+        card, 2, 300, 4, 64, 128, 128, True, True, torch.bfloat16, seed=11)
+    leaves = [z.clone().requires_grad_(True) for z in (x, dt, a, bb, cc, init)]
+    f0, b0 = ssd.launches, sb.launches
+    y, state = ssd.ssd_scan(*leaves[:5], chunk=128, initial_state=leaves[5])
+    torch.autograd.backward([y, state], [dy, dstate])
+    torch.cuda.synchronize()
+    assert ssd.launches == f0 + 1 and sb.launches == b0 + 1
+    assert ssd.launches_by_body["chunked"] >= 1
+    want = sb.ssd_scan_bwd_plain(x, dt, a, bb, cc, init, states, dy, dstate, chunk=128)
+    for leaf, w in zip(leaves, want):
+        assert ssd_grad_close(leaf.grad, w, leaf.dtype)
+
+
+GMM_BWD_CASES = [
+    (50, 64, 48, [13, 0, 30, 7]),
+    (20, 16, 8, [0, 20, 0, 0, 0]),       # empty groups: dw zeros there
+    (17, 17, 33, [9, 8]),                # no whole 16-byte vector: the element loads
+    (12, 8, 4, [4, 5, 0]),               # rows past the sizes' sum: the last expert's
+    (1000, 256, 384, [500, 0, 3, 250, 1, 0, 246, 0]),
+    (16, 256, 96, [1] * 16 + [0] * 112),  # one-row groups beside empty ones
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+def test_gmm_dx_and_dw_kernels_match_plain_on_card(card, case, dtype):
+    from repro_torch.kernels import moe_gmm_bwd as gb
+
+    t, d_in, d_out, sizes = case
+    g = torch.Generator(device=card).manual_seed(t + d_out)
+    e = len(sizes)
+    x = torch.randn(t, d_in, generator=g, device=card).to(dtype)
+    w = (torch.randn(e, d_in, d_out, generator=g, device=card) / d_in ** 0.5).to(dtype)
+    dy = torch.randn(t, d_out, generator=g, device=card).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    tol = GMM_TOL[dtype]
+    dx_bodies = gmm.bodies_for(dtype, d_out, d_in, True, e)
+    dw_bodies = gb.dw_bodies_for(dtype, d_in, d_out, True)
+    want_dx = gb.moe_gmm_dx_plain(dy, w, gs).float()
+    want_dw = gb.moe_gmm_dw_plain(x, dy, gs, e).float()
+    for body in dx_bodies:
+        before = gb.dx_by_body.get(body, 0)
+        got = gb.moe_gmm_dx(dy, w, gs, body=body)
+        torch.cuda.synchronize()
+        assert gb.dx_by_body[body] == before + 1 and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want_dx, atol=tol, rtol=tol, msg=f"dx {body}")
+    for body in dw_bodies:
+        before = gb.dw_by_body.get(body, 0)
+        got = gb.moe_gmm_dw(x, dy, gs, e, body=body)
+        torch.cuda.synchronize()
+        assert gb.dw_by_body[body] == before + 1 and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want_dw, atol=tol, rtol=tol, msg=f"dw {body}")
+        empty = [i for i, s in enumerate(sizes) if s == 0 and i != e - 1]
+        assert not got[empty].any()  # an empty group writes zeros
+
+
+def test_gmm_bwd_takes_an_offset_view_on_card(card):
+    """An input off a 16-byte boundary goes to the element-load body (dw)
+    or the mma_elem body (dx), as the forward's does; naming a vector body
+    for it raises."""
+    from repro_torch.kernels import moe_gmm_bwd as gb
+
+    g = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(40, 64, generator=g, device=card).to(torch.bfloat16)
+    w = (torch.randn(3, 64, 32, generator=g, device=card) * 0.1).to(torch.bfloat16)
+    dy = torch.randn(40, 32, generator=g, device=card).to(torch.bfloat16)
+    gs = torch.tensor([10, 0, 30], dtype=torch.int32, device=card)
+    ox, ody = offset_on_card(x), offset_on_card(dy)
+    before = (gb.dx_by_body.get("mma_elem", 0), gb.dw_by_body.get("mma_elem", 0))
+    dx, dw = gb.moe_gmm_dx(ody, w, gs), gb.moe_gmm_dw(ox, ody, gs, 3)
+    torch.cuda.synchronize()
+    assert (gb.dx_by_body["mma_elem"], gb.dw_by_body["mma_elem"]) == (before[0] + 1,
+                                                                      before[1] + 1)
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(dx.float(), gb.moe_gmm_dx_plain(dy, w, gs).float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(dw.float(), gb.moe_gmm_dw_plain(x, dy, gs, 3).float(), atol=tol,
+                               rtol=tol)
+    with pytest.raises(ValueError, match="mma"):
+        gb.moe_gmm_dw(ox, ody, gs, 3, body="mma")
+    with pytest.raises(ValueError, match="wgmma"):
+        gb.moe_gmm_dx(ody, w, gs, body="wgmma")
+
+
+def test_gmm_function_launches_forward_and_backward(card):
+    """Under grad mode the wrapper goes through MoeGmm: one forward, one
+    dx and one dw launch, each on the body its rule picks."""
+    from repro_torch.kernels import moe_gmm_bwd as gb
+
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(1000, 256, generator=g, device=card).to(torch.bfloat16)
+    w = (torch.randn(8, 256, 384, generator=g, device=card) / 16).to(torch.bfloat16)
+    dy = torch.randn(1000, 384, generator=g, device=card).to(torch.bfloat16)
+    gs = torch.tensor([500, 0, 3, 250, 1, 0, 246, 0], dtype=torch.int32, device=card)
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = kernel_counts()
+    gmm.moe_gmm(xl, wl, gs).backward(dy)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in kernel_counts().items()}
+    assert ran == dict(ssd=0, ssd_bwd=0, gmm=1, dx=1, dw=1)
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(xl.grad.float(), gb.moe_gmm_dx_plain(dy, w, gs).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(wl.grad.float(), gb.moe_gmm_dw_plain(x, dy, gs, 8).float(),
+                               atol=tol, rtol=tol)
+    # x alone, and w alone, requiring grad: only its kernel runs
+    before = kernel_counts()
+    gmm.moe_gmm(x.clone().requires_grad_(True), w, gs).backward(dy)
+    gmm.moe_gmm(x, w.clone().requires_grad_(True), gs).backward(dy)
+    ran = {k: v - before[k] for k, v in kernel_counts().items()}
+    assert ran == dict(ssd=0, ssd_bwd=0, gmm=2, dx=1, dw=1)
 
 
 def test_prefill_and_decode_graphs_build_no_graph(card):
@@ -1285,7 +1545,7 @@ def test_ssd_takes_an_offset_view_on_card(card, dtype):
     stream = torch.cuda.current_stream().cuda_stream
     rc = ssd._entry()[0](x.data_ptr(), dt.data_ptr(), a.data_ptr(), off.data_ptr(), c.data_ptr(),
                          None, y.data_ptr(), state.data_ptr(), None, None, None,
-                         bs, t, h, p, n, chunk, ssd._DTYPES[dtype], ssd.BODIES["serial"], stream)
+                         bs, t, h, p, n, chunk, ssd._DTYPES[dtype], ssd.BODIES["serial"], 0, stream)
     assert refused(rc)
     torch.cuda.synchronize()
 

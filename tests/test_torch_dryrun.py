@@ -384,6 +384,22 @@ def test_hand_kernel_launch_raises_inside_a_count():
                 ops.flash_attention(q, q, q, impl="kernel")
 
 
+@pytest.mark.parametrize("entry", ["ssd_scan_bwd._entry", "ssd_scan_bwd.smem_bytes",
+                                   "moe_gmm._entry", "moe_gmm_bwd._dw_entry"])
+def test_backward_kernels_are_refused_inside_a_count(entry):
+    """The SSD scan's and the grouped matmul's backward entries (dx runs
+    on the forward's entry) load through ``_build``, so a count refuses
+    them as it refuses the forward kernels."""
+    import importlib
+
+    module, fn = entry.split(".")
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    with StepCounter():
+        with pytest.raises(RuntimeError, match="StepCounter"):
+            getattr(mod, fn)(*((128, 64, 128) if fn == "smem_bytes" else ()))
+    assert not _build._refusals
+
+
 def test_roofline_terms_and_fit():
     links = {"nvlink": {k: 0 for k in COLLECTIVES}, "nic": {k: 0 for k in COLLECTIVES}}
     links["nvlink"]["all-reduce"] = 450e9

@@ -309,7 +309,6 @@ def tp_steps(case, cfg, params, batches, dev, mesh=None):
     from repro_torch.models import init_cache, sharding
     from repro_torch.training import make_prefill_step, make_serve_step, make_train_step
     from repro_torch.training import optimizer as opt
-    from repro_torch.training.train import NO_CARD_BACKWARD
 
     def place(tree):
         if mesh is None:
@@ -321,9 +320,7 @@ def tp_steps(case, cfg, params, batches, dev, mesh=None):
     logits = full(make_prefill_step(cfg, **kw)(place(params), batches[0]))
     trained = place(copy.deepcopy(params))
     state = opt.init(trained)
-    # the MoE and SSM families have no backward kernel on a card: they train on the plain path
-    impl = "ref" if dev.type == "cuda" and cfg.arch_type in NO_CARD_BACKWARD else "auto"
-    step = make_train_step(cfg, opt.AdamWConfig(**TP_OPT), impl=impl, **kw)
+    step = make_train_step(cfg, opt.AdamWConfig(**TP_OPT), **kw)
     metrics = []
     for batch in batches:
         trained, state, m = step(trained, state, batch)
