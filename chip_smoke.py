@@ -41,13 +41,15 @@ any phase fails.  Phases:
    (mamba2's B = 2, T = 2048, H = 48, P = 64, N = 128 and zamba2's H =
    112, N = 64 in bf16, mamba2's in fp32, a ragged T from an initial state
    with a nonzero dstate; each gradient within 5e-5 of its largest value
-   plus 5e-4 of itself, bf16 outputs within 2e-2 of the largest) and the
-   grouped matmul's dx (the forward kernel reading w transposed; wgmma
-   against mma in turns) and dw against their plain twins at Qwen3-MoE's
-   32,768 routed rows over 128 experts, 2048 <-> 768 in bf16 and 2048 ->
-   768 in fp32, and over empty groups (whose dw must be zero), each with
-   its time, bound, the plain backward's time and ``torch._grouped_mm``'s
-   for dx and dw where it takes the layout;
+   plus 5e-4 of itself, bf16 outputs within 2e-2 of the largest; bf16 on
+   the mma body and on the fp32 body, timed in turns) and the grouped
+   matmul's dx (the forward kernel reading w transposed; wgmma against
+   mma in turns) and dw (wgmma against mma in turns) against their plain
+   twins at Qwen3-MoE's 32,768 routed rows over 128 experts, 2048 <-> 768
+   in bf16 and 2048 -> 768 in fp32, over empty groups (whose dw must be
+   zero), and dw with every row in one expert, each with its time, bound,
+   the plain backward's time and ``torch._grouped_mm``'s for dx and dw
+   where it takes the layout;
 3. the decode path at full width in bf16: a 3-worker ServingCluster on one
    card serving 10 pipeline requests (prompts (2, 64)) over
    mistral-nemo-12b (full depth), mamba2-780m (full) and granite-20b (full
@@ -143,11 +145,14 @@ any phase fails.  Phases:
    at 4 of its 48 (the sorted dispatch), at full width in bf16 with fp32
    AdamW moments, B = 2, S = 2048: one warm-up and five timed steps each,
    every kernel's launches by body against what the layers and remat
-   predict (mamba2: 96 forward and 48 backward scans a step; Qwen3: 24
-   grouped matmuls, 12 dx and 12 dw a step), finite losses, moved params,
-   the step time, tokens/s and peak memory; then each family at 2 layers,
-   kernel path against plain path as phase 6 holds NeMo (the MoE router's
-   choices recorded on the kernel path and replayed on the plain one).
+   predict (mamba2: 96 forward and 48 backward scans a step, the backward
+   on mma; Qwen3: 24 grouped matmuls, 12 dx and 12 dw a step, dw on
+   wgmma), finite losses, moved params, the step time, tokens/s and peak
+   memory; one more step of mamba2 and of Qwen3-MoE under the profiler,
+   with the device time of the SSD backward's or dw's launches in it; then
+   each family at 2 layers, kernel path against plain path as phase 6
+   holds NeMo (the MoE router's choices recorded on the kernel path and
+   replayed on the plain one).
 7. the mesh, in a fresh process: a one-rank NCCL group and
    ``make_debug_mesh``'s (1, 1) ``("data", "model")`` mesh; (7a)
    ``repro_torch.launch.serve``'s step on mistral-nemo-12b at full width
@@ -342,7 +347,8 @@ def build_kernels():
     report["new_bodies"] = ptxas_rows(_build.build_logs, {
         "decode_attention": ("decode_split", "decode_combine"),
         "ssd_scan": ("ssd_chunk", "ssd_state_pass"),
-        "flash_attention_bwd": ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_split_sum")})
+        "flash_attention_bwd": ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_split_sum"),
+        "ssd_scan_bwd": ("ssd_chunk_state_mma", "ssd_bwd_rows_mma", "ssd_bwd_cols_mma")})
     return {"build_wall_s": wall, "build_s": dict(_build.build_seconds),
             "ptxas": dict(_build.build_logs), "wgmma_bodies": report}
 
@@ -380,7 +386,10 @@ def wgmma_report(logs):
     gmm_lib.moe_gmm_wgmma_smem_bytes.restype = ctypes.c_size_t
     smem = {f"flash_attention D={d}": fa_lib.flash_attention_wgmma_smem_bytes(d)
             for d in (64, 128, 192, 256)}
+    gmm_lib.moe_gmm_wgrad_wgmma_smem_bytes.restype = ctypes.c_size_t
     smem.update({f"moe_gmm E={e}": gmm_lib.moe_gmm_wgmma_smem_bytes(e) for e in (128, 160)})
+    smem.update({f"moe_gmm dw E={e}": gmm_lib.moe_gmm_wgrad_wgmma_smem_bytes(e)
+                 for e in (128, 160)})
     rows = []
     for lib in ("flash_attention", "moe_gmm"):
         entry = None
@@ -1127,7 +1136,9 @@ def flash_bwd_vs_plain():
 # ---------------------------------------------------------------------------
 # (model, B, T, dtype, initial_state and dstate, timed): mamba2's and
 # zamba2's training shapes in bf16 (B = 2, T = 2048), mamba2's in fp32, and
-# a ragged T from a given initial state with a nonzero dstate
+# a ragged T from a given initial state with a nonzero dstate; each on the
+# body ``body_for`` picks, and bf16 on the fp32 body too (checked, and
+# timed against the mma body in turns)
 SSD_BWD_SHAPES = [
     ("mamba2-780m", PREFILL_B, PREFILL_S, "bfloat16", False, True),
     ("zamba2-7b", PREFILL_B, PREFILL_S, "bfloat16", False, True),
@@ -1136,9 +1147,19 @@ SSD_BWD_SHAPES = [
 ]
 SSD_BWD_MAIN = dict(model="mamba2-780m", t=PREFILL_S, dtype="bfloat16")
 SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "d_init")
+# the kernels of each SSD backward body, as the profiler names them ((a'),
+# (b'), (c'1), (c'2); the mma body's (a') is the forward's mma chunk-state
+# kernel with OWN set)
+SSD_BWD_KERNELS = {"fp32": ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_rows_kernel",
+                            "ssd_bwd_cols_kernel"),
+                   "mma": ("ssd_chunk_state_mma_kernel<true>", "ssd_bwd_state_pass",
+                           "ssd_bwd_rows_mma", "ssd_bwd_cols_mma")}
 # the grouped matmul's gradient at Qwen3-MoE's prefill rows (B·S·top_k =
 # 32768 over 128 experts, both directions of its expert FFN)
 GMM_BWD_MAIN = dict(model="qwen3 prefill", d_in=2048, d_out=768, dtype="bfloat16")
+# dw with every row in one expert of 128: one tile's loop over all 32768
+# rows (the sums are not split over rows), timed once
+GMM_DW_SKEW = dict(model="one expert", expert=5)
 
 
 def ssd_bwd_bound(b, t, h, p, n, chunk, dtype, itemsize, with_state):
@@ -1242,40 +1263,52 @@ def ssd_bwd_vs_plain(flush, gen):
         # the training path's input: the states the forward kernel leaves
         _, _, states = ssd._launch(x, dt, a, bb, cc, chunk, init, None, True)
         args = (x, dt, a, bb, cc, init, states, dy, dstate)
-        got = sb.ssd_scan_bwd(*args, chunk=chunk)
-        torch.cuda.synchronize()
+        body = sb.body_for(tdt)
+        old_body = "fp32" if body != "fp32" else None
         want = sb.ssd_scan_bwd_plain(*args, chunk=chunk)
-        errs = {}
-        for name, g, w in zip(SSD_BWD_NAMES, got, want):
-            if w is None:
+        errs, old_errs = {}, {}
+        for which, errors in ((body, errs), (old_body, old_errs)):
+            if which is None:
                 continue
-            ok, err = ssd_grad_close(g, w, dtype if name in ("dx", "db", "dc") else "float32")
-            errs[name] = err
-            if not ok:
-                raise AssertionError(f"ssd backward {model} {dtype} B={b} T={t} {name}: max err "
-                                     f"{err} of {float(w.abs().max())}")
-        del got, want
+            got = sb.ssd_scan_bwd(*args, chunk=chunk, body=which)
+            torch.cuda.synchronize()
+            for name, g, w in zip(SSD_BWD_NAMES, got, want):
+                if w is None:
+                    continue
+                ok, err = ssd_grad_close(g, w, dtype if name in ("dx", "db", "dc") else "float32")
+                errors[name] = err
+                if not ok:
+                    raise AssertionError(f"ssd backward ({which}) {model} {dtype} B={b} T={t} "
+                                         f"{name}: max err {err} of {float(w.abs().max())}")
+            del got
+        del want
         bound_ms, nbytes, flops, bound_by = ssd_bwd_bound(b, t, h, p, n, chunk, dtype,
                                                           x.element_size(), with_state)
         row = dict(model=model, b=b, t=t, h=h, p=p, n=n, chunk=chunk, dtype=dtype,
-                   body=sb.BODY, initial_state=with_state, max_abs_err=max(errs.values()),
+                   body=body, old_body=old_body, old_body_ms=None, old_body_errors=old_errs,
+                   initial_state=with_state, max_abs_err=max(errs.values()),
                    errors=errs, bound_ms=bound_ms, bytes=nbytes, flops=flops,
                    bound_by=bound_by, library_ms=None, ctas=b * h * -(-t // chunk))
         if timed:
-            row["kernel_ms"] = cuda_time_ms(lambda: sb.ssd_scan_bwd(*args, chunk=chunk), flush)
+            run = lambda: sb.ssd_scan_bwd(*args, chunk=chunk, body=body)  # noqa: E731
+            if old_body:  # the mma body against the fp32 body, in turns
+                row["kernel_ms"], row["old_body_ms"], row["turns_ms"] = in_turns(
+                    run, lambda: sb.ssd_scan_bwd(*args, chunk=chunk, body=old_body), flush, 25)
+            else:
+                row["kernel_ms"] = cuda_time_ms(run, flush)
             row["plain_ms"] = cuda_time_ms(lambda: sb.ssd_scan_bwd_plain(*args, chunk=chunk),
                                            flush, reps=10, warmup=1)
             row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
             # the kernel's four launches: (a'), (b'), (c'1), (c'2)
-            row["by_kernel"] = kernel_split(lambda: sb.ssd_scan_bwd(*args, chunk=chunk),
-                                            ("ssd_bwd_chunk_state", "ssd_bwd_state_pass",
-                                             "ssd_bwd_rows", "ssd_bwd_cols"))
+            row["by_kernel"] = kernel_split(run, SSD_BWD_KERNELS[body])
         rows.append(row)
         err_txt = " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-        times = (f"kernel={row['kernel_ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
+        old_txt = (f" ({old_body} {row['old_body_ms']:.4f} ms in turns)"
+                   if row["old_body_ms"] is not None else "")
+        times = (f"kernel={row['kernel_ms']:.4f} ms{old_txt} plain={row['plain_ms']:.4f} ms "
                  f"{row['kernel_tflops']:.2f} TFLOP/s; by launch {row['by_kernel']}"
                  if timed else "not timed")
-        print(f"{model:18s} {dtype:8s} B={b} T={t:5d} H={h} P={p} N={n} L={chunk}"
+        print(f"{model:18s} {dtype:8s} {body:4s} B={b} T={t:5d} H={h} P={p} N={n} L={chunk}"
               f"{' from a given state, dstate' if with_state else ''} err {err_txt} {times} "
               f"library=- bound={bound_ms:.4f} ms ({bound_by})", flush=True)
         del x, dt, bb, cc, dy, states, args
@@ -1285,7 +1318,9 @@ def ssd_bwd_vs_plain(flush, gen):
 def gmm_bwd_vs_plain(flush, gen):
     """Phase 2f's grouped-matmul rows: dx (the forward kernel, w read as its
     transpose) and dw against their plain twins at Qwen3-MoE's prefill in
-    both directions (bf16; 2048 -> 768 in fp32 once) and over empty groups."""
+    both directions (bf16; 2048 -> 768 in fp32 once), over empty groups, and
+    dw with every row in one expert (timed once); the bodies ``body_for``
+    and ``dw_bodies_for`` pick, each timed against the mma body in turns."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import moe_gmm as gmm
@@ -1297,21 +1332,27 @@ def gmm_bwd_vs_plain(flush, gen):
     empty = torch.zeros(128, dtype=torch.int32, device=dev)
     empty[[3, 40, 41, 99, 127]] = torch.tensor([1000, 1, 2000, 95, 1000], dtype=torch.int32,
                                                device=dev)
+    skew = torch.zeros(qwen.n_experts, dtype=torch.int32, device=dev)
+    skew[GMM_DW_SKEW["expert"]] = PREFILL_B * PREFILL_S * qwen.top_k
     d, f = qwen.d_model, qwen.d_ff_expert
-    cases = [("qwen3 prefill", d, f, sizes, "bfloat16", True),
-             ("qwen3 prefill", f, d, sizes, "bfloat16", True),
-             ("qwen3 prefill", d, f, sizes, "float32", True),
-             ("empty groups", d, f, empty, "bfloat16", False)]
+    both = ("dx", "dw")
+    # (model, d_in, d_out, sizes, dtype, what is checked, what is timed)
+    cases = [("qwen3 prefill", d, f, sizes, "bfloat16", both, both),
+             ("qwen3 prefill", f, d, sizes, "bfloat16", both, both),
+             ("qwen3 prefill", d, f, sizes, "float32", both, both),
+             ("empty groups", d, f, empty, "bfloat16", both, ()),
+             (GMM_DW_SKEW["model"], d, f, skew, "bfloat16", ("dw",), ("dw",))]
     rows = []
-    for model, d_in, d_out, gs, dtype, timed in cases:
+    for model, d_in, d_out, gs, dtype, checked, timed_set in cases:
         t, e = int(gs.sum()), gs.numel()
         host_sizes = gs.tolist()
         tdt = getattr(torch, dtype)
         x = torch.randn(t, d_in, generator=gen, device=dev, dtype=tdt)
         w = (torch.randn(e, d_in, d_out, generator=gen, device=dev) * 0.02).to(tdt)
         dy = torch.randn(t, d_out, generator=gen, device=dev, dtype=tdt)
-        lib = grouped_mm_grad_calls(x, w, dy, gs) if timed else {}
-        for what in ("dx", "dw"):
+        lib = grouped_mm_grad_calls(x, w, dy, gs) if timed_set else {}
+        for what in checked:
+            timed = what in timed_set
             if what == "dx":
                 run = lambda: gb.moe_gmm_dx(dy, w, gs)  # noqa: E731
                 plain = lambda: gb.moe_gmm_dx_plain(dy, w, gs)  # noqa: E731
@@ -1321,7 +1362,8 @@ def gmm_bwd_vs_plain(flush, gen):
             else:
                 run = lambda: gb.moe_gmm_dw(x, dy, gs, e)  # noqa: E731
                 plain = lambda: gb.moe_gmm_dw_plain(x, dy, gs, e)  # noqa: E731
-                body, old_body = gb.dw_bodies_for(tdt, d_in, d_out, True)[0], None
+                body = gb.dw_bodies_for(tdt, d_in, d_out, True, e)[0]
+                old_body = "mma" if body == "wgmma" else None
                 bound = gmm_dw_bound(t, d_in, d_out, e, dtype, x.element_size())
             got = run().float()
             torch.cuda.synchronize()
@@ -1344,9 +1386,11 @@ def gmm_bwd_vs_plain(flush, gen):
                        library_ms=None)
             if timed:
                 reps = 25 if dtype == "bfloat16" else 10
-                if old_body:  # dx on wgmma against the mma body, in turns
+                if old_body:  # the wgmma body against the mma body, in turns
+                    old = ((lambda: gb.moe_gmm_dx(dy, w, gs, body=old_body)) if what == "dx"
+                           else (lambda: gb.moe_gmm_dw(x, dy, gs, e, body=old_body)))
                     row["kernel_ms"], row["old_body_ms"], row["turns_ms"] = in_turns(
-                        run, lambda: gb.moe_gmm_dx(dy, w, gs, body=old_body), flush, reps)
+                        run, old, flush, reps)
                 else:
                     row["kernel_ms"] = cuda_time_ms(run, flush, reps=reps)
                 row["plain_ms"] = cuda_time_ms(plain, flush, reps=10)
@@ -3386,6 +3430,26 @@ def train_full_width():
 FAMILY_TRAIN = (("mamba2-780m", None), ("zamba2-7b", 12), ("qwen3-moe-30b-a3b", 4))
 #: The leaf whose first values show that a step moved the params.
 FAMILY_PROBE = {"ssm": "w_in", "hybrid": "w_in", "moe": "moe.wg"}
+#: The families whose step is profiled once after the timed steps, and the
+#: backward kernels whose device time a step is read there (by name: the
+#: SSD backward's four launches on either body; dw on either body).
+FAMILY_PROFILE = {"mamba2-780m": ("ssd_scan_bwd", ("ssd_bwd_", "ssd_chunk_state_mma_kernel<true>")),
+                  "qwen3-moe-30b-a3b": ("moe_gmm_dw", ("gmm_wgrad",))}
+
+
+def step_profile(step, params, state, batch, what, names):
+    """One more train step under the profiler (``profiled``): the device
+    time of the step's records, and that of the records whose kernel name
+    holds one of ``names``, with their count and names."""
+    records, wall_ms, attempts = profiled(lambda: step(params, state, batch), what)
+    import re
+
+    mine = [e for e in records if any(k in e.name() for k in names)]
+    kinds = collections.Counter(
+        next(iter(re.findall(r"\w*kernel\w*(?:<[^>]*>)?", e.name())), e.name()) for e in mine)
+    return dict(wall_ms=wall_ms, device_ms=sum(e.duration_ns() for e in records) / 1e6,
+                kernel_ms=sum(e.duration_ns() for e in mine) / 1e6, launches=len(mine),
+                kernels=dict(kinds), records=len(records), attempts=attempts)
 
 
 class RouteReplay:
@@ -3502,6 +3566,7 @@ def family_train_expected(cfg, steps):
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import moe_gmm_bwd as gb
+    from repro_torch.kernels import ssd_scan_bwd as sb
 
     n, at = cfg.n_layers, cfg.arch_type
     ssm = n if at in ("ssm", "hybrid") else 0
@@ -3511,15 +3576,15 @@ def family_train_expected(cfg, steps):
     hd = cfg.head_dim
     return {
         "ssd_scan": {"chunked": 2 * steps * ssm} if ssm else {},
-        "ssd_scan_bwd": {"fp32": steps * ssm} if ssm else {},
+        "ssd_scan_bwd": {sb.body_for(bf16): steps * ssm} if ssm else {},
         "flash_attention": {fa.body_for(bf16, hd): 2 * steps * attn} if attn else {},
         "flash_attention_bwd": {fb.body_for(bf16, hd): steps * attn} if attn else {},
         "moe_gmm": ({gmm.body_for(bf16, cfg.d_model, cfg.d_ff_expert, n_experts=cfg.n_experts):
                      6 * steps * moe} if moe else {}),
         "moe_gmm_dx": ({gmm.body_for(bf16, cfg.d_ff_expert, cfg.d_model,
                                      n_experts=cfg.n_experts): 3 * steps * moe} if moe else {}),
-        "moe_gmm_dw": ({gb.dw_bodies_for(bf16, cfg.d_model, cfg.d_ff_expert, True)[0]:
-                        3 * steps * moe} if moe else {}),
+        "moe_gmm_dw": ({gb.dw_bodies_for(bf16, cfg.d_model, cfg.d_ff_expert, True,
+                                         cfg.n_experts)[0]: 3 * steps * moe} if moe else {}),
         "decode_attention": {},
     }
 
@@ -3533,7 +3598,9 @@ def train_families():
     the grouped matmul's forward, dx and dw, flash where the model has
     attention, each against what the layers and remat predict, by body),
     finite losses, moved params, the step time, tokens/s and peak memory;
-    then each family at 2 layers, kernel path against plain path."""
+    for the families of ``FAMILY_PROFILE`` one more step under the
+    profiler; then each family at 2 layers, kernel path against plain
+    path."""
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
@@ -3549,6 +3616,15 @@ def train_families():
         params, state, step, data, row = train_step_run(cfg, TRAIN_STEPS,
                                                         FAMILY_PROBE[cfg.arch_type])
         batch = next(data)
+        if name in FAMILY_PROFILE:  # the backward kernels' share of a step, from the card
+            kernel, names = FAMILY_PROFILE[name]
+            prof = step_profile(step, params, state, next(data), f"{name} step", names)
+            row["profile"] = dict(kernel=kernel, **prof)
+            print(f"{name}@{cfg.n_layers} one step under the profiler: {prof['wall_ms']:.2f} ms "
+                  f"wall, {prof['device_ms']:.2f} ms of device records; {kernel}: "
+                  f"{prof['kernel_ms']:.3f} ms in {prof['launches']} launches "
+                  f"({100 * prof['kernel_ms'] / prof['device_ms']:.1f} % of the device time; "
+                  f"{prof['kernels']})", flush=True)
         del params, state, step, data
         release_models()
         med = statistics.median(row["wall_s"])
@@ -4511,12 +4587,14 @@ def main() -> None:
         "flash_attention_bwd": [shape_of(r, ("model", "b", "s", "sk", "h", "kh", "d", "case",
                                              "splits", "dkdv_ctas", "old_body", "old_body_ms"))
                                 for r in bwd_rows],
-        "ssd_scan_bwd": [shape_of(r, ("model", "b", "t", "h", "p", "n", "initial_state"))
+        "ssd_scan_bwd": [shape_of(r, ("model", "b", "t", "h", "p", "n", "initial_state",
+                                      "old_body", "old_body_ms"))
                          for r in grad_rows["ssd"]],
         "moe_gmm_dx": [shape_of(r, ("model", "t", "e", "d_in", "d_out", "old_body",
                                     "old_body_ms"))
                        for r in grad_rows["gmm"] if r["kernel"] == "moe_gmm_dx"],
-        "moe_gmm_dw": [shape_of(r, ("model", "t", "e", "d_in", "d_out"))
+        "moe_gmm_dw": [shape_of(r, ("model", "t", "e", "d_in", "d_out", "old_body",
+                                    "old_body_ms"))
                        for r in grad_rows["gmm"] if r["kernel"] == "moe_gmm_dw"],
     }
     family_phases = {"3e zamba2-7b": zamba, "3f whisper-medium": whisper,
@@ -4601,6 +4679,9 @@ def main() -> None:
     }, {
         "name": "ssd_scan_bwd",
         "body": ssd_bwd_row["body"],
+        # the body it replaced on the main path, timed in turns with it
+        "old_body": ssd_bwd_row["old_body"],
+        "old_body_ms": ssd_bwd_row["old_body_ms"],
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
         # the gradient of the TPU kernel (XLA's of ssd_chunked_ref: no Pallas backward)
@@ -4615,6 +4696,8 @@ def main() -> None:
     }] + [{
         "name": f"moe_gmm_{what}",
         "body": row["body"],
+        "old_body": row["old_body"],
+        "old_body_ms": row["old_body_ms"],
         "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         # the gradient of the TPU kernel (XLA's of moe_gmm_ref: no Pallas backward)

@@ -62,16 +62,41 @@
 //   copy.  wgmma takes w's slices K-major (one 64 x 128 TMA box a stage)
 //   with B's transpose bit off; mma stages them n-major and loads B with
 //   ldmatrix without .trans; fp32 stages them transposed.
-// * dw[e] = x_e^T . dy_e is a kernel of its own (gmm_wgrad_*): a grid of
-//   (d_in x d_out tiles, E), each CTA summing its tile over its group's
-//   rows in fp32 (x's slice is A transposed: ldmatrix .trans), its group
-//   found on the device as locate_tile finds it; an empty group writes
-//   zeros.  Bound by bytes at Qwen3-MoE's shapes: x and dy read once, every
-//   expert's dw (403 MB) written once, 175 us.
+// * dw[e] = x_e^T . dy_e is a kernel of its own (gmm_wgrad_*), every
+//   expert's dw written whole (zeros for an empty group), each group's rows
+//   found on the device from the sizes.  Bound by bytes at Qwen3-MoE's
+//   shapes: x (134 MB) and dy (50 MB) read once and every expert's dw
+//   written once (403 MB, 120 of the 175 us).  Bodies:
+//   - wgmma (bf16, the forward's widths, alignment and expert count): a
+//     persistent grid of one CTA per SM walks the (expert, d_in tile,
+//     d_out tile) list expert by expert, so that x_e and dy_e come from
+//     device memory about once and from L2 after that.  A tile is 128 x
+//     256 of dw (x_e crosses L2 d_out / 256 times and dy_e d_in / 128
+//     times: a quarter less than at 128 x 128, and half the epilogues).  A
+//     producer warpgroup keeps a 3-stage ring of 64-row slices filled by
+//     TMA (x over (T, d_in), dy over (T, d_out), 128-byte swizzled); two
+//     consumer warpgroups each sum 64 x 256 on wgmma m64n256k16 with both
+//     operands MN-major (d_in and d_out are the contiguous dimensions: A's
+//     transpose bit as well as B's), one slice's products in flight while
+//     the next issues.  A slice starts at any row: the group's last slice
+//     issues only the k-steps its rows reach, and the rows of its last
+//     k-step past the group's end are zeroed in both operands in shared
+//     memory (fenced for the async proxy), so that the next expert's rows
+//     never enter the sum.  The epilogue rounds to bf16 into a swizzled
+//     shared tile that a TMA store (3-D over (E, d_in, d_out)) writes while
+//     the next tile's slices load.  No split over rows and no atomics: a
+//     repeat is bit for bit, and a skewed routing (every row in one expert)
+//     leaves one tile's loop over all of them.
+//   - mma (bf16, whole 16-byte vectors, aligned): a grid of (d_in x d_out
+//     tiles, E), each CTA summing a 64 x 128 tile over its group's rows in
+//     fp32 (x's slice is A transposed: ldmatrix .trans) through a two-stage
+//     cp.async ring of 32-row slices, so short groups never fill the ring;
+//     mma_elem the same with element loads (any widths); fp32 on the CUDA
+//     cores.
 //
 // What it does not do yet: a variant for a few rows per expert (decode
 // multiplies a whole 64-row half tile for one row), a TMA store of the
-// output tile, or dw on wgmma.
+// forward's output tile, or dw's split over rows for a skewed routing.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
@@ -749,6 +774,220 @@ cudaError_t launch(const void* x, const void* w, const int* gs, void* out, int T
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the weight gradient on wgmma: dw[e] = x_e^T . dy_e, a persistent grid
+// ---------------------------------------------------------------------------
+// The (expert, d_in tile, d_out tile) list, expert by expert, d_out tiles
+// fastest; a tile is 128 x 256 of dw.  A stage holds one 64-row slice of
+// the group: x's 128 columns of d_in as two 64 x 64 boxes (A, MN-major:
+// d_in is contiguous; consumer warpgroup c multiplies box c) and dy's 256
+// columns of d_out as four boxes (B, MN-major).  A slice starts at any row;
+// the group's last slice issues only the k-steps its rows reach, and the
+// consumers zero the rows of its boxes that lie past the group's end in
+// the last k-step, so that rows of the next expert never enter the sum.
+// Each consumer keeps one slice's products in flight while it issues the
+// next, rounds its 64 x 256 half of the tile to bf16 into a swizzled
+// shared tile, and one of its threads stores that by TMA (a 3-D map over
+// (E, d_in, d_out): nothing past d_in or d_out is written) while the next
+// tile's slices load.
+constexpr int DW_BN = 256;                              // d_out columns of a tile
+constexpr int DW_STAGES = 3;
+constexpr int DW_BOX = BK * 64 * 2;                     // one 64-row x 64-column box (bytes)
+constexpr int DW_DY = 2 * DW_BOX;                       // dy's boxes follow x's two
+constexpr int DW_STAGE = (2 + DW_BN / 64) * DW_BOX;
+constexpr int DW_OUT = 64 * DW_BN * 2;                  // one consumer's half tile, bf16
+
+size_t dw_smem_bytes(int E) {
+  return 1024 + (size_t)DW_STAGES * DW_STAGE + 2 * DW_OUT + 2 * DW_STAGES * sizeof(uint64_t) +
+         2 * sizeof(int) * (size_t)E;
+}
+
+__global__ void __launch_bounds__(THREADS, 1) gmm_wgrad_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
+    const __grid_constant__ CUtensorMap dwmap, const int* __restrict__ group_sizes, int T,
+    int E, int d_in, int d_out) {
+  extern __shared__ __align__(16) uint8_t wg_smem[];  // aligned here to 1024 bytes
+  uint8_t* smem = wg_smem + ((1024 - (hopper::smem_addr(wg_smem) & 1023)) & 1023);
+  uint8_t* outs = smem + DW_STAGES * DW_STAGE;        // two DW_OUT tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + 2 * DW_OUT);
+  uint64_t* empty = full + DW_STAGES;
+  int* row_start = reinterpret_cast<int*>(empty + DW_STAGES);
+  int* row_end = row_start + E;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  if (tid < 32) {  // each group's rows, 32 experts a pass
+    int rows_before = 0;
+    for (int base = 0; base < E; base += 32) {
+      const int e = base + tid;
+      const int size = e < E ? min(max(group_sizes[e], 0), T) : 0;
+      const int rows_incl = warp_scan(size, tid);
+      if (e < E) {
+        row_start[e] = min(rows_before + rows_incl - size, T);
+        row_end[e] = e == E - 1 ? T : min(rows_before + rows_incl, T);
+      }
+      rows_before = min(rows_before + __shfl_sync(FULL, rows_incl, 31), T);
+    }
+  }
+  __syncthreads();
+
+  const int tiles_m = (d_in + BM - 1) / BM, tiles_n = (d_out + DW_BN - 1) / DW_BN;
+  const int per_expert = tiles_m * tiles_n;
+  const int total = E * per_expert;
+
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {  // producer warpgroup: one thread issues every load
+    hopper::regs_dealloc<40>();
+    if (tid == 2 * 128) {
+      hopper::tma_prefetch_map(&xmap);
+      hopper::tma_prefetch_map(&dymap);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int e = tile / per_expert, r = tile - e * per_expert;
+        const int m0 = (r / tiles_n) * BM, n0 = (r % tiles_n) * DW_BN;
+        const int start = row_start[e], end = row_end[e];
+        for (int r0 = start; r0 < end; r0 += BK, ++it) {
+          const int s = it % DW_STAGES;
+          hopper::mbar_wait(&empty[s], ((it / DW_STAGES) & 1) ^ 1);
+          uint8_t* st = smem + s * DW_STAGE;
+          hopper::mbar_arrive_expect_tx(&full[s], DW_STAGE);
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            hopper::tma_load_2d(st + c * DW_BOX, &xmap, &full[s], m0 + 64 * c, r0);
+#pragma unroll
+          for (int c = 0; c < DW_BN / 64; ++c)
+            hopper::tma_load_2d(st + DW_DY + c * DW_BOX, &dymap, &full[s], n0 + 64 * c, r0);
+        }
+      }
+    }
+  } else {  // consumer warpgroups: rows [64 wgi, 64 wgi + 64) of each dw tile
+    hopper::regs_alloc<232>();
+    const int wgi = tid >> 7, t = tid & 127, lane = t & 31;
+    const int rbase = (t >> 5) * 16 + (lane >> 2);  // this thread's first row of the half
+    uint8_t* out = outs + wgi * DW_OUT;
+    float acc[DW_BN / 2];
+#pragma unroll
+    for (int i = 0; i < DW_BN / 2; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int e = tile / per_expert, r = tile - e * per_expert;
+      const int m0 = (r / tiles_n) * BM, n0 = (r % tiles_n) * DW_BN;
+      const int start = row_start[e], end = row_end[e];
+      if (start == end) {  // an empty group: zeros
+#pragma unroll
+        for (int i = 0; i < DW_BN / 2; ++i) acc[i] = 0.f;
+      }
+      int held = -1;  // the stage whose products are still in flight
+      for (int r0 = start; r0 < end; r0 += BK, ++it) {
+        const int s = it % DW_STAGES;
+        hopper::mbar_wait(&full[s], (it / DW_STAGES) & 1);
+        uint8_t* st = smem + s * DW_STAGE;
+        uint8_t* xs = st + wgi * DW_BOX;
+        const int rows = min(end - r0, BK);
+        const int ksteps = (rows + 15) >> 4;
+        if (rows & 15) {
+          // rows [rows, 16 ksteps) of the last k-step lie past the group (the
+          // next expert's, or TMA's zeros past T): each consumer zeroes them
+          // in its x box and in half of dy's boxes, so that neither operand
+          // carries the next expert's values into the sum
+          const int zero_rows = 16 * ksteps - rows;
+          for (int i = t; i < zero_rows * 8; i += 128) {
+            const int off = (rows + (i >> 3)) * 128 + (i & 7) * 16;
+            *reinterpret_cast<uint4*>(xs + off) = make_uint4(0, 0, 0, 0);
+#pragma unroll
+            for (int c = 0; c < DW_BN / 128; ++c)
+              *reinterpret_cast<uint4*>(st + DW_DY + (wgi * DW_BN / 128 + c) * DW_BOX + off) =
+                  make_uint4(0, 0, 0, 0);
+          }
+          hopper::fence_proxy_async_smem();
+          hopper::named_barrier(3, 256);  // both consumers: dy's boxes are shared
+        }
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          if (kk < ksteps) {
+            // A: x's box, d_in contiguous; B: dy's boxes, d_out contiguous
+            const uint64_t da = hopper::desc_sw128(xs + kk * 16 * 128, DW_BOX, 1024);
+            const uint64_t db = hopper::desc_sw128(st + DW_DY + kk * 16 * 128, DW_BOX, 1024);
+            hopper::wgmma_ss<DW_BN, 1, 1>(acc, da, db, r0 > start || kk > 0);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the last slice's products are done: release its stage
+        hopper::fence_regs(acc);
+        if (held >= 0) hopper::mbar_arrive(&empty[held]);
+        held = s;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (held >= 0) hopper::mbar_arrive(&empty[held]);
+      // epilogue: wait until this half's last store has read its tile, round
+      // once to bf16 into the swizzled tile (64 x 64 boxes), store by TMA
+      if (t == 0) hopper::tma_store_wait_read<0>();
+      hopper::named_barrier(1 + wgi, 128);
+#pragma unroll
+      for (int i = 0; i < DW_BN / 2; i += 2) {
+        const int row = rbase + 8 * ((i >> 1) & 1);
+        const int col = (i >> 2) * 8 + (lane & 3) * 2;  // 0 .. DW_BN - 1
+        const int box = col >> 6, cb = (col & 63) * 2;  // byte within the box's row
+        const int chunk = (cb >> 4) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(out + box * DW_BOX + row * 128 + chunk * 16 + (cb & 15)) =
+            hopper::pack_bf16(acc[i], acc[i + 1]);
+      }
+      hopper::fence_proxy_async_smem();
+      hopper::named_barrier(1 + wgi, 128);
+      if (t == 0) {
+        const int mr = m0 + 64 * wgi;
+        if (mr < d_in) {
+#pragma unroll
+          for (int c = 0; c < DW_BN / 64; ++c)
+            if (n0 + 64 * c < d_out)
+              hopper::tma_store_3d(&dwmap, out + c * DW_BOX, n0 + 64 * c, mr, e);
+        }
+        hopper::tma_store_commit();
+      }
+    }
+    if (t == 0) hopper::tma_store_wait<0>();
+  }
+}
+
+cudaError_t launch_wgrad(const void* x, const void* dy, const int* gs, void* dw, int T, int E,
+                         int d_in, int d_out, cudaStream_t stream) {
+  CUtensorMap xmap, dymap, dwmap;
+  const cuuint32_t box2[2] = {64, BK};
+  const cuuint64_t xdims[2] = {(cuuint64_t)d_in, (cuuint64_t)T};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)d_in * 2};
+  const cuuint64_t ddims[2] = {(cuuint64_t)d_out, (cuuint64_t)T};
+  const cuuint64_t dstrides[1] = {(cuuint64_t)d_out * 2};
+  const cuuint64_t wdims[3] = {(cuuint64_t)d_out, (cuuint64_t)d_in, (cuuint64_t)E};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)d_out * 2, (cuuint64_t)d_in * d_out * 2};
+  const cuuint32_t box3[3] = {64, 64, 1};
+  // no rows: every group is empty (and there is no x or dy to map)
+  if (T == 0) return cudaMemsetAsync(dw, 0, (size_t)E * d_in * d_out * 2, stream);
+  cudaError_t e = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstrides, box2);
+  if (e == cudaSuccess) e = hopper::encode_bf16_map(&dymap, dy, 2, ddims, dstrides, box2);
+  if (e == cudaSuccess) e = hopper::encode_bf16_map(&dwmap, dw, 3, wdims, wstrides, box3);
+  if (e != cudaSuccess) return e;
+  const size_t smem = dw_smem_bytes(E);
+  e = cudaFuncSetAttribute(gmm_wgrad_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)E * ((d_in + BM - 1) / BM) * ((d_out + DW_BN - 1) / DW_BN);
+  const int sms = hopper::sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gmm_wgrad_wgmma_kernel<<<grid, THREADS, smem, stream>>>(xmap, dymap, dwmap, gs, T, E, d_in,
+                                                          d_out);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -802,11 +1041,15 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_si
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of the weight gradient's wgmma body over E experts.
+extern "C" size_t moe_gmm_wgrad_wgmma_smem_bytes(int E) { return wg::dw_smem_bytes(E); }
+
 // The weight gradient: x (T, d_in) and dy (T, d_out) sorted by expert, dw
 // (E, d_in, d_out) written whole (zeros for an empty group), all contiguous
 // and of one dtype (0 = fp32, 1 = bf16); group_sizes as above.  body: 0 =
 // fp32, 1 = mma_elem, 2 = mma (d_in and d_out whole 16-byte vectors, x, dy
-// and dw 16-byte aligned).  Returns a cudaError_t code, 0 on success.
+// and dw 16-byte aligned), 3 = wgmma (as mma, and at most MAX_EXPERTS
+// experts).  Returns a cudaError_t code, 0 on success.
 extern "C" int moe_gmm_wgrad_launch(const void* x, const void* dy, const void* group_sizes,
                                     void* dw, int T, int E, int d_in, int d_out, int dtype,
                                     int body, void* stream) {
@@ -814,12 +1057,16 @@ extern "C" int moe_gmm_wgrad_launch(const void* x, const void* dy, const void* g
     return (int)cudaErrorInvalidValue;
   const bool vec = d_in % 8 == 0 && d_out % 8 == 0 && aligned16(x) && aligned16(dy) &&
                    aligned16(dw);
-  const bool ok = body == 0 ? dtype == 0 : body == 1 ? dtype == 1 : body == 2 ? dtype == 1 && vec
-                                                                             : false;
+  const bool ok = body == 0 ? dtype == 0
+                : body == 1 ? dtype == 1
+                : body == 2 ? dtype == 1 && vec
+                : body == 3 ? dtype == 1 && vec && E <= wg::MAX_EXPERTS
+                : false;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (d_in == 0 || d_out == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
+  if (body == 3) return (int)wg::launch_wgrad(x, dy, gs, dw, T, E, d_in, d_out, s);
   if (body == 0) {
     const dim3 grid(((d_in + F_BM - 1) / F_BM) * ((d_out + F_BN - 1) / F_BN), E);
     gmm_wgrad_f32_kernel<<<grid, F_NT, 0, s>>>(static_cast<const float*>(x),

@@ -256,127 +256,11 @@ __global__ void __launch_bounds__(NT) ssd_chunk_out_f32_kernel(
   chunk_y<T>(s, y, Tn, H, P, N, L, b, h, c * L);
 }
 
-// bf16 tiles of the chunked body: rows padded to 16 (zeros), columns padded
-// to 16 and then by 8 more elements, a 16-byte pad that keeps ldmatrix free
-// of bank conflicts.
-__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
-
-// Rows [t0, t0 + L) of a (B, T, H, W) bf16 tensor into a (LP x stride) tile
-// by cp.async (the caller commits and waits): zeros past the chunk, past T
-// and past W.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int stride, const __nv_bfloat16* src,
-                                           int W, int WP, int LP, int L, int Tn, int H, int b,
-                                           int h, int t0) {
-  const int nv = WP / 8;
-  for (int i = threadIdx.x; i < LP * nv; i += blockDim.x) {
-    const int j = i / nv, c = (i - j * nv) * 8;
-    const int t = t0 + j;
-    const bool ok = j < L && t < Tn && c < W;
-    hopper::cp_async16(dst + j * stride + c,
-                       ok ? src + (((size_t)b * Tn + t) * H + h) * W + c : src, ok);
-  }
-}
-
-__device__ __forceinline__ void stage_dt(float* dv, const float* dt, int LP, int L, int Tn, int H,
-                                         int b, int h, int t0) {
-  for (int j = threadIdx.x; j < LP; j += blockDim.x) {
-    const int t = t0 + j;
-    dv[j] = (j < L && t < Tn) ? dt[((size_t)b * Tn + t) * H + h] : 0.f;
-  }
-}
-
-constexpr int STATE_THREADS = 256;
-
-// Shared memory (bytes) of (a) and (c) in bf16.
-size_t mma_state_smem(int L, int P, int N) {
-  const size_t LP = round16(L);
-  return 2 * (LP * (round16(N) + 8) + 2 * LP * (round16(P) + 8)) + 4 * 3 * LP;
-}
+// Shared memory (bytes) of (c) in bf16.
 size_t mma_out_smem(int L, int PP, int N) {
   const size_t LP = round16(L), CS = round16(N) + 8;
   const size_t RR = LP > 2 * (size_t)PP ? LP : 2 * (size_t)PP;
   return 2 * ((LP + RR) * CS + LP * (PP + 8)) + 4 * 3 * LP;
-}
-
-// (a), bf16: the chunk's own state S_c[p][n] = sum_j u_j[p] b_j[n], u = w . x
-// (w_j = exp(s_L - s_j) dt_j), as two tensor-core products: u's bf16 high
-// part, then its bf16 rest.  Grid (H, n_chunks, B), 8 warps.
-__global__ void __launch_bounds__(STATE_THREADS) ssd_chunk_state_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
-    const __nv_bfloat16* __restrict__ bm, float* __restrict__ states, float* __restrict__ decays,
-    int Tn, int H, int P, int N, int L) {
-  const int LP = round16(L), NP = round16(N), PP = round16(P);
-  const int BS = NP + 8, US = PP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // LP x BS
-  __nv_bfloat16* Uh = Bs + LP * BS;                                 // LP x US: bf16(u)
-  __nv_bfloat16* Ul = Uh + LP * US;                                 // LP x US: bf16(u - Uh)
-  float* sv = reinterpret_cast<float*>(Ul + LP * US);               // LP
-  float* dv = sv + LP;                                              // LP
-  float* sl = dv + LP;                                              // LP
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
-  const int t0 = c * L;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
-
-  stage_rows(Bs, BS, bm, N, NP, LP, L, Tn, H, b, h, t0);
-  stage_rows(Uh, US, x, P, PP, LP, L, Tn, H, b, h, t0);  // x, made into u in place below
-  hopper::cp_async_commit();
-  stage_dt(dv, dt, LP, L, Tn, H, b, h, t0);
-  hopper::cp_async_wait<0>();
-  __syncthreads();
-  chunk_cumsum(sv, sl, dv, LP, a[h]);
-  __syncthreads();
-  const int jL = LP - 1;
-  const int pv = PP / 8;
-  for (int i = tid; i < LP * pv; i += STATE_THREADS) {
-    const int j = i / pv, c8 = (i - j * pv) * 8;
-    float f[8];
-    Vec<__nv_bfloat16>::load(Uh + j * US + c8, f);
-    const float w = expf(s_diff(sv, sl, jL, j)) * dv[j];
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float u0 = f[2 * e] * w, u1 = f[2 * e + 1] * w;
-      const __nv_bfloat162 hv = __floats2bfloat162_rn(u0, u1);
-      const float2 hf = __bfloat1622float2(hv);
-      hi[e] = *reinterpret_cast<const uint32_t*>(&hv);
-      lo[e] = hopper::pack_bf16(u0 - hf.x, u1 - hf.y);
-    }
-    *reinterpret_cast<uint4*>(Uh + j * US + c8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(Ul + j * US + c8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-  __syncthreads();
-
-  // S_c (PP x NP): units of 16 rows of p by 16 columns of n, one per warp at a time.
-  const size_t ci = chunk_index(b, c, h, nc, H);
-  float* out = states + ci * P * N;
-  const int npr = NP / 16;
-  for (int unit = warp; unit < (PP / 16) * npr; unit += STATE_THREADS / 32) {
-    const int mt = unit / npr, np = unit - mt * npr;
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int kk = 0; kk < LP / 16; ++kk) {
-      uint32_t ah[4], al[4], b0, b1, b2, b3;
-      const int ua = (kk * 16 + 8 * (lm >> 1) + lr) * US + mt * 16 + 8 * (lm & 1);
-      hopper::ldsm_x4_trans(ah[0], ah[1], ah[2], ah[3], Uh + ua);
-      hopper::ldsm_x4_trans(al[0], al[1], al[2], al[3], Ul + ua);
-      hopper::ldsm_x4_trans(b0, b1, b2, b3, Bs + (kk * 16 + lr + 8 * (lm & 1)) * BS + np * 16 + 8 * (lm >> 1));
-      hopper::mma_bf16(acc[0], ah, b0, b1);
-      hopper::mma_bf16(acc[1], ah, b2, b3);
-      hopper::mma_bf16(acc[0], al, b0, b1);
-      hopper::mma_bf16(acc[1], al, b2, b3);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int p = mt * 16 + g + 8 * hf, n = np * 16 + nt * 8 + 2 * t4;
-        if (p < P && n < N)
-          *reinterpret_cast<float2*>(out + (size_t)p * N + n) =
-              make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
-      }
-  }
-  if (tid == 0) decays[ci] = expf(sv[jL] + sl[jL]);
 }
 
 // (c), bf16: y of the chunk.  Warp w takes rows 16w .. 16w + 15: G = C B^T
@@ -478,15 +362,7 @@ __global__ void __launch_bounds__(256) ssd_chunk_out_mma_kernel(
   for (int kk = 0; kk < 8; ++kk) {
     if (kk <= warp) {
       uint32_t ah[4], al[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float f0 = gm[2 * kk + (r >> 1)][2 * (r & 1)];
-        const float f1 = gm[2 * kk + (r >> 1)][2 * (r & 1) + 1];
-        const __nv_bfloat162 hv = __floats2bfloat162_rn(f0, f1);
-        const float2 hf = __bfloat1622float2(hv);
-        ah[r] = *reinterpret_cast<const uint32_t*>(&hv);
-        al[r] = hopper::pack_bf16(f0 - hf.x, f1 - hf.y);
-      }
+      acc_to_a(gm[2 * kk], gm[2 * kk + 1], ah, al);
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         uint32_t b0, b1, b2, b3;
@@ -583,8 +459,6 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int padded_p(int P) { return P <= 16 ? 16 : (P <= 32 ? 32 : (P <= 64 ? 64 : 128)); }
-
 // Shared memory (bytes) the chunked body's largest CTA takes.
 size_t chunked_smem_bytes(int L, int P, int N, int dtype) {
   if (dtype == 0) return smem_bytes(L, P, N);
@@ -617,9 +491,9 @@ cudaError_t launch_chunked(const void* x, const float* dt, const float* a, const
   if (nc > 0) {  // (a)
     if (dtype == 1) {
       const size_t smem = mma_state_smem(L, P, N);
-      e = set_smem(ssd_chunk_state_mma_kernel, smem);
+      e = set_smem(ssd_chunk_state_mma_kernel<false>, smem);
       if (e != cudaSuccess) return e;
-      ssd_chunk_state_mma_kernel<<<grid, STATE_THREADS, smem, s>>>(
+      ssd_chunk_state_mma_kernel<false><<<grid, STATE_THREADS, smem, s>>>(
           static_cast<const __nv_bfloat16*>(x), dt, a, static_cast<const __nv_bfloat16*>(b),
           states, decays, Tn, H, P, N, L);
       e = cudaGetLastError();

@@ -23,25 +23,48 @@
 //   (b') the pass over the chunks in reverse, in parallel over (b, h) and the
 //        P x N state: each own term is overwritten in place by the Sb leaving
 //        its chunk, and Sb_in of chunk 0 is the initial state's gradient;
-//   (c'1) one CTA per (b, chunk, h), by blocks of 32 rows i: C B^T and dY X^T
-//        on the rows up to the diagonal, masked and weighted, then dc and the
-//        rows' part of sbar (to scratch);
-//   (c'2) one CTA per (b, chunk, h), by blocks of 32 columns j: the same two
-//        products transposed, then dx, db, the direct d(dt), the columns'
-//        part of sbar, and the reverse cumsum over the chunk for d(dt) and
-//        the chunk's part of da (summed by the wrapper in a fixed order: no
-//        atomics anywhere).
+//   (c'1) one CTA per (b, chunk, h), by blocks of rows i (32 at a time in
+//        fp32, 16 a warp in mma): C B^T and dY X^T on the rows up to the
+//        diagonal, masked and weighted, then dc and the rows' part of sbar
+//        (to scratch);
+//   (c'2) one CTA per (b, chunk, h), by blocks of columns j (as rows in
+//        (c'1)): the same two products transposed, then dx, db, the direct
+//        d(dt), the columns' part of sbar, and the reverse cumsum over the
+//        chunk for d(dt) and the chunk's part of da (summed by the wrapper
+//        in a fixed order: no atomics anywhere).
 //
 // What bounds it: at mamba2-780m's B = 2, T = 2048 the function must read x,
 // b, c, dy, dt and the saved states and write dx, db, dc and d(dt), about
 // 330 MB: 98 us at 3.35 TB/s; its products are about 8 L^2 (N + P) / 2 +
 // 10 L P N flops a chunk and head, 31 GFLOP there, 31 us on the tensor
-// cores but 0.46 ms on the CUDA cores.  This first kernel does all of its
-// arithmetic in fp32 on the CUDA cores (bf16 inputs are widened as they are
-// staged), so it is bound by operations, and by shared memory's bandwidth
-// before that: every product is a 4 x 4 register tile per thread fed by
-// scalar loads from rows of odd stride (conflict-free whichever way a
-// product reads them).  The products on mma.sync or wgmma are later work.
+// cores but 0.46 ms on the CUDA cores.  Two bodies (kernels/ssd_scan_bwd.py
+// picks one), the same four steps and guarantees (s in fp64, Gamma the exp
+// of a masked difference, da from ordered partials, no atomics):
+//
+// * mma (bf16): the products on mma.sync m16n8k16 from ldmatrix with fp32
+//   sums.  C B^T and dY X^T have exact bf16 operands.  Every product with
+//   an fp32 operand runs as two, its bf16 high part and its bf16 rest, as
+//   the forward's (c) does: the masked, weighted L x L tiles times B, C or
+//   dY, the state terms (S_in^T dy in dc, Sb b and Sb^T x in dx and db),
+//   and (a')'s sum of exp(s_i) dy_i c_i^T (the forward's mma chunk-state
+//   kernel with OWN set).  One rounding to bf16 (2^-9 of a term) moved the
+//   forward's y by 0.25 where terms cancel; in two parts an operand keeps
+//   about 2^-17.  b, c, x and dy are staged in bf16 (about 140 KB a CTA at
+//   mamba2's widths, against 200 KB widened to fp32), in two halves: X and
+//   dY first, so that dY X^T (or X dY^T) runs while C, B and the state
+//   (split into its two parts as it is staged) arrive, and s is summed by
+//   the warp with the fewest products.  A warp owns 16 rows i in (c'1) and
+//   16 columns j in (c'2), with the tiles up to (from) the diagonal: the
+//   warps' products are uneven, so the busiest warp sets a CTA's time, and
+//   one CTA of 8 warps fits an SM (registers: up to 226 a thread at P =
+//   64).  It is bound by the latency of its busiest warp's products, not
+//   by bytes.
+// * fp32 (both dtypes; fp32 inputs stay here, as the reference's SSD
+//   tolerance rules out TF32): all arithmetic in fp32 on the CUDA cores,
+//   bf16 inputs widened as they are staged, so it is bound by operations,
+//   and by shared memory's bandwidth before that: every product is a 4 x 4
+//   register tile per thread fed by scalar loads from rows of odd stride
+//   (conflict-free whichever way a product reads them).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
@@ -347,6 +370,46 @@ __global__ void __launch_bounds__(NT) ssd_bwd_rows_kernel(
   }
 }
 
+// The end of (c'2), warp 0: sbar over the chunk's n rows (the rows' parts
+// in `rows`, the columns' in scol, and at the last row the sum of dt_j R_j
+// plus exp(s_L) <Sb, S_in>, whose warps' parts are red[0 .. nred)), then its
+// reverse cumsum in fp64, each lane a contiguous segment; d(dt) = direct +
+// a (that sum) and the chunk's part of da = sum_k dt_k (that sum).
+__device__ void finish_chunk(const float* rows, const float* scol, const float* rdt,
+                             const float* direct, const float* dv, const float* red, int nred,
+                             float eL, int n, int L, int Tn, int H, int b, int h, int t0,
+                             float ah, float* __restrict__ ddt, float* __restrict__ da_part,
+                             size_t ci) {
+  const int lane = threadIdx.x & 31;
+  const int seg = (n + 31) / 32;
+  const int k0 = min(lane * seg, n), k1 = min(k0 + seg, n);
+  const int jL = n - 1;
+  double tail = 0.0;  // the sum of dt_j R_j, and the extra term at s_L
+  for (int k = k0; k < k1; ++k) tail += (double)rdt[k];
+  tail = warp_sum(tail);
+  float dot = 0.f;
+  for (int w = 0; w < nred; ++w) dot += red[w];
+  const double last = tail + (double)eL * dot;
+  double run = 0.0;  // this lane's segment total
+  for (int k = k0; k < k1; ++k) run += (double)rows[k] + scol[k] + (k == jL ? last : 0.0);
+  double after = run;  // inclusive suffix sum over the lanes from this one on
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double dn = __shfl_down_sync(0xffffffffu, after, o);
+    if (lane + o < 32) after += dn;
+  }
+  double acc = after - run;  // the sum over the segments after this one
+  double da = 0.0;
+  for (int k = k1 - 1; k >= k0; --k) {
+    acc += (double)rows[k] + scol[k] + (k == jL ? last : 0.0);
+    const int t = t0 + k;
+    if (k < L && t < Tn) ddt[((size_t)b * Tn + t) * H + h] = direct[k] + (float)((double)ah * acc);
+    da += (double)dv[k] * acc;
+  }
+  da = warp_sum(da);
+  if (lane == 0) da_part[ci] = (float)da;
+}
+
 // (c'2): by blocks of RB columns j, with i from the block's start:
 //   F_ji = (c_i . b_j) G_ij dt_j, E_ji = (dy_i . x_j) G_ij dt_j,
 //   H_j = sum_i (c_i . b_j) G_ij (dy_i . x_j),
@@ -484,37 +547,431 @@ __global__ void __launch_bounds__(NT) ssd_bwd_cols_kernel(
     __syncthreads();  // the block's tiles are consumed before the next block's
   }
 
-  // sbar over the chunk, then its reverse cumsum in fp64 (warp 0, each lane a
-  // contiguous segment), d(dt) and the chunk's part of da
-  if (warp == 0) {
-    const int seg = LQ / 32;
-    const int k0 = lane * seg, k1 = k0 + seg;
-    const float* rows = srow + ci * LQ;
-    double tail = 0.0;  // the sum of dt_j R_j, and the extra term at s_L
-    for (int k = k0; k < k1; ++k) tail += (double)rdt[k];
-    tail = warp_sum(tail);
-    float dot = 0.f;
-    for (int w = 0; w < NT / 32; ++w) dot += red[w];
-    const double last = tail + (double)eL * dot;
-    double run = 0.0;  // this lane's segment total
-    for (int k = k0; k < k1; ++k) run += (double)rows[k] + scol[k] + (k == jL ? last : 0.0);
-    double after = run;  // inclusive suffix sum over the lanes from this one on
+  if (warp == 0)
+    finish_chunk(srow + ci * LQ, scol, rdt, direct, d.dv, red, NT / 32, eL, LQ, L, Tn, H, b, h,
+                 t0, ah, ddt, da_part, ci);
+}
+
+// ---------------------------------------------------------------------------
+// the mma body (bf16): (a') on the forward's mma chunk-state kernel, (b') as
+// above, (c'1) and (c'2) on mma.sync m16n8k16 from ldmatrix with fp32 sums
+// ---------------------------------------------------------------------------
+// The bf16 tiles of (c'1) and (c'2): the chunk's C, B, X and dY, rows
+// padded to 16 and columns to 16 (N) or to the compiled P (zeros), each row
+// 16 bytes longer (ldmatrix without bank conflicts); an fp32 state in two
+// bf16 parts, [p][n]; fp32 vectors of LP: s (two parts) and dt, then (c'2)'s
+// direct d(dt), the columns' part of sbar and dt_j R_j; 16 warps' parts.
+struct MmaSmem {
+  int LP, NP, PP, CS, XS;
+  __nv_bfloat16 *Cs, *Bs, *Xs, *Ys, *Sh, *Sl;
+  float *sv, *sl, *dv, *direct, *scol, *rdt, *red;
+};
+
+__host__ __device__ __forceinline__ size_t mma_dual_smem(int L, int P, int N) {
+  const size_t LP = round16(L), PP = padded_p(P), CS = round16(N) + 8, XS = PP + 8;
+  return 2 * (2 * LP * CS + 2 * LP * XS + 2 * PP * CS) + 4 * (6 * LP + 16);
+}
+
+__device__ __forceinline__ MmaSmem carve_mma(unsigned char* smem, int L, int P, int N) {
+  MmaSmem m;
+  m.LP = round16(L);
+  m.NP = round16(N);
+  m.PP = padded_p(P);
+  m.CS = m.NP + 8;
+  m.XS = m.PP + 8;
+  m.Cs = reinterpret_cast<__nv_bfloat16*>(smem);
+  m.Bs = m.Cs + m.LP * m.CS;
+  m.Xs = m.Bs + m.LP * m.CS;
+  m.Ys = m.Xs + m.LP * m.XS;
+  m.Sh = m.Ys + m.LP * m.XS;
+  m.Sl = m.Sh + m.PP * m.CS;
+  m.sv = reinterpret_cast<float*>(m.Sl + m.PP * m.CS);
+  m.sl = m.sv + m.LP;
+  m.dv = m.sl + m.LP;
+  m.direct = m.dv + m.LP;
+  m.scol = m.direct + m.LP;
+  m.rdt = m.scol + m.LP;
+  m.red = m.rdt + m.LP;
+  return m;
+}
+
+// Staging in two halves, so that the first product runs while the rest
+// arrives.  The first: X and dY by cp.async (one group), then C and B (a
+// second), and dt; once X, dY and dt are in (synced), warp `cw` sums s =
+// cumsum(a dt) while the others start on dY X^T (or X dY^T).
+__device__ __forceinline__ void stage_mma_first(const MmaSmem& m, const __nv_bfloat16* x,
+                                                const float* dt, float ah,
+                                                const __nv_bfloat16* bm,
+                                                const __nv_bfloat16* cm,
+                                                const __nv_bfloat16* dy, int Tn, int H, int P,
+                                                int N, int L, int b, int h, int t0, int cw) {
+  stage_rows(m.Xs, m.XS, x, P, m.PP, m.LP, L, Tn, H, b, h, t0);
+  stage_rows(m.Ys, m.XS, dy, P, m.PP, m.LP, L, Tn, H, b, h, t0);
+  hopper::cp_async_commit();
+  stage_rows(m.Cs, m.CS, cm, N, m.NP, m.LP, L, Tn, H, b, h, t0);
+  stage_rows(m.Bs, m.CS, bm, N, m.NP, m.LP, L, Tn, H, b, h, t0);
+  hopper::cp_async_commit();
+  stage_dt(m.dv, dt, m.LP, L, Tn, H, b, h, t0);
+  hopper::cp_async_wait<1>();
+  __syncthreads();
+  chunk_cumsum(m.sv, m.sl, m.dv, m.LP, ah, cw);
+}
+
+// The second: a state in two parts (returning this thread's part of its
+// dot product with `other`, where given); once C, B, the state and s are
+// in, synced.
+__device__ __forceinline__ float stage_mma_second(const MmaSmem& m, const float* state, int P,
+                                                  int N, const float* other = nullptr) {
+  const float dot = stage_state_split(m.Sh, m.Sl, m.CS, state, P, N, m.PP, m.NP, other);
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  return dot;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float bf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// (c'1), mma: warp w takes rows i of [16 w, 16 w + 16) and the columns j of
+// the n8 tiles up to its diagonal:
+//   DM = dY X^T and CB = C B^T (exact bf16 operands);
+//   Q_ij = CB G dt_j DM summed over j (the rows' part of sbar), E = DM G dt_j;
+//   dc_i = E B (E in two parts) + exp(s_i) S_in^T dy_i (S_in in two parts);
+//   srow_i = sum_j Q_ij + exp(s_i) c_i . (S_in^T dy_i).
+// Grid (H, n_chunks, B), LP / 16 warps.
+__global__ void __launch_bounds__(256) ssd_bwd_rows_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const __nv_bfloat16* __restrict__ bm,
+    const __nv_bfloat16* __restrict__ cm, const __nv_bfloat16* __restrict__ dy,
+    const float* __restrict__ states_in, __nv_bfloat16* __restrict__ dc,
+    float* __restrict__ srow, int Tn, int H, int P, int N, int L) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MmaSmem m = carve_mma(smem_raw, L, P, N);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * L, LQ = rows32(L);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const size_t ci = chunk_index(b, c, h, nc, H);
+  // warp 0 has the fewest products here: it sums s
+  stage_mma_first(m, x, dt, a[h], bm, cm, dy, Tn, H, P, N, L, b, h, t0, 0);
+
+  const int i0 = warp * 16;
+  const int nj_end = 2 * (warp + 1);  // n8 tiles of j < i0 + 16
+  float dm[16][4], cb[16][4];
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double dn = __shfl_down_sync(0xffffffffu, after, o);
-      if (lane + o < 32) after += dn;
+  for (int nj = 0; nj < 16; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dm[nj][e] = cb[nj][e] = 0.f;
+  for (int kk = 0; kk < m.PP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Ys, m.XS, i0, kk * 16);
+#pragma unroll
+    for (int nj = 0; nj < 16; nj += 2) {
+      if (nj < nj_end) {  // warp-uniform
+        uint32_t bq[4];
+        ldsm_b(bq, m.Xs, m.XS, nj * 8, kk * 16);
+        mma2(dm[nj], dm[nj + 1], af, bq);
+      }
     }
-    double acc = after - run;  // the sum over the segments after this one
-    double da = 0.0;
-    for (int k = k1 - 1; k >= k0; --k) {
-      acc += (double)rows[k] + scol[k] + (k == jL ? last : 0.0);
-      const int t = t0 + k;
-      if (k < L && t < Tn) ddt[((size_t)b * Tn + t) * H + h] = direct[k] + (float)((double)ah * acc);
-      da += (double)d.dv[k] * acc;
-    }
-    da = warp_sum(da);
-    if (lane == 0) da_part[ci] = (float)da;
   }
+  stage_mma_second(m, states_in + ci * P * N, P, N);
+  for (int kk = 0; kk < m.NP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Cs, m.CS, i0, kk * 16);
+#pragma unroll
+    for (int nj = 0; nj < 16; nj += 2) {
+      if (nj < nj_end) {
+        uint32_t bq[4];
+        ldsm_b(bq, m.Bs, m.CS, nj * 8, kk * 16);
+        mma2(cb[nj], cb[nj + 1], af, bq);
+      }
+    }
+  }
+  // Q's row sums; E = DM G dt_j in place of DM (masked before the exp)
+  float q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nj = 0; nj < 16; ++nj) {
+    if (nj < nj_end) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e >> 1), j = nj * 8 + 2 * t4 + (e & 1);
+        const float gd = j <= i ? expf(s_diff(m.sv, m.sl, i, j)) * m.dv[j] : 0.f;
+        q[e >> 1] = fmaf(cb[nj][e] * gd, dm[nj][e], q[e >> 1]);
+        dm[nj][e] *= gd;
+      }
+    }
+  }
+  // E B, over the 16-deep blocks of j up to the diagonal
+  float acc[16][4], inter[16][4];
+#pragma unroll
+  for (int nd = 0; nd < 16; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = inter[nd][e] = 0.f;
+  const int nd_end = m.NP / 8;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk <= warp) {
+      uint32_t ah[4], al[4];
+      acc_to_a(dm[2 * kk], dm[2 * kk + 1], ah, al);
+#pragma unroll
+      for (int nd = 0; nd < 16; nd += 2) {
+        if (nd < nd_end) {
+          uint32_t bq[4];
+          ldsm_bt(bq, m.Bs, m.CS, kk * 16, nd * 8);
+          mma2(acc[nd], acc[nd + 1], ah, bq);
+          mma2(acc[nd], acc[nd + 1], al, bq);
+        }
+      }
+    }
+  }
+  // S_in^T dy_i (= dY S_in), S_in in two parts
+  for (int kk = 0; kk < m.PP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Ys, m.XS, i0, kk * 16);
+#pragma unroll
+    for (int nd = 0; nd < 16; nd += 2) {
+      if (nd < nd_end) {
+        uint32_t bq[4];
+        ldsm_bt(bq, m.Sh, m.CS, kk * 16, nd * 8);
+        mma2(inter[nd], inter[nd + 1], af, bq);
+        ldsm_bt(bq, m.Sl, m.CS, kk * 16, nd * 8);
+        mma2(inter[nd], inter[nd + 1], af, bq);
+      }
+    }
+  }
+  // dc, and c_i . (S_in^T dy_i) for srow
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + g + 8 * hf, t = t0 + i;
+    const float es = expf(m.sv[i] + m.sl[i]);
+    const bool keep = i < L && t < Tn;
+    __nv_bfloat16* row = dc + (((size_t)b * Tn + t) * H + h) * N;
+#pragma unroll
+    for (int nd = 0; nd < 16; ++nd) {
+      if (nd < nd_end) {
+        const int n = nd * 8 + 2 * t4;
+        const float v0 = inter[nd][2 * hf], v1 = inter[nd][2 * hf + 1];
+        ps[hf] = fmaf(bf(m.Cs + i * m.CS + n), v0, ps[hf]);
+        ps[hf] = fmaf(bf(m.Cs + i * m.CS + n + 1), v1, ps[hf]);
+        if (keep && n < N)
+          Vec<__nv_bfloat16>::store2(row + n, acc[nd][2 * hf] + es * v0,
+                                     acc[nd][2 * hf + 1] + es * v1);
+      }
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float qs = quad_sum(q[hf]), cs = quad_sum(ps[hf]);
+    const int i = i0 + g + 8 * hf;
+    if (t4 == 0) srow[ci * LQ + i] = qs + expf(m.sv[i] + m.sl[i]) * cs;
+  }
+}
+
+// (c'2), mma: warp w takes columns j of [16 w, 16 w + 16) as its rows and
+// the rows i of the n8 tiles from its diagonal on:
+//   DM^T = X dY^T and CB^T = B C^T (exact bf16 operands);
+//   H_j = sum_i CB G DM; F = CB G dt_j and E = DM G dt_j;
+//   dx_j = F dY (F in two parts) + w_j Sb b_j (Sb in two parts),
+//   db_j = E C (E in two parts) + w_j Sb^T x_j (w_j = exp(s_L - s_j) dt_j),
+//   R_j = exp(s_L - s_j) x_j . (Sb b_j);
+// then d(dt) and the chunk's part of da as the fp32 body's (c'2) finishes.
+// Grid (H, n_chunks, B), LP / 16 warps.  PP: P padded (padded_p).
+template <int PP>
+__global__ void __launch_bounds__(256) ssd_bwd_cols_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const __nv_bfloat16* __restrict__ bm,
+    const __nv_bfloat16* __restrict__ cm, const __nv_bfloat16* __restrict__ dy,
+    const float* __restrict__ states_in, const float* __restrict__ sbar,
+    const float* __restrict__ srow, __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
+    __nv_bfloat16* __restrict__ db, float* __restrict__ da_part, int Tn, int H, int P, int N,
+    int L) {
+  constexpr int ND = PP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MmaSmem m = carve_mma(smem_raw, L, P, N);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * L, LQ = rows32(L), LP = m.LP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const size_t ci = chunk_index(b, c, h, nc, H);
+  const float ah = a[h];
+  const int nwarps = blockDim.x / 32;
+  // the last warp has the fewest products here: it sums s
+  stage_mma_first(m, x, dt, ah, bm, cm, dy, Tn, H, P, N, L, b, h, t0, nwarps - 1);
+
+  const int j0 = warp * 16;
+  const int nt_end = (LP - j0) / 8;  // n8 tiles of i in [j0, LP)
+  float dm[16][4], cb[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dm[nt][e] = cb[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < PP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Xs, m.XS, j0, kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < 16; nt += 2) {
+      if (nt < nt_end) {
+        uint32_t bq[4];
+        ldsm_b(bq, m.Ys, m.XS, j0 + nt * 8, kk * 16);
+        mma2(dm[nt], dm[nt + 1], af, bq);
+      }
+    }
+  }
+  {  // Sb in two parts, and <Sb, S_in> in fp32, summed in a fixed order
+    const float v = warp_sum(stage_mma_second(m, sbar + ci * P * N, P, N,
+                                              states_in + ci * P * N));
+    if (lane == 0) m.red[warp] = v;
+  }
+  const int jL = LP - 1;
+  const float eL = expf(m.sv[jL] + m.sl[jL]);
+  for (int kk = 0; kk < m.NP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Bs, m.CS, j0, kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < 16; nt += 2) {
+      if (nt < nt_end) {
+        uint32_t bq[4];
+        ldsm_b(bq, m.Cs, m.CS, j0 + nt * 8, kk * 16);
+        mma2(cb[nt], cb[nt + 1], af, bq);
+      }
+    }
+  }
+  // H's parts; F = CB G dt_j in place of CB, E = DM G dt_j in place of DM
+  float hs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    if (nt < nt_end) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + g + 8 * (e >> 1), i = j0 + nt * 8 + 2 * t4 + (e & 1);
+        const float gg = j <= i ? expf(s_diff(m.sv, m.sl, i, j)) : 0.f;
+        hs[e >> 1] = fmaf(cb[nt][e] * gg, dm[nt][e], hs[e >> 1]);
+        const float gd = gg * m.dv[j];
+        cb[nt][e] *= gd;
+        dm[nt][e] *= gd;
+      }
+    }
+  }
+  // dx: F dY over the 16-deep blocks of i from the diagonal, and Sb b_j
+  float ax[ND][4], sbb[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ax[nd][e] = sbb[nd][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (2 * kk < nt_end) {
+      uint32_t fh[4], fl[4];
+      acc_to_a(cb[2 * kk], cb[2 * kk + 1], fh, fl);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t bq[4];
+        ldsm_bt(bq, m.Ys, m.XS, j0 + kk * 16, nd * 8);
+        mma2(ax[nd], ax[nd + 1], fh, bq);
+        mma2(ax[nd], ax[nd + 1], fl, bq);
+      }
+    }
+  }
+  for (int kk = 0; kk < m.NP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Bs, m.CS, j0, kk * 16);
+#pragma unroll
+    for (int nd = 0; nd < ND; nd += 2) {
+      uint32_t bq[4];
+      ldsm_b(bq, m.Sh, m.CS, nd * 8, kk * 16);
+      mma2(sbb[nd], sbb[nd + 1], af, bq);
+      ldsm_b(bq, m.Sl, m.CS, nd * 8, kk * 16);
+      mma2(sbb[nd], sbb[nd + 1], af, bq);
+    }
+  }
+  float rp[2] = {0.f, 0.f};  // x_j . (Sb b_j), in parts
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int j = j0 + g + 8 * hf, t = t0 + j;
+    const float w = expf(s_diff(m.sv, m.sl, jL, j)) * m.dv[j];
+    const bool keep = j < L && t < Tn;
+    __nv_bfloat16* row = dx + (((size_t)b * Tn + t) * H + h) * P;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int p = nd * 8 + 2 * t4;
+      const float v0 = sbb[nd][2 * hf], v1 = sbb[nd][2 * hf + 1];
+      rp[hf] = fmaf(bf(m.Xs + j * m.XS + p), v0, rp[hf]);
+      rp[hf] = fmaf(bf(m.Xs + j * m.XS + p + 1), v1, rp[hf]);
+      if (keep && p < P)
+        Vec<__nv_bfloat16>::store2(row + p, ax[nd][2 * hf] + w * v0, ax[nd][2 * hf + 1] + w * v1);
+    }
+  }
+  // db: E C over the same blocks, and Sb^T x_j
+  float adb[16][4], sbx[16][4];
+#pragma unroll
+  for (int nd = 0; nd < 16; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adb[nd][e] = sbx[nd][e] = 0.f;
+  const int nd_end = m.NP / 8;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (2 * kk < nt_end) {
+      uint32_t eh[4], el[4];
+      acc_to_a(dm[2 * kk], dm[2 * kk + 1], eh, el);
+#pragma unroll
+      for (int nd = 0; nd < 16; nd += 2) {
+        if (nd < nd_end) {
+          uint32_t bq[4];
+          ldsm_bt(bq, m.Cs, m.CS, j0 + kk * 16, nd * 8);
+          mma2(adb[nd], adb[nd + 1], eh, bq);
+          mma2(adb[nd], adb[nd + 1], el, bq);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < PP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_a(af, m.Xs, m.XS, j0, kk * 16);
+#pragma unroll
+    for (int nd = 0; nd < 16; nd += 2) {
+      if (nd < nd_end) {
+        uint32_t bq[4];
+        ldsm_bt(bq, m.Sh, m.CS, kk * 16, nd * 8);
+        mma2(sbx[nd], sbx[nd + 1], af, bq);
+        ldsm_bt(bq, m.Sl, m.CS, kk * 16, nd * 8);
+        mma2(sbx[nd], sbx[nd + 1], af, bq);
+      }
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int j = j0 + g + 8 * hf, t = t0 + j;
+    if (!(j < L && t < Tn)) continue;
+    const float w = expf(s_diff(m.sv, m.sl, jL, j)) * m.dv[j];
+    __nv_bfloat16* row = db + (((size_t)b * Tn + t) * H + h) * N;
+#pragma unroll
+    for (int nd = 0; nd < 16; ++nd) {
+      const int n = nd * 8 + 2 * t4;
+      if (nd < nd_end && n < N)
+        Vec<__nv_bfloat16>::store2(row + n, adb[nd][2 * hf] + w * sbx[nd][2 * hf],
+                                   adb[nd][2 * hf + 1] + w * sbx[nd][2 * hf + 1]);
+    }
+  }
+  // the direct d(dt), the columns' part of sbar and dt_j R_j, a row a quad
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float hsum = quad_sum(hs[hf]), rsum = quad_sum(rp[hf]);
+    const int j = j0 + g + 8 * hf;
+    if (t4 == 0) {
+      const float r = expf(s_diff(m.sv, m.sl, jL, j)) * rsum;
+      m.direct[j] = hsum + r;
+      m.scol[j] = -m.dv[j] * (hsum + r);
+      m.rdt[j] = m.dv[j] * r;
+    }
+  }
+  __syncthreads();
+  if (warp == 0)
+    finish_chunk(srow + ci * LQ, m.scol, m.rdt, m.direct, m.dv, m.red, nwarps, eL, LP, L, Tn, H,
+                 b, h, t0, ah, ddt, da_part, ci);
 }
 
 template <typename K>
@@ -523,8 +980,10 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-size_t largest_smem(int L, int P, int N) {
-  const size_t a = smem_bytes(L, P, N), c = sizeof(float) * dual_floats(L, P, N);
+// Shared memory (bytes) of the body's largest CTA (0 = fp32, 1 = mma).
+size_t largest_smem(int L, int P, int N, int body) {
+  const size_t a = body == 1 ? mma_state_smem(L, P, N) : smem_bytes(L, P, N);
+  const size_t c = body == 1 ? mma_dual_smem(L, P, N) : sizeof(float) * dual_floats(L, P, N);
   return a > c ? a : c;
 }
 
@@ -572,13 +1031,86 @@ cudaError_t launch_bwd(const void* x, const float* dt, const float* a, const voi
   return cudaGetLastError();
 }
 
+template <int PP>
+cudaError_t launch_cols_mma(dim3 grid, int threads, size_t smem, const __nv_bfloat16* x,
+                            const float* dt, const float* a, const __nv_bfloat16* b,
+                            const __nv_bfloat16* c, const __nv_bfloat16* dy,
+                            const float* states_in, const float* sbar, const float* srow,
+                            void* dx, float* ddt, void* db, float* da_part, int Tn, int H, int P,
+                            int N, int L, cudaStream_t s) {
+  auto kernel = ssd_bwd_cols_mma_kernel<PP>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, s>>>(x, dt, a, b, c, dy, states_in, sbar, srow,
+                                     static_cast<__nv_bfloat16*>(dx), ddt,
+                                     static_cast<__nv_bfloat16*>(db), da_part, Tn, H, P, N, L);
+  return cudaGetLastError();
+}
+
+// The mma body: (a') on the forward's mma chunk-state kernel (OWN), (b'),
+// then (c'1) and (c'2) on mma.sync.
+cudaError_t launch_bwd_mma(const void* x, const float* dt, const float* a, const void* b,
+                           const void* c, const void* dy, const float* states_in,
+                           const float* dstate, void* dx, float* ddt, void* db, void* dc,
+                           float* dinit, float* sbar, float* decays, float* srow,
+                           float* da_part, int B, int Tn, int H, int P, int N, int L,
+                           cudaStream_t s) {
+  const int nc = (Tn + L - 1) / L;
+  const dim3 grid(H, nc, B);
+  const __nv_bfloat16* xt = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* bt = static_cast<const __nv_bfloat16*>(b);
+  const __nv_bfloat16* ct = static_cast<const __nv_bfloat16*>(c);
+  const __nv_bfloat16* dyt = static_cast<const __nv_bfloat16*>(dy);
+  cudaError_t e = cudaSuccess;
+  if (nc > 0) {  // (a'): sum_j exp(s_j) dy_j c_j^T
+    const size_t smem = mma_state_smem(L, P, N);
+    e = set_smem(ssd_chunk_state_mma_kernel<true>, smem);
+    if (e != cudaSuccess) return e;
+    ssd_chunk_state_mma_kernel<true><<<grid, STATE_THREADS, smem, s>>>(dyt, dt, a, ct, sbar,
+                                                                       decays, Tn, H, P, N, L);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int PN = P * N;  // (b')
+  ssd_bwd_state_pass_kernel<<<dim3((PN + 255) / 256, B * H), 256, 0, s>>>(sbar, decays, dstate,
+                                                                          dinit, nc, H, PN);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || nc == 0) return e;
+  const size_t smem = mma_dual_smem(L, P, N);
+  const int threads = 32 * (round16(L) / 16);
+  e = set_smem(ssd_bwd_rows_mma_kernel, smem);  // (c'1)
+  if (e != cudaSuccess) return e;
+  ssd_bwd_rows_mma_kernel<<<grid, threads, smem, s>>>(xt, dt, a, bt, ct, dyt, states_in,
+                                                      static_cast<__nv_bfloat16*>(dc), srow, Tn,
+                                                      H, P, N, L);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (padded_p(P)) {  // (c'2)
+    case 16:
+      return launch_cols_mma<16>(grid, threads, smem, xt, dt, a, bt, ct, dyt, states_in, sbar,
+                                 srow, dx, ddt, db, da_part, Tn, H, P, N, L, s);
+    case 32:
+      return launch_cols_mma<32>(grid, threads, smem, xt, dt, a, bt, ct, dyt, states_in, sbar,
+                                 srow, dx, ddt, db, da_part, Tn, H, P, N, L, s);
+    case 64:
+      return launch_cols_mma<64>(grid, threads, smem, xt, dt, a, bt, ct, dyt, states_in, sbar,
+                                 srow, dx, ddt, db, da_part, Tn, H, P, N, L, s);
+    default:
+      return launch_cols_mma<128>(grid, threads, smem, xt, dt, a, bt, ct, dyt, states_in, sbar,
+                                  srow, dx, ddt, db, da_part, Tn, H, P, N, L, s);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// Shared memory (bytes) the largest CTA takes for chunk L, head dim P and
-// state dim N: the wrapper holds it against the card's limit.
-extern "C" size_t ssd_scan_bwd_smem_bytes(int L, int P, int N) { return largest_smem(L, P, N); }
+// Shared memory (bytes) the largest CTA of a body (0 = fp32, 1 = mma)
+// takes for chunk L, head dim P and state dim N: the wrapper holds it
+// against the card's limit.
+extern "C" size_t ssd_scan_bwd_smem_bytes(int L, int P, int N, int body) {
+  return largest_smem(L, P, N, body);
+}
 
 // x, dy (B, T, H, P) and b, c (B, T, H, N) of one dtype (0 = fp32, 1 = bf16);
 // dt (B, T, H) and a (H,) fp32; states_in (B, nc, H, P, N) fp32, the state
@@ -588,18 +1120,20 @@ extern "C" size_t ssd_scan_bwd_smem_bytes(int L, int P, int N) { return largest_
 // decays and da_part (B, nc, H), whose sum over (B, nc) is da, and srow
 // (B, nc, H, ceil(L / 32) * 32).  All contiguous; x, b, c, dy, dx, db, dc on
 // 16-byte boundaries; P and N whole 16-byte vectors and multiples of 4;
-// 1 <= L <= 128.  Returns a cudaError_t code, 0 on success.
+// 1 <= L <= 128.  body: 0 = fp32 (both dtypes), 1 = mma (bf16).  Returns a
+// cudaError_t code, 0 on success.
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* a, const void* b,
                                    const void* c, const void* dy, const void* states_in,
                                    const void* dstate, void* dx, void* ddt, void* db, void* dc,
                                    void* dinit, void* sbar, void* decays, void* srow,
                                    void* da_part, int B, int Tn, int H, int P, int N, int L,
-                                   int dtype, void* stream) {
+                                   int dtype, int body, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || Tn < 0 || H < 0 || P <= 0 || N <= 0 || L <= 0 || L > 128 ||
       (P * itemsize) % 16 != 0 || (N * itemsize) % 16 != 0 || P % 4 != 0 || N % 4 != 0 ||
-      N > 128 || P > 128 || (dtype != 0 && dtype != 1) || !aligned16(x) || !aligned16(b) ||
-      !aligned16(c) || !aligned16(dy) || !aligned16(dx) || !aligned16(db) || !aligned16(dc))
+      N > 128 || P > 128 || (dtype != 0 && dtype != 1) || (body != 0 && body != 1) ||
+      (body == 1 && dtype != 1) || !aligned16(x) || !aligned16(b) || !aligned16(c) ||
+      !aligned16(dy) || !aligned16(dx) || !aligned16(db) || !aligned16(dc))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   if (Tn > 0 && (states_in == nullptr || sbar == nullptr || decays == nullptr ||
@@ -617,7 +1151,10 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* a,
   float* sr = static_cast<float*>(srow);
   float* dap = static_cast<float*>(da_part);
   cudaError_t e;
-  if (dtype == 0)
+  if (body == 1)
+    e = launch_bwd_mma(x, dtf, af, b, c, dy, entering, ds, dx, ddtf, db, dc, di, sb, dec, sr, dap,
+                       B, Tn, H, P, N, L, s);
+  else if (dtype == 0)
     e = launch_bwd<float>(x, dtf, af, b, c, dy, entering, ds, dx, ddtf, db, dc, di, sb, dec, sr, dap,
                           B, Tn, H, P, N, L, s);
   else

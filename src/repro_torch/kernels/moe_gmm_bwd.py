@@ -13,11 +13,14 @@ XLA.  For out = x_e · w[e] on each expert's group of rows:
   load B without ``ldmatrix``'s transpose; ``fp32`` stages it transposed.
   Bound by bytes at Qwen3-MoE's shapes, as the forward is.
 * ``moe_gmm_dw``: dw[e] = x_eᵀ · dy_e, one (d_in, d_out) sum per expert over
-  its rows, in fp32, written in w's dtype; an empty group writes zeros.  Each
-  CTA works out its group's rows on the device from the sizes (no host
-  read).  Bodies ``mma`` (bf16 on mma.sync, a two-stage cp.async ring),
-  ``mma_elem`` (bf16, element loads, any widths) and ``fp32``.  Bound by
-  bytes: it must read x and dy once and write every expert's dw.
+  its rows, in fp32, written in w's dtype; an empty group writes zeros.  The
+  kernel works out each group's rows on the device from the sizes (no host
+  read).  Bodies ``wgmma`` (bf16 on Hopper's warpgroup products: a
+  persistent grid, a TMA ring of 64-row slices, the tile stored by TMA),
+  ``mma`` (bf16 on mma.sync, a two-stage cp.async ring), ``mma_elem``
+  (bf16, element loads, any widths) and ``fp32``.  Bound by bytes: it must
+  read x and dy once and write every expert's dw.  The sums keep one order
+  (no split over rows, no atomics): a repeat is bit for bit.
 
 The plain twins are :func:`~repro_torch.kernels.ref.grouped_matmul` on w's
 transpose and :func:`~repro_torch.kernels.ref.grouped_matmul_wgrad` (the
@@ -46,19 +49,24 @@ dx_by_body: Dict[str, int] = {}
 dw_by_body: Dict[str, int] = {}
 
 #: The C entry's number of each body of the weight gradient.
-DW_BODIES = {"fp32": 0, "mma_elem": 1, "mma": 2}
+DW_BODIES = {"fp32": 0, "mma_elem": 1, "mma": 2, "wgmma": 3}
 
 
-def dw_bodies_for(dtype: torch.dtype, d_in: int, d_out: int, aligned: bool) -> Tuple[str, ...]:
+def dw_bodies_for(dtype: torch.dtype, d_in: int, d_out: int, aligned: bool,
+                  n_experts: int = 1) -> Tuple[str, ...]:
     """The weight gradient's bodies that take these inputs, the preferred
-    one first.  ``aligned``: x, dy and dw start on 16-byte boundaries."""
+    one first.  ``aligned``: x, dy and dw start on 16-byte boundaries;
+    ``wgmma`` keeps two int32 rows per expert in shared memory, as the
+    forward's does (at most ``WGMMA_MAX_EXPERTS``)."""
     if dtype == torch.float32:
         return ("fp32",)
     if dtype != torch.bfloat16:
         return ()
     if not (d_in % 8 == 0 and d_out % 8 == 0 and aligned):
         return ("mma_elem",)
-    return ("mma", "mma_elem")
+    if n_experts > _fwd.WGMMA_MAX_EXPERTS:
+        return ("mma", "mma_elem")
+    return ("wgmma", "mma", "mma_elem")
 
 
 def moe_gmm_dx_plain(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -133,7 +141,7 @@ def moe_gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor, n_e
     d_out = dy.shape[1]
     dw = x.new_empty((n_experts, d_in, d_out))
     aligned = all(z.data_ptr() % 16 == 0 for z in (x, dy, dw))
-    found = dw_bodies_for(x.dtype, d_in, d_out, aligned)
+    found = dw_bodies_for(x.dtype, d_in, d_out, aligned, n_experts)
     if body is None:
         body = found[0]
     elif body not in found:

@@ -27,6 +27,15 @@ a fixed order (no atomics).  :func:`ssd_scan_bwd_plain` writes out the
 same arithmetic in PyTorch, for the CPU and to hold the kernel to on the
 card.
 
+Two bodies (:func:`bodies_for`): ``mma`` (bf16: the products on mma.sync
+with fp32 sums; C Bᵀ and dY Xᵀ from the exact bf16 operands, every product
+with an fp32 operand as two, its bf16 high part and its bf16 rest) and
+``fp32`` (both dtypes: fp32 arithmetic on the CUDA cores; fp32 inputs stay
+on it, as the reference's SSD tolerance rules out TF32).
+:func:`ssd_scan_bwd_plain` takes ``operand=``, which stands in for each fp32
+operand of a product, so that the CPU tests can round them as the mma body
+holds them and see what those roundings cost.
+
 ``ssd_scan_bwd`` launches the kernel for CUDA tensors and counts each call
 in the module-level ``launches`` (one per call, whatever it launches) and
 ``launches_by_body``; for CPU tensors it runs :func:`ssd_scan_bwd_plain`.
@@ -36,7 +45,7 @@ There is no fallback: a CUDA input the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -49,23 +58,49 @@ launches = 0
 launches_by_body: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: The one body: fp32 arithmetic on the CUDA cores, for both dtypes.
-BODY = "fp32"
+#: The C entry's number of each body.
+BODIES = {"fp32": 0, "mma": 1}
 #: The longest chunk the kernel takes (the forward's chunked body's).
 MAX_CHUNK = 128
+
+
+def bodies_for(dtype: torch.dtype) -> Tuple[str, ...]:
+    """The bodies that take inputs of ``dtype``, the preferred one first
+    (every width and chunk the kernel takes, either body)."""
+    if dtype == torch.bfloat16:
+        return ("mma", "fp32")
+    if dtype == torch.float32:
+        return ("fp32",)
+    return ()
+
+
+def body_for(dtype: torch.dtype) -> str:
+    """The body a call with inputs of ``dtype`` runs when it names none."""
+    found = bodies_for(dtype)
+    if not found:
+        raise TypeError(f"kernel takes fp32 or bf16; got {dtype}")
+    return found[0]
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               Optional[torch.Tensor]]
 
 
 def ssd_scan_bwd_plain(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
-                       chunk: int = 128) -> Grads:
+                       chunk: int = 128,
+                       operand: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                       ) -> Grads:
     """The gradient of ``ssd_scan`` in PyTorch, chunk by chunk in fp32 (s
     in fp64).  ``states_in``: (B, n_chunks, H, P, N) fp32, the state
     entering each chunk (the forward's); ``dy`` the gradient of y,
     ``dstate`` of the final state (None: zero).  Returns fp32 (dx, d(dt),
     da, db, dc, d(initial_state)); the last is None where
-    ``initial_state`` is."""
+    ``initial_state`` is.  ``operand(kind, v)``, where given, stands in for
+    each fp32 operand v of a product: kind "own" for exp(s_i)·ȳ_i in the
+    chunk's own S̄ term, "tile" for the masked, weighted L × L tiles that
+    multiply B, C or ȳ, "state" for S_in and S̄ (the products of exact bf16
+    inputs, C Bᵀ and ȳ Xᵀ, take none)."""
+    if operand is None:
+        operand = lambda kind, v: v  # noqa: E731
     bs, t, h, p = x.shape
     length = max(1, min(chunk, t))
     dtc = in_chunks(dt, length)                                      # (B, C, L, H)
@@ -77,7 +112,7 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
     el = torch.exp(s_last - s).float()                             # exp(s_L − s_j)
     decay = torch.exp(s_last[:, :, 0]).float()                     # (B, C, H)
     # (a′) each chunk's own S̄ term, (b′) the chunks in reverse
-    own = torch.einsum("bclh,bclhp,bclhn->bchpn", es, dyc, cc)
+    own = torch.einsum("bclhp,bclhn->bchpn", operand("own", es[..., None] * dyc), cc)
     sbar = (torch.zeros((bs, h, p, b.shape[3]), device=x.device) if dstate is None
             else dstate.float())
     sbar_out = [None] * nc
@@ -95,19 +130,20 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
     cb = torch.einsum("bcihn,bcjhn->bcijh", cc, bc)                # c_i·b_j
     dm = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)               # ȳ_i·x_j
     g_dt = gamma * dtc[:, :, None, :, :]                           # Γ_ij·dt_j
-    sb = torch.einsum("bchpn,bcjhn->bcjhp", sbar_out, bc)          # S̄ b_j
-    dx = (torch.einsum("bcijh,bcihp->bcjhp", cb * g_dt, dyc)
+    sbar_op, sin_op = operand("state", sbar_out), operand("state", states_in)
+    sb = torch.einsum("bchpn,bcjhn->bcjhp", sbar_op, bc)           # S̄ b_j
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", operand("tile", cb * g_dt), dyc)
           + (el * dtc)[..., None] * sb)
-    e = dm * g_dt
+    e = operand("tile", dm * g_dt)
     db = (torch.einsum("bcijh,bcihn->bcjhn", e, cc)
-          + (el * dtc)[..., None] * torch.einsum("bchpn,bcjhp->bcjhn", sbar_out, xc))
+          + (el * dtc)[..., None] * torch.einsum("bchpn,bcjhp->bcjhn", sbar_op, xc))
     dc = (torch.einsum("bcijh,bcjhn->bcihn", e, bc)
-          + es[..., None] * torch.einsum("bchpn,bcihp->bcihn", states_in, dyc))
+          + es[..., None] * torch.einsum("bchpn,bcihp->bcihn", sin_op, dyc))
     # d(dt): the direct term, then the term through s
     h_ij = cb * gamma * dm
     r = el * (xc * sb).sum(-1)                                     # exp(s_L − s_j)·x_j·S̄ b_j
     q = h_ij * dtc[:, :, None, :, :]
-    sin_c = torch.einsum("bchpn,bcihn->bcihp", states_in, cc)
+    sin_c = torch.einsum("bchpn,bcihn->bcihp", sin_op, cc)
     s_bar = q.sum(3) - q.sum(2) + es * (dyc * sin_c).sum(-1) - dtc * r
     s_bar[:, :, -1] += (dtc * r).sum(2) + decay * (sbar_out * states_in).sum((-2, -1))
     rev = torch.flip(torch.cumsum(torch.flip(s_bar.double(), (2,)), dim=2), (2,))
@@ -120,13 +156,13 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
     return whole(dx), whole(ddt), da, whole(db), whole(dc), d_init
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory (bytes) the kernel's largest CTA takes."""
+def smem_bytes(chunk: int, p: int, n: int, body: str = "fp32") -> int:
+    """Shared memory (bytes) the largest CTA of ``body`` takes."""
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_smem_bytes
     if fn.argtypes is None:
         fn.restype = ctypes.c_size_t
-        fn.argtypes = [ctypes.c_int] * 3
-    return fn(chunk, p, n)
+        fn.argtypes = [ctypes.c_int] * 4
+    return fn(chunk, p, n, BODIES[body])
 
 
 def _entry():
@@ -134,7 +170,7 @@ def _entry():
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
 
 
@@ -173,14 +209,15 @@ def _check(x, dt, a, b, c, initial_state, states_in, dy, dstate, length) -> None
 
 
 def ssd_scan_bwd(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
-                 chunk: int = 128) -> Grads:
+                 chunk: int = 128, body: Optional[str] = None) -> Grads:
     """The gradient of ``ssd_scan`` from the forward's inputs, the fp32
     states entering each chunk (B, n_chunks, H, P, N), the gradient of y
     and of the final state (None: zero) → (dx in x's dtype, d(dt) fp32, da
     fp32, db and dc in b's dtype, the initial state's gradient in fp32 or
     None where ``initial_state`` is).  CUDA tensors launch the kernel on
-    the current stream; CPU tensors take :func:`ssd_scan_bwd_plain`.  x, b,
-    c and dy off a 16-byte boundary are copied before the launch."""
+    the current stream, through ``body`` (one of ``BODIES``) or the one
+    :func:`body_for` picks; CPU tensors take :func:`ssd_scan_bwd_plain`.
+    x, b, c and dy off a 16-byte boundary are copied before the launch."""
     global launches
     if x.device.type == "cpu":
         dx, ddt, da, db, dc, d_init = ssd_scan_bwd_plain(
@@ -195,6 +232,11 @@ def ssd_scan_bwd(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
     n = b.shape[3]
     length = max(1, min(chunk, t))
     _check(x, dt, a, b, c, initial_state, states_in, dy, dstate, length)
+    found = bodies_for(x.dtype)
+    if body is None:
+        body = found[0]
+    elif body not in found:
+        raise ValueError(f"the {body!r} body does not take {x.dtype}; bodies that do: {found}")
     x, b, c, dy = (_build.aligned(z) for z in (x, b, c, dy))
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     db, dc = torch.empty_like(b), torch.empty_like(c)
@@ -206,11 +248,12 @@ def ssd_scan_bwd(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
         if d_init is not None:
             d_init.copy_(dstate) if dstate is not None else d_init.zero_()
         return dx, ddt, torch.zeros_like(a), db, dc, d_init
-    need = smem_bytes(length, p, n)
+    need = smem_bytes(length, p, n, body)
     limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
     if need > limit:
-        raise ValueError(f"the backward at chunk {length}, P={p}, N={n} needs {need} bytes of "
-                         f"shared memory, more than the {limit} a block may use on this card")
+        raise ValueError(f"the {body} backward at chunk {length}, P={p}, N={n} needs {need} "
+                         f"bytes of shared memory, more than the {limit} a block may use on "
+                         f"this card")
     nc = -(-t // length)
     lq = -(-length // 32) * 32
 
@@ -227,9 +270,9 @@ def ssd_scan_bwd(x, dt, a, b, c, initial_state, states_in, dy, dstate, *,
                       dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
                       d_init.data_ptr() if d_init is not None else None,
                       sbar.data_ptr(), decays.data_ptr(), srow.data_ptr(), da_part.data_ptr(),
-                      bs, t, h, p, n, length, _DTYPES[x.dtype], stream)
+                      bs, t, h, p, n, length, _DTYPES[x.dtype], BODIES[body], stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"ssd_scan_bwd kernel ({body}) launch failed: cudaError {rc}")
     launches += 1
-    launches_by_body[BODY] = launches_by_body.get(BODY, 0) + 1
+    launches_by_body[body] = launches_by_body.get(body, 0) + 1
     return dx, ddt, da_part.sum((0, 1)), db, dc, d_init

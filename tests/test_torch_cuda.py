@@ -18,7 +18,9 @@ from repro_torch.examples import serve_cluster as ex  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+from repro_torch.kernels import moe_gmm_bwd as gb  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels import ssd_scan_bwd as sb  # noqa: E402
 from repro_torch.training import make_prefill_step  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
@@ -1082,9 +1084,6 @@ TRAIN_KERNEL_FAMILIES = ["mamba2-780m", "zamba2-7b", "qwen3-moe-30b-a3b"]
 def kernel_counts():
     """The launch counts of the SSD scan and the grouped matmul, forward
     and backward."""
-    from repro_torch.kernels import moe_gmm_bwd as gb
-    from repro_torch.kernels import ssd_scan_bwd as sb
-
     return dict(ssd=ssd.launches, ssd_bwd=sb.launches, gmm=gmm.launches, dx=gb.dx_launches,
                 dw=gb.dw_launches)
 
@@ -1191,17 +1190,20 @@ SSD_BWD_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
-def test_ssd_bwd_kernel_matches_plain_on_card(card, shape, dtype):
-    from repro_torch.kernels import ssd_scan_bwd as sb
+# (dtype, body): every body of the backward in each dtype it takes
+SSD_BWD_BODIES = [(dt, body) for dt in (torch.float32, torch.bfloat16)
+                  for body in sb.bodies_for(dt)]
 
+
+@pytest.mark.parametrize("dtype,body", SSD_BWD_BODIES)
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain_on_card(card, shape, dtype, body):
     b, t, h, p, n, chunk, with_state, with_dstate = shape
     args = ssd_bwd_inputs(card, *shape, dtype, seed=t * h + p)
-    before = sb.launches
-    got = sb.ssd_scan_bwd(*args, chunk=chunk)
+    before = (sb.launches, sb.launches_by_body.get(body, 0))
+    got = sb.ssd_scan_bwd(*args, chunk=chunk, body=body)
     torch.cuda.synchronize()
-    assert sb.launches == before + 1
+    assert (sb.launches, sb.launches_by_body[body]) == (before[0] + 1, before[1] + 1)
     want = sb.ssd_scan_bwd_plain(*args, chunk=chunk)
     names = ("dx", "ddt", "da", "db", "dc", "d_init")
     for name, gt, w in zip(names, got, want):
@@ -1214,19 +1216,17 @@ def test_ssd_bwd_kernel_matches_plain_on_card(card, shape, dtype):
             f"{name}: max err {float((gt.float() - w).abs().max())} of {float(w.abs().max())}"
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_bwd_takes_an_offset_view_and_repeats_bit_for_bit(card, dtype):
+@pytest.mark.parametrize("dtype,body", SSD_BWD_BODIES)
+def test_ssd_bwd_takes_an_offset_view_and_repeats_bit_for_bit(card, dtype, body):
     """x and dy off a 16-byte boundary are copied, not refused; the same
     gradients again on a second call (no atomics); the C entry refuses an
     unaligned pointer."""
-    from repro_torch.kernels import ssd_scan_bwd as sb
-
     args = list(ssd_bwd_inputs(card, 2, 300, 4, 64, 128, 128, True, True, dtype, seed=9))
-    want = sb.ssd_scan_bwd(*args, chunk=128)
-    again = sb.ssd_scan_bwd(*args, chunk=128)
+    want = sb.ssd_scan_bwd(*args, chunk=128, body=body)
+    again = sb.ssd_scan_bwd(*args, chunk=128, body=body)
     off = list(args)
     off[0], off[7] = offset_on_card(args[0]), offset_on_card(args[7])
-    got = sb.ssd_scan_bwd(*off, chunk=128)
+    got = sb.ssd_scan_bwd(*off, chunk=128, body=body)
     torch.cuda.synchronize()
     for x, y, z in zip(want, again, got):
         assert torch.equal(x, y) and torch.equal(x, z)
@@ -1236,7 +1236,7 @@ def test_ssd_bwd_takes_an_offset_view_and_repeats_bit_for_bit(card, dtype):
     rc = sb._entry()(offset_on_card(x).data_ptr(), dt.data_ptr(), a.data_ptr(), bb.data_ptr(),
                      cc.data_ptr(), dy.data_ptr(), states.data_ptr(), None,
                      *(z.data_ptr() for z in outs), None, *(states.data_ptr(),) * 4,
-                     bs, t, h, p, bb.shape[3], 128, sb._DTYPES[dtype],
+                     bs, t, h, p, bb.shape[3], 128, sb._DTYPES[dtype], sb.BODIES[body],
                      torch.cuda.current_stream().cuda_stream)
     assert refused(rc)
     torch.cuda.synchronize()
@@ -1246,20 +1246,29 @@ def test_ssd_function_launches_forward_and_backward(card):
     """Under grad mode the wrapper goes through SsdScan: one forward (on
     the chunked body) and one backward launch, the gradients those of the
     plain backward on the forward's states."""
-    from repro_torch.kernels import ssd_scan_bwd as sb
-
     x, dt, a, bb, cc, init, states, dy, dstate = ssd_bwd_inputs(
         card, 2, 300, 4, 64, 128, 128, True, True, torch.bfloat16, seed=11)
     leaves = [z.clone().requires_grad_(True) for z in (x, dt, a, bb, cc, init)]
-    f0, b0 = ssd.launches, sb.launches
+    f0, b0, m0 = ssd.launches, sb.launches, sb.launches_by_body.get("mma", 0)
     y, state = ssd.ssd_scan(*leaves[:5], chunk=128, initial_state=leaves[5])
     torch.autograd.backward([y, state], [dy, dstate])
     torch.cuda.synchronize()
     assert ssd.launches == f0 + 1 and sb.launches == b0 + 1
+    assert sb.launches_by_body["mma"] == m0 + 1  # bf16's backward runs on mma
     assert ssd.launches_by_body["chunked"] >= 1
     want = sb.ssd_scan_bwd_plain(x, dt, a, bb, cc, init, states, dy, dstate, chunk=128)
     for leaf, w in zip(leaves, want):
         assert ssd_grad_close(leaf.grad, w, leaf.dtype)
+
+
+def spread_sizes(t, e, seed):
+    """``e`` group sizes summing to ``t``, drawn from a seed: some empty,
+    the rest uneven."""
+    rs = np.random.default_rng(seed)
+    weights = rs.random(e) * (rs.random(e) > 0.2)
+    sizes = np.floor(weights / weights.sum() * t).astype(int)
+    sizes[int(np.argmax(sizes))] += t - int(sizes.sum())
+    return sizes.tolist()
 
 
 GMM_BWD_CASES = [
@@ -1269,14 +1278,20 @@ GMM_BWD_CASES = [
     (12, 8, 4, [4, 5, 0]),               # rows past the sizes' sum: the last expert's
     (1000, 256, 384, [500, 0, 3, 250, 1, 0, 246, 0]),
     (16, 256, 96, [1] * 16 + [0] * 112),  # one-row groups beside empty ones
+    # group 1 starts inside a 64-row slice (row 37) and ends inside a
+    # 16-row k-step (90 rows: 26 in its last slice), with rows after it
+    (192, 128, 256, [37, 90, 5, 60]),
+    (1000, 256, 128, [0, 0, 0, 1000, 0, 0, 0, 0]),  # every row in one expert of 8
+    (3001, 256, 384, spread_sizes(3001, 128, 7)),   # 128 experts, T not a multiple of 64
+    (300, 200, 136, [100, 0, 150, 50]),  # whole 16-byte vectors, not multiples of 128
 ]
-
-
+@pytest.mark.parametrize("dw_body", list(gb.DW_BODIES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", GMM_BWD_CASES)
-def test_gmm_dx_and_dw_kernels_match_plain_on_card(card, case, dtype):
-    from repro_torch.kernels import moe_gmm_bwd as gb
-
+def test_gmm_dx_and_dw_kernels_match_plain_on_card(card, case, dtype, dw_body):
+    """dx on every body that takes the inputs; dw on ``dw_body`` where it
+    takes them (its launch counted by body, an empty group's dw exactly
+    zero), and refused by name where it does not."""
     t, d_in, d_out, sizes = case
     g = torch.Generator(device=card).manual_seed(t + d_out)
     e = len(sizes)
@@ -1286,31 +1301,49 @@ def test_gmm_dx_and_dw_kernels_match_plain_on_card(card, case, dtype):
     gs = torch.tensor(sizes, dtype=torch.int32, device=card)
     tol = GMM_TOL[dtype]
     dx_bodies = gmm.bodies_for(dtype, d_out, d_in, True, e)
-    dw_bodies = gb.dw_bodies_for(dtype, d_in, d_out, True)
     want_dx = gb.moe_gmm_dx_plain(dy, w, gs).float()
-    want_dw = gb.moe_gmm_dw_plain(x, dy, gs, e).float()
     for body in dx_bodies:
         before = gb.dx_by_body.get(body, 0)
         got = gb.moe_gmm_dx(dy, w, gs, body=body)
         torch.cuda.synchronize()
         assert gb.dx_by_body[body] == before + 1 and got.dtype == dtype
         torch.testing.assert_close(got.float(), want_dx, atol=tol, rtol=tol, msg=f"dx {body}")
-    for body in dw_bodies:
-        before = gb.dw_by_body.get(body, 0)
-        got = gb.moe_gmm_dw(x, dy, gs, e, body=body)
+    if dw_body not in gb.dw_bodies_for(dtype, d_in, d_out, True, e):
+        with pytest.raises(ValueError, match=dw_body):
+            gb.moe_gmm_dw(x, dy, gs, e, body=dw_body)
+        return
+    want_dw = gb.moe_gmm_dw_plain(x, dy, gs, e).float()
+    before = (gb.dw_launches, gb.dw_by_body.get(dw_body, 0))
+    got = gb.moe_gmm_dw(x, dy, gs, e, body=dw_body)
+    torch.cuda.synchronize()
+    assert (gb.dw_launches, gb.dw_by_body[dw_body]) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want_dw, atol=tol, rtol=tol, msg=f"dw {dw_body}")
+    empty = [i for i, s in enumerate(sizes) if s == 0 and i != e - 1]
+    assert not got[empty].any()  # an empty group writes zeros
+
+
+def test_gmm_dw_wgmma_repeats_bit_for_bit(card):
+    """dw on wgmma (bf16's default) keeps its sums in one order, so a
+    repeat gives the same bits, here with every row in one expert (one
+    tile's loop over all of T) and over 128 uneven groups."""
+    g = torch.Generator(device=card).manual_seed(4)
+    for t, sizes in ((4096, [0, 4096, 0, 0]), (3001, spread_sizes(3001, 128, 3))):
+        x = torch.randn(t, 256, generator=g, device=card).to(torch.bfloat16)
+        dy = torch.randn(t, 384, generator=g, device=card).to(torch.bfloat16)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+        before = gb.dw_by_body.get("wgmma", 0)
+        first = gb.moe_gmm_dw(x, dy, gs, len(sizes))
+        again = gb.moe_gmm_dw(x, dy, gs, len(sizes))
         torch.cuda.synchronize()
-        assert gb.dw_by_body[body] == before + 1 and got.dtype == dtype
-        torch.testing.assert_close(got.float(), want_dw, atol=tol, rtol=tol, msg=f"dw {body}")
-        empty = [i for i, s in enumerate(sizes) if s == 0 and i != e - 1]
-        assert not got[empty].any()  # an empty group writes zeros
+        assert gb.dw_by_body["wgmma"] == before + 2
+        assert torch.equal(first, again)
 
 
 def test_gmm_bwd_takes_an_offset_view_on_card(card):
     """An input off a 16-byte boundary goes to the element-load body (dw)
     or the mma_elem body (dx), as the forward's does; naming a vector body
     for it raises."""
-    from repro_torch.kernels import moe_gmm_bwd as gb
-
     g = torch.Generator(device=card).manual_seed(2)
     x = torch.randn(40, 64, generator=g, device=card).to(torch.bfloat16)
     w = (torch.randn(3, 64, 32, generator=g, device=card) * 0.1).to(torch.bfloat16)
@@ -1336,8 +1369,6 @@ def test_gmm_bwd_takes_an_offset_view_on_card(card):
 def test_gmm_function_launches_forward_and_backward(card):
     """Under grad mode the wrapper goes through MoeGmm: one forward, one
     dx and one dw launch, each on the body its rule picks."""
-    from repro_torch.kernels import moe_gmm_bwd as gb
-
     g = torch.Generator(device=card).manual_seed(3)
     x = torch.randn(1000, 256, generator=g, device=card).to(torch.bfloat16)
     w = (torch.randn(8, 256, 384, generator=g, device=card) / 16).to(torch.bfloat16)
@@ -1345,10 +1376,12 @@ def test_gmm_function_launches_forward_and_backward(card):
     gs = torch.tensor([500, 0, 3, 250, 1, 0, 246, 0], dtype=torch.int32, device=card)
     xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     before = kernel_counts()
+    wg0 = gb.dw_by_body.get("wgmma", 0)
     gmm.moe_gmm(xl, wl, gs).backward(dy)
     torch.cuda.synchronize()
     ran = {k: v - before[k] for k, v in kernel_counts().items()}
     assert ran == dict(ssd=0, ssd_bwd=0, gmm=1, dx=1, dw=1)
+    assert gb.dw_by_body["wgmma"] == wg0 + 1  # dw runs on wgmma by default
     tol = GMM_TOL[torch.bfloat16]
     torch.testing.assert_close(xl.grad.float(), gb.moe_gmm_dx_plain(dy, w, gs).float(),
                                atol=tol, rtol=tol)

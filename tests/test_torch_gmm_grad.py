@@ -86,3 +86,26 @@ def test_plain_twins_match_jax_vjp_in_bf16(case):
                                rtol=2e-2)
     torch.testing.assert_close(dw.float(), torch.from_numpy(np.array(want_dw)), atol=2e-2,
                                rtol=2e-2)
+
+
+# (dtype, d_in, d_out, aligned, experts, the weight gradient's bodies in order)
+DW_CHOICES = [
+    (torch.bfloat16, 2048, 768, True, 128, ("wgmma", "mma", "mma_elem")),  # Qwen3-MoE
+    (torch.bfloat16, 768, 2048, True, 128, ("wgmma", "mma", "mma_elem")),
+    (torch.bfloat16, 200, 136, True, 4, ("wgmma", "mma", "mma_elem")),  # not multiples of 128
+    (torch.bfloat16, 2048, 768, True, 1024, ("wgmma", "mma", "mma_elem")),
+    (torch.bfloat16, 2048, 768, True, 1025, ("mma", "mma_elem")),  # past the shared tables
+    (torch.bfloat16, 2048, 768, False, 128, ("mma_elem",)),  # off a 16-byte boundary
+    (torch.bfloat16, 999, 777, True, 8, ("mma_elem",)),  # not whole 16-byte vectors
+    (torch.float32, 2048, 768, True, 128, ("fp32",)),
+    (torch.float16, 2048, 768, True, 128, ()),
+]
+
+
+@pytest.mark.parametrize("dtype,d_in,d_out,aligned,experts,want", DW_CHOICES)
+def test_dw_bodies_in_order(dtype, d_in, d_out, aligned, experts, want):
+    """``wgmma`` first for bf16 at whole 16-byte widths on aligned pointers
+    over at most the forward's ``WGMMA_MAX_EXPERTS``; then ``mma``, then
+    ``mma_elem``."""
+    assert gb.dw_bodies_for(dtype, d_in, d_out, aligned, experts) == want
+    assert gmm.WGMMA_MAX_EXPERTS == 1024

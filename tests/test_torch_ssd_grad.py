@@ -163,3 +163,98 @@ def test_gradient_is_finite_where_the_decay_passes_exps_range():
                                  torch.from_numpy(arrs["dstate"]), chunk=chunk)
     for name, g, w in zip(NAMES, got, want):
         assert_close(g.numpy(), w.numpy(), name)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's bodies, and the mma body's roundings emulated
+# ---------------------------------------------------------------------------
+def test_bodies_in_order():
+    """bf16 runs on ``mma`` first (the fp32 body still takes it); fp32 stays
+    on ``fp32``: the reference's SSD tolerance (5e-5 / 5e-4) rules out TF32;
+    no other dtype has a body."""
+    assert sb.bodies_for(torch.bfloat16) == ("mma", "fp32")
+    assert sb.bodies_for(torch.float32) == ("fp32",)
+    assert sb.bodies_for(torch.float16) == ()
+    assert sb.body_for(torch.bfloat16) == "mma" and sb.body_for(torch.float32) == "fp32"
+    with pytest.raises(TypeError):
+        sb.body_for(torch.float16)
+
+
+def two_parts(v):
+    """``v`` as the mma body holds an fp32 operand: its bf16 rounding plus
+    the bf16 rounding of what that left (about 2^-17 of v, against 2^-9
+    for the first rounding alone)."""
+    hi = v.bfloat16().float()
+    return hi + (v - hi).bfloat16().float()
+
+
+def grad_close(got, want, name):
+    """chip_smoke.py's ``ssd_grad_close``: the gradients the kernel writes
+    in bf16 (dx, db, dc) within 2e-2 of the tensor's largest |want|; the
+    fp32 ones (d(dt), da, the initial state's) within 5e-5 of it plus 5e-4
+    of |want|.  Returns (ok, max error over the largest |want|)."""
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if name in ("dx", "db", "dc"):
+        ok = bool((err <= 2e-2 * scale).all())
+    else:
+        ok = bool((err <= ATOL * scale + RTOL * want.abs()).all())
+    return ok, float(err.max()) / scale
+
+
+def mamba2_chunk_case():
+    """mamba2-780m's chunk (L = 128, P = 64, N = 128), two chunks of two
+    heads from a given state with a gradient of the final state; x, b, c
+    and ȳ rounded to bf16, as the kernel reads them."""
+    b, t, h, p, n, chunk = 1, 256, 2, 64, 128, 128
+    arrs = rounded(draw(26, b, t, h, p, n, h), "bfloat16")
+    tt = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    x, bb, cc, dy = (tt[k] for k in ("x", "bg", "cg", "dy"))
+    states = ssd.ssd_state_pass_plain(
+        *ssd.ssd_chunk_states_plain(x, tt["dt"], tt["a"], bb, chunk=chunk), tt["init"])[0]
+    return (x, tt["dt"], tt["a"], bb, cc, tt["init"], states, dy, tt["dstate"]), chunk
+
+
+def test_mma_body_roundings_keep_fp32_accuracy():
+    """The mma body's arithmetic at mamba2's chunk: C, B, X and ȳ exact in
+    bf16, every fp32 operand of a product (exp(s_i)·ȳ_i, the masked and
+    weighted tiles, S_in and S̄) as its bf16 high part plus its bf16 rest
+    (:func:`two_parts`), sums in fp32.  Every gradient stays within
+    ``ssd_grad_close``'s tolerance of the plain backward; the largest error
+    here is 5.8e-6 of a tensor's largest magnitude (db), so d(dt), da and
+    the initial state's gradient keep the fp32 tolerance as well."""
+    args, chunk = mamba2_chunk_case()
+    want = sb.ssd_scan_bwd_plain(*args, chunk=chunk)
+    got = sb.ssd_scan_bwd_plain(*args, chunk=chunk, operand=lambda kind, v: two_parts(v))
+    for name, g, w in zip(NAMES, got, want):
+        ok, share = grad_close(g, w, name)
+        assert ok and share < 2e-5, f"{name}: {share:.2e} of its largest magnitude"
+
+
+@pytest.mark.parametrize("kind,hurt", [("tile", ("dx", "db", "dc")),
+                                       ("state", ("dx", "ddt", "da", "db", "dc"))])
+def test_one_bf16_rounding_of_an_fp32_operand_falls_short(kind, hurt):
+    """The same case with one rounding to bf16 of one kind of fp32 operand
+    (the other kinds still in two parts), which is what a single product
+    per operand would give.  Rounding the masked, weighted tiles once moves
+    dx, db and dc by 1.6e-3, 2.2e-3 and 1.4e-3 of their largest magnitude
+    (two parts: at most 5.8e-6), 8-11 % of the bf16 tolerance from that
+    one rounding, and outside the fp32 tolerance; rounding S_in and S̄ once
+    also moves d(dt) and da, which the kernel writes in fp32, by 4.6e-4
+    and 6.0e-4, outside their tolerance of 5e-5.  Each hurt gradient is at
+    least 100 times as far off as with two parts."""
+    args, chunk = mamba2_chunk_case()
+    want = sb.ssd_scan_bwd_plain(*args, chunk=chunk)
+    two = sb.ssd_scan_bwd_plain(*args, chunk=chunk, operand=lambda k, v: two_parts(v))
+    one = sb.ssd_scan_bwd_plain(
+        *args, chunk=chunk,
+        operand=lambda k, v: v.bfloat16().float() if k == kind else two_parts(v))
+    for name, g1, g2, w in zip(NAMES, one, two, want):
+        ok1, share1 = grad_close(g1, w, name)
+        ok2, share2 = grad_close(g2, w, name)
+        assert ok2
+        if name in hurt:
+            assert share1 > 100 * share2, f"{name}: {share1:.2e} against {share2:.2e}"
+            fp32_ok = bool(((g1 - w).abs() <= ATOL * float(w.abs().max())
+                            + RTOL * w.abs()).all())
+            assert not fp32_ok, name
