@@ -9,9 +9,9 @@ any phase fails.  Phases:
 
 1. the card (name and power limit) and the build of every kernel under
    ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, all at once,
-   with ptxas's registers and spills of the wgmma, split and chunked
-   bodies (the flash backward's wgmma kernels too) and the shared memory
-   of the forward wgmma bodies;
+   with ptxas's registers and spills of the wgmma, split, cluster,
+   chunked and fused bodies (the flash backward's wgmma kernels too) and
+   the shared memory of the forward wgmma bodies;
 2. each kernel against its plain PyTorch version on the card, at the zoo's
    shapes and the reference tolerances (decode attention's bf16 absolute
    tolerance scaled to each output row's largest value where that is
@@ -72,8 +72,10 @@ any phase fails.  Phases:
    with the flash and SSD launch counts (and by body: every flash launch on
    wgmma, every SSD launch on chunked) read around the runs, finite logits
    and loss, and the last position's logits, kernel path against plain
-   path; then NeMo's forward over phase 3's prompt against its decode path,
-   within ``LOGIT_BOUND`` with equal argmax;
+   path; mamba2's short one-card prefill (B = 1, S = 256: every SSD call
+   one wave) on ``fused``, logits bit for bit those with every call on
+   ``chunked``; then NeMo's forward over phase 3's prompt against its
+   decode path, within ``LOGIT_BOUND`` with equal argmax;
 3h. phase 3's requests on phase 3's models once more, with the cluster's
    four options on (gossip, prefetch, the flight recorder, the health
    plane): the health summary and the recorder's Chrome trace held to
@@ -168,19 +170,28 @@ any phase fails.  Phases:
    for bit, with the time of one exchange; (7e) decode attention over
    NeMo's and granite's 32,768-slot bf16 caches cut along T into 2, 4
    and 16 slices, as a (1, n) mesh's ranks hold them:
-   ``decode_attention_partials`` on each slice, then ``combine_partials``,
-   against the whole kernel and the plain path (phase 2's check; an
-   all-empty slice gives (-inf, 0, 0)), and one rank's work at n = 16
-   timed in turns with the whole kernel; (7f) mamba2-780m at full width
+   ``decode_attention_partials`` on each slice (its fp32 record of acc, m
+   and l), the records stacked, then ``combine_partials``, on the new
+   bodies (``cluster``, the ``warp`` combine) and the old (``split``, the
+   ``block`` combine), against the whole kernel and the plain path (phase
+   2's check; an all-empty slice's record is (-inf, 0, 0) with zero pads),
+   the launches of one rank's ``t_split_decode_attention`` in a layer (one
+   partials, one combine), and one rank's work at n = 16 timed in turns,
+   new bodies against old, by launch, beside the whole kernel, the plain
+   path, the bound and the efficient SDPA's (output, LSE) as the library
+   yardstick; (7f) mamba2-780m at full width
    and depth over the mesh, its Mamba-2 layers on the head-split path
    (every head at one ``model`` rank): 16 serve steps at B = 4 and a
    prefill at B = 2, S = 2048, logits bit for bit the mesh-less steps',
    every SSD launch on chunked; (7g) the SSD scan of mamba2's and
    zamba2's heads (phase 2c's bf16 inputs) cut into 2, 4 and 16 slices
-   of heads, as a (1, n) mesh's ranks compute them, side by side against
-   the whole kernel and the plain path (phase 2c's check; bit for bit
-   printed), and one rank's call at n = 16 timed in turns with the whole
-   call, beside its bound.
+   of heads, as a (1, n) mesh's ranks compute them, on the ``fused`` and
+   the ``chunked`` body, side by side against the whole call and the plain
+   path (phase 2c's check) and bit for bit the whole chunked call (fused
+   only where a slice's grid fits one wave, n = 16; refused at n = 2 and
+   4), and one rank's call at n = 16, fused against chunked in turns,
+   each body by launch ((a), (b), (c) for chunked), beside the plain path
+   and the bound, and the whole call on chunked once.
 8. the analysis tooling: (8a) ``python -m repro_torch.launch.dryrun``
    over a fake 16x16 mesh of 256 ranks, one process a call
    (``DRYRUN_CALLS``: every arch's prefill and decode shapes but the SSM
@@ -346,7 +357,8 @@ def build_kernels():
     report = wgmma_report(_build.build_logs)
     report["new_bodies"] = ptxas_rows(_build.build_logs, {
         "decode_attention": ("decode_split", "decode_combine"),
-        "ssd_scan": ("ssd_chunk", "ssd_state_pass"),
+        "decode_partials": ("decode_split", "decode_combine_warp"),
+        "ssd_scan": ("ssd_chunk", "ssd_state_pass", "ssd_fused"),
         "flash_attention_bwd": ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_split_sum"),
         "ssd_scan_bwd": ("ssd_chunk_state_mma", "ssd_bwd_rows_mma", "ssd_bwd_cols_mma")})
     return {"build_wall_s": wall, "build_s": dict(_build.build_seconds),
@@ -447,10 +459,11 @@ def in_turns(new, old, flush, reps):
     return statistics.mean(turns["new"]), statistics.mean(turns["old"]), turns
 
 
-def kernel_split(fn, names, calls=5):
+def kernel_split(fn, names, calls=5, rest=None):
     """Device time (ms per call) of ``fn``'s kernels by name: the profiler's
     device events over ``calls`` calls, summed by which of ``names`` each
-    kernel's name holds."""
+    kernel's name holds; with ``rest``, the device time of every other
+    kernel under that key."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -460,14 +473,14 @@ def kernel_split(fn, names, calls=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {k: 0.0 for k in names}
+    out = {k: 0.0 for k in names + ((rest,) if rest else ())}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        for k in names:
-            if k in e.key:
-                out[k] += us / 1e3 / calls
+        hit = [k for k in names if k in e.key]
+        for k in hit or ([rest] if rest else []):
+            out[k] += us / 1e3 / calls
     return out
 
 
@@ -554,7 +567,7 @@ def kernel_vs_plain():
     rows = []
     for model, b, h, kh, d, t, dtype, q, k, v, ragged in decode_inputs(gen, dev):
         tdt = getattr(torch, dtype)
-        splits = da.splits_for(b, kh, t)
+        splits = da.splits_for(b, kh, t, da.sm_count(dev))
         body = da.body_for(tdt, d, h // kh, splits)
         splits = splits if body == "split" else 1
         errs = {}
@@ -2083,6 +2096,8 @@ def prefill_full_width():
           f"ssd by body: {ssd.launches_by_body}")
     launches_by_body = dict(fa.launches_by_body)
     ssd_by_body = dict(ssd.launches_by_body)
+    out["short_prefill_on_fused"] = short_prefill_on_fused(
+        next(h for h in models if h.cfg.arch_type != "dense"), gen, dev)
 
     for h in models:
         batch = {"tokens": batches[h.cfg.name]}
@@ -2128,6 +2143,39 @@ def prefill_full_width():
     out["flash_launches_by_body"] = launches_by_body
     out["ssd_launches_by_body"] = ssd_by_body
     return out
+
+
+def short_prefill_on_fused(h, gen, dev):
+    """3b's one-card short prefill: mamba2 at full width and depth, B = 1,
+    S = 256, whose SSD calls (48 heads, 2 chunks: 96 CTAs) fit one wave,
+    so every one runs on ``fused``; the logits are bit for bit those of the
+    same prefill with the fused body withheld (every call on ``chunked``)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.training import make_prefill_step
+
+    batch = {"tokens": torch.randint(0, h.cfg.vocab, (1, 256), generator=gen, device=dev)}
+    step = make_prefill_step(h.cfg, device=dev)
+    choose, ran, logits = ssd.bodies_for, {}, {}
+    for withheld in (False, True):
+        if withheld:
+            ssd.bodies_for = lambda *a, **kw: tuple(z for z in choose(*a, **kw) if z != "fused")
+        before = dict(ssd.launches_by_body)
+        try:
+            logits[withheld] = step(h.params, batch)
+            torch.cuda.synchronize()
+        finally:
+            ssd.bodies_for = choose
+        ran[withheld] = {z: v - before.get(z, 0) for z, v in ssd.launches_by_body.items()
+                         if v != before.get(z, 0)}
+    same = bool(torch.equal(logits[False], logits[True]))
+    want = ({"fused": h.cfg.n_layers}, {"chunked": h.cfg.n_layers})
+    print(f"{h.cfg.name} prefill B=1 S=256 on one card: SSD launches by body {ran[False]} "
+          f"(expected {want[0]}), with fused withheld {ran[True]}; logits bit for bit: {same}",
+          flush=True)
+    if (ran[False], ran[True]) != want or not same:
+        raise AssertionError(f"{h.cfg.name} short prefill: launches {ran}, bit for bit {same}")
+    return dict(b=1, s=256, launches_by_body=ran[False], withheld=ran[True], bitwise_equal=same)
 
 
 # ---------------------------------------------------------------------------
@@ -2291,7 +2339,8 @@ def counts_zeroed(*engines):
     da.launches = fa.launches = fb.launches = ssd.launches = gmm.launches = sb.launches = 0
     gb.dx_launches = gb.dw_launches = 0
     da.partials_launches = da.combine_launches = 0
-    for counts in (da.launches_by_body, fa.launches_by_body, fb.launches_by_body,
+    for counts in (da.launches_by_body, da.partials_by_body, da.combine_by_body,
+                   fa.launches_by_body, fb.launches_by_body,
                    ssd.launches_by_body, gmm.launches_by_body, sb.launches_by_body,
                    gb.dx_by_body, gb.dw_by_body):
         counts.clear()
@@ -3908,25 +3957,67 @@ def partials_bound(b, h, kh, d, local_lens, n):
     return max(t_bytes, t_ops) * 1e3, nbytes, flops, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def partials_library_call(q, k, v, lens):
+    """One PyTorch call that gives a slice's (output, LSE), the same
+    function as its record's acc / l and m + log l: the memory-efficient
+    SDPA with ``compute_log_sumexp``, each KV head's G query rows taken as
+    G query positions of that head (q (B, KH, G, D) and the cache
+    (B, KH, T, D) as views, no copy) and the length mask as ``attn_bias``
+    expanded over them (timed only); or the reason the op refuses the
+    shape.  Returns (a call giving (out (B, H, D), lse (B, H)), reason)."""
+    import torch
+
+    b, t, kh, d = k.shape
+    h = q.shape[1]
+    qs = q.view(b, kh, h // kh, d)
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]
+    bias = torch.zeros((b, 1, 1, t), dtype=q.dtype, device=q.device)
+    bias = bias.masked_fill(~valid[:, None, None, :], float("-inf")).expand(b, kh, h // kh, t)
+
+    def call():
+        out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qs, ks, vs, bias, True)[:2]
+        return out.reshape(b, h, d), lse[..., :h // kh].reshape(b, h)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0][:200]}"
+    return call, None
+
+
 def mesh_partials():
     """7e: NeMo's and granite's 32,768-slot bf16 caches at B = 2, each cut
     along T into n = 2, 4 and 16 slices as a (1, n) mesh's ranks hold
     them: every slice through ``decode_attention_partials`` with its local
-    length clamp(len − r·T_loc, 0, T_loc), then ``combine_partials`` over
-    the n in slice order, held against the whole ``decode_attention``
-    kernel and the plain path to phase 2's scaled bf16 check, for a full
-    cache and one whose second half holds no slot (an all-empty slice at
-    every n, which must give m = -inf, l = 0, acc = 0).  Then, at n = 16
-    (T_loc = 2,048), one rank's work, the partials of its slice and the
-    combine of 16, timed in turns with the whole kernel over the 32,768
-    slots, beside the plain path's time and the bound."""
+    length clamp(len − r·T_loc, 0, T_loc), the n records stacked as the
+    all-gather leaves them, then ``combine_partials`` over the n, held
+    against the whole ``decode_attention`` kernel and the plain path to
+    phase 2's scaled bf16 check, for a full cache and one whose second half
+    holds no slot (an all-empty slice at every n, whose record must be
+    (-inf, 0, 0) with zero pads): the new bodies (``cluster``, the ``warp``
+    combine) and the old (``split``, the ``block`` combine) alike, one
+    partials launch a slice and one combine by body.  Then, at n = 16
+    (T_loc = 2,048), the launches one rank's ``t_split_decode_attention``
+    makes in a layer, and one rank's work as it runs it (its slice's
+    record, then the combine of 16 records, the gather replaced by 16
+    copies of the record) timed in turns, new bodies against old, with
+    each launch's time, the whole kernel over the 32,768 slots, the plain
+    path's time, the bound and the library's yardstick
+    (:func:`partials_library_call`)."""
+    import types
+
     import torch
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.layers import t_split_decode_attention
 
     dev = torch.device("cuda")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(29)
     bf16, t = torch.bfloat16, PARTIALS_T
+    paths = {"new": ("cluster", "warp"), "old": ("split", "block")}
     rows = []
     for model, (b, h, kh, d) in PARTIALS_MODELS.items():
         q = torch.randn(b, h, d, generator=gen, device=dev, dtype=bf16)
@@ -3941,65 +4032,112 @@ def mesh_partials():
                 t_loc = t // n
                 ks = [k[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
                 vs = [v[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
-                before = (da.partials_launches, da.combine_launches)
-                parts = [da.decode_attention_partials(
-                    q, ks[r], vs[r], (n_t - r * t_loc).clamp(0, t_loc).to(torch.int32))
-                    for r in range(n)]
-                m, l, acc = (torch.stack(x) for x in zip(*parts))
-                got = da.combine_partials(m, l, acc, bf16).float()
-                torch.cuda.synchronize()
-                if (da.partials_launches, da.combine_launches) != (before[0] + n, before[1] + 1):
-                    raise AssertionError(f"7e {model} n={n}: launches "
-                                         f"{(da.partials_launches, da.combine_launches)} after "
-                                         f"{before}, expected {n} partials and one combine")
-                errs[f"{case} n={n}"] = float((got - plain).abs().max())
-                if not (decode_close(got, whole, "bfloat16")
-                        and decode_close(got, plain, "bfloat16")):
-                    worst = float((got - whole).abs().max())
-                    raise AssertionError(f"7e {model} {case} n={n}: partials + combine differ "
-                                         f"from the whole kernel ({worst}) or the plain path "
-                                         f"({errs[f'{case} n={n}']})")
-                if case == "half" and not (bool(torch.isinf(m[-1]).all()) and not l[-1].any()
-                                           and not acc[-1].any()):
-                    raise AssertionError(f"7e {model} n={n}: the all-empty slice is not "
-                                         f"(-inf, 0, 0)")
+                for way, (pbody, cbody) in paths.items():
+                    before = (dict(da.partials_by_body), dict(da.combine_by_body))
+                    rec = torch.stack([da.decode_attention_partials(
+                        q, ks[r], vs[r], (n_t - r * t_loc).clamp(0, t_loc).to(torch.int32),
+                        body=pbody) for r in range(n)])
+                    got = da.combine_partials(rec, bf16, body=cbody).float()
+                    torch.cuda.synchronize()
+                    ran = (da.partials_by_body.get(pbody, 0) - before[0].get(pbody, 0),
+                           da.combine_by_body.get(cbody, 0) - before[1].get(cbody, 0))
+                    if ran != (n, 1):
+                        raise AssertionError(f"7e {model} n={n} {pbody}/{cbody}: {ran} launches, "
+                                             f"expected {n} partials and one combine")
+                    errs[f"{case} n={n} {way}"] = float((got - plain).abs().max())
+                    if not (decode_close(got, whole, "bfloat16")
+                            and decode_close(got, plain, "bfloat16")):
+                        worst = float((got - whole).abs().max())
+                        raise AssertionError(f"7e {model} {case} n={n} {pbody}/{cbody}: partials "
+                                             f"+ combine differ from the whole kernel ({worst}) "
+                                             f"or the plain path "
+                                             f"({errs[f'{case} n={n} {way}']})")
+                    m, l, acc = da.unpack_partials(rec[-1])
+                    empty = (bool(torch.isinf(m).all()) and not l.any() and not acc.any()
+                             and not rec[-1, ..., d + 2:].any())
+                    if case == "half" and not empty:
+                        raise AssertionError(f"7e {model} n={n} {pbody}: the all-empty slice's "
+                                             f"record is not (-inf, 0, 0) with zero pads")
         n = PARTIALS_SLICES[-1]
         t_loc = t // n
         full = torch.full((b,), t, dtype=torch.int32, device=dev)
         local = torch.full((b,), t_loc, dtype=torch.int32, device=dev)
         ks, vs = k[:, :t_loc].contiguous(), v[:, :t_loc].contiguous()
-        m, l, acc = (x.expand((n,) + x.shape).contiguous()
-                     for x in da.decode_attention_partials(q, ks, vs, local))
+        rec = da.decode_attention_partials(q, ks, vs, local)
+        gathered = rec.expand(n, b, h, d + 4).contiguous()
+        # the launches of one rank's layer: t_split_decode_attention over a
+        # one-rank ``model`` (its gather the identity)
+        one_rank = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+        read = counts_zeroed()
+        t_split_decode_attention(q, ks, vs, full, 0, one_rank)
+        torch.cuda.synchronize()
+        layer = dict(partials=dict(da.partials_by_body), combine=dict(da.combine_by_body),
+                     other=read())
+        if layer["partials"] != {"cluster": 1} or layer["combine"] != {"warp": 1} \
+                or any(layer["other"].values()):
+            raise AssertionError(f"7e {model}: a layer's rank work launched {layer}, expected "
+                                 f"one cluster partials launch and one warp combine")
 
-        def rank_work():
-            da.decode_attention_partials(q, ks, vs, local)
-            da.combine_partials(m, l, acc, bf16)
+        def work(way):
+            pbody, cbody = paths[way]
+            return lambda: (da.decode_attention_partials(q, ks, vs, local, body=pbody),
+                            da.combine_partials(gathered, bf16, body=cbody))
+
+        rank_ms, old_ms, turns = in_turns(work("new"), work("old"), flush, 25)
+        timed = {f"{way}_{part}_ms": cuda_time_ms(fn, flush)
+                 for way, (pbody, cbody) in paths.items() for part, fn in (
+                     ("partials", lambda pbody=pbody: da.decode_attention_partials(
+                         q, ks, vs, local, body=pbody)),
+                     ("combine", lambda cbody=cbody: da.combine_partials(gathered, bf16,
+                                                                         body=cbody)))}
+        by_launch = {way: kernel_split(work(way), ("decode_split", "decode_combine_warp",
+                                                   "decode_combine_kernel"), rest="other")
+                     for way in paths}
+        whole_ms = cuda_time_ms(lambda: da.decode_attention(q, k, v, full), flush)
 
         def plain_work():
-            da.decode_attention_partials_plain(q, ks, vs, local)
-            da.combine_partials_plain(m, l, acc, bf16)
+            da.combine_partials_plain(torch.stack([da.decode_attention_partials_plain(
+                q, ks, vs, local)] * n), bf16)
 
-        rank_ms, whole_ms, turns = in_turns(rank_work, lambda: da.decode_attention(q, k, v, full),
-                                            flush, 25)
-        partials_ms = cuda_time_ms(lambda: da.decode_attention_partials(q, ks, vs, local), flush)
-        combine_ms = cuda_time_ms(lambda: da.combine_partials(m, l, acc, bf16), flush)
         plain_ms = cuda_time_ms(plain_work, flush)
+        lib, why = partials_library_call(q, ks, vs, local)
+        library_ms = library_err = None
+        if lib is not None:
+            library_ms = cuda_time_ms(lib, flush)
+            out, lse = lib()
+            m, l, acc = da.unpack_partials(da.decode_attention_partials_plain(q, ks, vs, local))
+            library_err = max(float((out.float() - acc / l[..., None]).abs().max()),
+                              float((lse.float() - (m + l.log())).abs().max()))
         bound_ms, nbytes, flops, bound_by = partials_bound(b, h, kh, d, [t_loc] * b, n)
-        row = dict(model=model, b=b, h=h, kh=kh, d=d, t=t, dtype="bfloat16", slices=n, t_loc=t_loc,
-                   splits=da.splits_for(b, kh, t_loc), max_abs_err=max(errs.values()), errs=errs,
-                   ms=rank_ms, partials_ms=partials_ms, combine_ms=combine_ms,
-                   whole_kernel_ms=whole_ms, turns_ms=turns, plain_ms=plain_ms,
+        fits = da.cluster_fits(dev, h // kh, d)
+        cluster = da.cluster_splits(b, kh, t_loc, da.sm_count(dev), fits)
+        row = dict(model=model, b=b, h=h, kh=kh, d=d, t=t, dtype="bfloat16", slices=n,
+                   t_loc=t_loc, body="cluster", combine_body="warp", old_body="split",
+                   old_combine_body="block", cluster=cluster,
+                   cluster_fits=fits,
+                   splits=da.splits_for(b, kh, t_loc, da.sm_count(dev)),
+                   max_abs_err=max(errs.values()), errs=errs, ms=rank_ms, old_body_ms=old_ms,
+                   turns_ms=turns, partials_ms=timed["new_partials_ms"],
+                   combine_ms=timed["new_combine_ms"], old_partials_ms=timed["old_partials_ms"],
+                   old_combine_ms=timed["old_combine_ms"], by_launch=by_launch,
+                   launches_per_layer=layer, whole_kernel_ms=whole_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bytes=nbytes, flops=flops, bound_by=bound_by,
-                   library_ms=None)
+                   library_ms=library_ms, library_err=library_err, library_refused=why)
         rows.append(row)
+        lib_text = (f"library (efficient SDPA with LSE) {library_ms * 1e3:.1f} us, err "
+                    f"{library_err:.2e}" if library_ms is not None else f"library {why}")
         print(f"7e {model} bf16 B={b} H={h} KH={kh} T={t} over n = {PARTIALS_SLICES} slices: "
-              f"partials + combine against the whole kernel and plain path, max err "
-              f"{row['max_abs_err']:.2e}; at n={n} (T_loc {t_loc}, {row['splits']} splits) one "
-              f"rank's partials + combine {rank_ms * 1e3:.1f} us (partials {partials_ms * 1e3:.1f}, "
-              f"combine {combine_ms * 1e3:.1f}) against the whole kernel's {whole_ms * 1e3:.1f} us "
-              f"in turns; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by})", flush=True)
-        del q, k, v, ks, vs
+              f"cluster + warp and split + block against the whole kernel and plain path, max "
+              f"err {row['max_abs_err']:.2e}; a layer's launches {layer['partials']} + "
+              f"{layer['combine']}; at n={n} (T_loc {t_loc}, clusters of {cluster}; clusters the "
+              f"card holds by size {fits}; split body {row['splits']} ranges) one rank's work "
+              f"{rank_ms * 1e3:.1f} us (partials {timed['new_partials_ms'] * 1e3:.1f}, combine "
+              f"{timed['new_combine_ms'] * 1e3:.1f}) against the old bodies' "
+              f"{old_ms * 1e3:.1f} us (partials {timed['old_partials_ms'] * 1e3:.1f}, combine "
+              f"{timed['old_combine_ms'] * 1e3:.1f}) in turns; by launch, ms {by_launch}; the "
+              f"whole kernel {whole_ms * 1e3:.1f} us; plain {plain_ms * 1e3:.1f} us; bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}); {lib_text}", flush=True)
+        del q, k, v, ks, vs, gathered
     return rows
 
 
@@ -4090,12 +4228,17 @@ SSD_HEAD_SLICES = (2, 4, 16)
 def mesh_ssd_heads():
     """7g: mamba2's (H = 48) and zamba2's (H = 112) heads at B = 2,
     T = 2,048 in bf16, cut into 2, 4 and 16 slices of heads: each slice's
-    x, dt, a, B and C through ``ssd_scan``, the y and final states side by
-    side, held against the whole kernel and the plain path to phase 2c's
-    check, and whether they are the whole kernel's bit for bit.  Then at
-    n = 16 (3 and 7 heads) one rank's call, timed in turns with the whole
-    call, beside the plain path's time and the bound (the whole call's
-    over 16)."""
+    x, dt, a, B and C through ``ssd_scan`` on the ``fused`` and on the
+    ``chunked`` body by name, the y and final states side by side, held
+    against the whole call (``chunked``) and the plain path to phase 2c's
+    check, and bit for bit against the whole call (a failure either way
+    fails the phase), one launch a slice by body.  The fused body takes a
+    slice only where its grid fits one wave (n = 16 at both models) and
+    must refuse the others without a launch.  Then at n = 16 (3 and 7
+    heads) one rank's call: the body ``ssd_scan`` picks, fused against
+    chunked in turns, each body's time by launch under the profiler ((a),
+    (b), (c) for chunked), the plain path's time and the bound (the whole
+    call's over 16); and the whole call on chunked."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import ARCHS
@@ -4107,6 +4250,7 @@ def mesh_ssd_heads():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b, t, dtype = PREFILL_B, PREFILL_S, "bfloat16"
     rows = []
+    fused_launches = 0
     for model in SSD_HEAD_MODELS:
         cfg = ARCHS[model]
         h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
@@ -4115,51 +4259,85 @@ def mesh_ssd_heads():
         a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
         bb = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
         cc = (torch.randn(b, t, h, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-        whole = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+        whole = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, body="chunked")
         plain = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk)
         errs, bitwise = {}, {}
         for k in SSD_HEAD_SLICES:
             ranks = [tuple(z.contiguous() for z in (x[:, :, s], dt[:, :, s], a[s], bb[:, :, s],
                                                    cc[:, :, s]))
                      for s in (slice(i * h // k, (i + 1) * h // k) for i in range(k))]
-            before = ssd.launches
-            parts = [ssd.ssd_scan(*r, chunk=chunk) for r in ranks]
-            y, state = torch.cat([y for y, _ in parts], dim=2), torch.cat([s for _, s in parts], 1)
-            torch.cuda.synchronize()
-            if ssd.launches != before + k:
-                raise AssertionError(f"7g {model} n={k}: {ssd.launches - before} launches, "
-                                     f"expected {k}")
-            errs[f"n={k}"] = float((y.float() - plain[0].float()).abs().max())
-            bitwise[f"n={k}"] = bool(torch.equal(y, whole[0]) and torch.equal(state, whole[1]))
-            for want_y, want_state in (whole, plain):
-                if not (torch.allclose(y.float(), want_y.float(), **SSD_TOL[dtype])
-                        and torch.allclose(state, want_state, **SSD_TOL["float32"])):
-                    raise AssertionError(f"7g {model} n={k}: the head slices differ from the "
-                                         f"whole kernel or the plain path (y "
-                                         f"{float((y.float() - want_y.float()).abs().max())})")
+            fits = b * (h // k) * -(-t // chunk) <= sms * ssd.fused_blocks_per_sm(
+                dev, chunk, p, n, 1)
+            for body in ("fused", "chunked"):
+                before = ssd.launches_by_body.get(body, 0)
+                if body == "fused" and not fits:  # past one wave: refused, no launch
+                    try:
+                        ssd.ssd_scan(*ranks[0], chunk=chunk, body=body)
+                    except ValueError:
+                        bitwise[f"n={k} {body}"] = "refused"
+                    if ssd.launches_by_body.get(body, 0) != before or f"n={k} {body}" not in bitwise:
+                        raise AssertionError(f"7g {model} n={k}: the fused body took a grid "
+                                             f"past one wave")
+                    continue
+                fused_launches += k if body == "fused" else 0
+                parts = [ssd.ssd_scan(*r, chunk=chunk, body=body) for r in ranks]
+                y, state = (torch.cat([y for y, _ in parts], dim=2),
+                            torch.cat([s for _, s in parts], 1))
+                torch.cuda.synchronize()
+                if ssd.launches_by_body.get(body, 0) != before + k:
+                    raise AssertionError(f"7g {model} n={k} {body}: "
+                                         f"{ssd.launches_by_body.get(body, 0) - before} "
+                                         f"launches, expected {k}")
+                errs[f"n={k} {body}"] = float((y.float() - plain[0].float()).abs().max())
+                bitwise[f"n={k} {body}"] = bool(torch.equal(y, whole[0])
+                                                and torch.equal(state, whole[1]))
+                for want_y, want_state in (whole, plain):
+                    if not (torch.allclose(y.float(), want_y.float(), **SSD_TOL[dtype])
+                            and torch.allclose(state, want_state, **SSD_TOL["float32"])):
+                        raise AssertionError(
+                            f"7g {model} n={k} {body}: the head slices differ from the whole "
+                            f"call or the plain path (y "
+                            f"{float((y.float() - want_y.float()).abs().max())})")
+                if not bitwise[f"n={k} {body}"]:
+                    raise AssertionError(f"7g {model} n={k} {body}: the head slices are not the "
+                                         f"whole chunked call bit for bit")
         k, rank = SSD_HEAD_SLICES[-1], ranks[0]
         hl = h // k
-        rank_ms, whole_ms, turns = in_turns(lambda: ssd.ssd_scan(*rank, chunk=chunk),
-                                            lambda: ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk),
-                                            flush, 25)
+        nc = -(-t // chunk)
+        per_sm = {z: ssd.fused_blocks_per_sm(dev, chunk, p, n, z) for z in (1, 2, 4)}
+        body = ssd.body_for(torch.bfloat16, p, n, chunk, b * hl, sms, nc, per_sm[1])
+        rank_ms, old_ms, turns = in_turns(
+            lambda: ssd.ssd_scan(*rank, chunk=chunk, body="fused"),
+            lambda: ssd.ssd_scan(*rank, chunk=chunk, body="chunked"), flush, 25)
+        form = f"split {ssd.fused_split(p, b * hl * nc, sms, per_sm)}"
         plain_ms = cuda_time_ms(lambda: ssd.ssd_scan_plain(*rank, chunk=chunk), flush, reps=10)
+        by_launch = {
+            "chunked": kernel_split(lambda: ssd.ssd_scan(*rank, chunk=chunk, body="chunked"),
+                                    ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")),
+            "fused": kernel_split(lambda: ssd.ssd_scan(*rank, chunk=chunk, body="fused"),
+                                  ("ssd_fused",))}
+        whole_ms = cuda_time_ms(lambda: ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk,
+                                                     body="chunked"), flush, reps=10)
         bound_ms, nbytes, flops, bound_by = ssd_bound(b, t, hl, p, n, chunk, dtype, 2)
-        body = ssd.body_for(torch.bfloat16, p, n, chunk, b * hl, sms)
         row = dict(model=model, b=b, t=t, h=h, slices=k, heads=hl, p=p, n=n, chunk=chunk,
-                   dtype=dtype, body=body, ctas=b * hl * -(-t // chunk),
-                   max_abs_err=max(errs.values()), errs=errs, bitwise_equal=bitwise, ms=rank_ms,
-                   whole_kernel_ms=whole_ms, turns_ms=turns, plain_ms=plain_ms,
+                   dtype=dtype, body=body, old_body="chunked", fused_form=form,
+                   per_sm=per_sm, ctas=b * hl * nc * int(form[6:]),
+                   max_abs_err=max(errs.values()), errs=errs, bitwise_equal=bitwise,
+                   ms=rank_ms, old_body_ms=old_ms, turns_ms=turns,
+                   by_launch=by_launch, whole_kernel_ms=whole_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bytes=nbytes, flops=flops, bound_by=bound_by,
-                   library_ms=None, launches=sum(SSD_HEAD_SLICES))
+                   library_ms=None, launches=sum(SSD_HEAD_SLICES) + fused_launches)
         rows.append(row)
         print(f"7g {model} bf16 B={b} T={t} H={h} P={p} N={n} over n = {SSD_HEAD_SLICES} slices "
-              f"of heads: against the whole kernel and plain path, max err "
-              f"{row['max_abs_err']:.2e}, bit for bit the whole kernel {bitwise}; at n={k} "
-              f"({hl} heads, {row['ctas']} CTAs on {body}) one rank's call "
-              f"{rank_ms * 1e3:.1f} us against the whole call's {whole_ms * 1e3:.1f} us in "
-              f"turns; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})",
-              flush=True)
+              f"of heads, fused and chunked: against the whole call and plain path, max err "
+              f"{row['max_abs_err']:.2e}, bit for bit the whole chunked call {bitwise}; at n={k} "
+              f"({hl} heads, {b * hl * nc} chunks; fused CTAs an SM by split {per_sm}; picked "
+              f"{body}, {form}) one rank's call on fused "
+              f"{rank_ms * 1e3:.1f} us against chunked {old_ms * 1e3:.1f} us in turns; by launch, "
+              f"ms {by_launch}; plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}); the whole call chunked {whole_ms * 1e3:.1f} us", flush=True)
         del x, dt, bb, cc, whole, plain, ranks, parts, y, state
+        fused_launches = 0
     return rows
 
 

@@ -38,14 +38,6 @@
 //   the wrapper allocates, and a combine kernel rescales and sums them.  A
 //   split whose range holds no valid slot writes m = -inf and l = 0.
 //
-// Partials (decode_attention_partials_launch): the split body over one
-// rank's slice of a cache split along T, every CTA writing its m, l and
-// acc, then the combine in a mode that writes the slice's m (natural log
-// domain), l and unnormalised acc in fp32 in place of the output; and the
-// combine alone (decode_combine_launch) over n such partials laid out
-// (n, B, H), which gives the output of the whole cache.  A slice with no
-// valid slot gives m = -inf, l = 0 and acc = 0, and weighs 0.
-//
 // * single (the first port's body).  One CTA per (query-row chunk of 32,
 //   kv head, batch row) streams the valid prefix of its K/V slice through
 //   shared memory in tiles of TK rows, loaded and then scored, each lane
@@ -54,21 +46,28 @@
 //   SMs (Mistral-NeMo at B = 2 launches 16), and granite's 48 query rows
 //   take two CTAs, each reading the whole cache.
 //
-// What the split body does not do yet: TMA loads, and keeping the partials
-// out of device memory (a cluster's distributed shared memory could merge
-// them).
+// Partials (decode_attention_partials_launch): one rank's slice of a cache
+// split along T, written as one fp32 record per (b, h) row: acc's D
+// unnormalised values, then m (natural log domain), l and two zero pads
+// (D + 4 floats, a whole number of 16-byte vectors).  A slice with no
+// valid slot gives m = -inf, l = 0, acc = 0.  Here the split body (every
+// CTA writing its m, l and acc to fp32 scratch), then the block combine in
+// a mode that writes the record: two launches, and fp32's only body; the
+// cluster body, one launch, is decode_partials.cu's.  The block combine
+// (decode_combine_launch: one 128-thread CTA a row, two block reductions,
+// each thread's dependent chain of scalar loads over the slices) gives the
+// output of the whole cache from n ranks' records laid out (n, B, H, D + 4)
+// as the all-gather leaves them; decode_partials.cu's warp combine is the
+// one redesigned for Hopper.
+//
+// What the split body does not do yet: TMA loads; the cluster merge in the
+// whole kernel (decode_attention_launch) at long T, where the split body's
+// combine launch remains.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "hopper.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -77,40 +76,6 @@ constexpr int KPL = TK / 32;   // tile rows scored by each lane
 constexpr int MAX_ROWS = 32;   // query rows per CTA
 constexpr int NWARPS = 8;      // warps per CTA (those without query rows only load)
 constexpr int LOADS = 4;       // tile loads each thread keeps in flight
-constexpr float LOG2E = 1.4426950408889634f;
-
-// A pair of neighbouring head-dim elements: the unit every lane loads.
-template <typename T> struct Pair;
-template <> struct Pair<float> {
-  using type = float2;
-  static __device__ __forceinline__ float2 load(const float2* p) { return *p; }
-  static __device__ __forceinline__ float2 make(float2 v) { return v; }
-  static __device__ __forceinline__ float scalar(float x) { return x; }
-};
-template <> struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ float2 load(const __nv_bfloat162* p) {
-    return __bfloat1622float2(*p);
-  }
-  static __device__ __forceinline__ __nv_bfloat162 make(float2 v) {
-    return __float22bfloat162_rn(v);
-  }
-  static __device__ __forceinline__ float scalar(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Row stride of the staged K tile, in pairs: odd, so that 32 lanes reading
 // the same column of 32 different rows hit 32 different banks.
@@ -327,513 +292,20 @@ cudaError_t launch_dtype(int dpp, int rpw, const void* q, const void* k, const v
   }
 }
 
-// ---------------------------------------------------------------------------
-// The split body (flash-decoding)
-// ---------------------------------------------------------------------------
 namespace split {
-
-constexpr int TK = 64;       // bf16: cache slots per tile (a split holds whole tiles of 64)
-constexpr int F32_TK = 32;   // fp32: cache slots per tile
-constexpr int F32_WARPS = 4;
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Where one CTA's work lies: the cache slots [lo, hi) of batch row b.
-struct Range {
-  int lo, hi, n_tiles;
-};
-__device__ __forceinline__ Range slot_range(const int32_t* cache_len, int b, int cap,
-                                            int per_split, int tk) {
-  const int len = max(0, min(cache_len[b], cap));
-  Range r;
-  r.lo = blockIdx.x * per_split;
-  r.hi = min(r.lo + per_split, len);
-  r.n_tiles = r.hi > r.lo ? (r.hi - r.lo + tk - 1) / tk : 0;
-  return r;
-}
-
-// The bf16 body's layout.  DP: the head dim padded to 64, 128, 192 or 256
-// (the pad columns hold zeros); KW: the tile's slots each warp scores; NW:
-// warps.  WK warps share a tile along its slots, WM along the query rows
-// (16 each), and each warp keeps its own softmax state over its slots.
-template <int DP, int KW, int NW>
-struct MmaCfg {
-  static constexpr int RS = DP + 8;  // row stride (elements): a 16-byte pad keeps ldmatrix conflict-free
-  static constexpr int STAGES = DP > 192 ? 2 : 3;
-  static constexpr int WK = TK / KW;
-  static constexpr int WM = NW / WK;
-  static constexpr int ROWS = 16 * WM;  // query rows staged (those past G are 0)
-  static constexpr int TILE = TK * RS;
-  static constexpr size_t RING = sizeof(__nv_bfloat16) * 2 * STAGES * TILE;
-  static constexpr size_t PARTS = sizeof(float) * (size_t)WK * ROWS * (DP + 2);
-  static constexpr size_t Q = sizeof(__nv_bfloat16) * ROWS * RS;
-  static constexpr size_t SMEM = (RING > PARTS ? RING : PARTS) + Q;
-};
-
-// The end of a CTA: the WK warps' states of each query row are merged, and
-// then either the output row is written (no scratch: one split) or this
-// split's m (log2 domain), l and unnormalised acc (decode_combine_kernel).
-template <typename T>
-__device__ __forceinline__ void finish_rows(const float* Po, const float* Pm, const float* Pl,
-                                            int wk_n, int rows, int dstride, int G, int H,
-                                            int D, int b, int kh, T* out, float* part_m,
-                                            float* part_l, float* part_acc) {
-  const int splits = gridDim.x, split = blockIdx.x;
-  const int half = D / 2;
-  for (int i = threadIdx.x; i < G * half; i += blockDim.x) {
-    const int r = i / half, c = 2 * (i - r * half);
-    float M = -INFINITY;
-    for (int w = 0; w < wk_n; ++w) M = fmaxf(M, Pm[w * rows + r]);
-    float L = 0.f, ox = 0.f, oy = 0.f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < wk_n; ++w) {
-        const float sc = exp2f(Pm[w * rows + r] - M);
-        const float2 o = *reinterpret_cast<const float2*>(Po + (size_t)(w * rows + r) * dstride + c);
-        L += Pl[w * rows + r] * sc;
-        ox += o.x * sc;
-        oy += o.y * sc;
-      }
-    }
-    const size_t row = (size_t)b * H + (size_t)kh * G + r;
-    if (part_acc == nullptr) {
-      const float inv = L > 0.f ? 1.f / L : 0.f;
-      reinterpret_cast<typename Pair<T>::type*>(out + row * D)[c / 2] =
-          Pair<T>::make(make_float2(ox * inv, oy * inv));
-    } else {
-      const size_t pr = row * splits + split;
-      *reinterpret_cast<float2*>(part_acc + pr * D + c) = make_float2(ox, oy);
-      if (c == 0) {
-        part_m[pr] = M;
-        part_l[pr] = L;
-      }
-    }
-  }
-}
-
-template <int DP, int KW, int NW>
-__global__ void __launch_bounds__(NW * 32) decode_split_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ cache_len,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int cap, int H, int KH, int D, int per_split, float qscale) {
-  using C = MmaCfg<DP, KW, NW>;
-  constexpr int RS = C::RS, STAGES = C::STAGES, WK = C::WK, ROWS = C::ROWS, TILE = C::TILE;
-  constexpr int ND = DP / 8, KD = DP / 16, NJ = KW / 8;
-  constexpr int NTH = NW * 32;
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WK, wk = warp - wm * WK;
-  const int g = lane >> 2, t4 = lane & 3;   // fragment row group and column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: which 8 x 8 matrix, which of its rows
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // ROWS x RS
-  unsigned char* body = smem_raw + C::Q;  // the K/V ring, then the warps' partial states
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(body);      // STAGES x TK x RS
-  __nv_bfloat16* Vs = Ks + STAGES * TILE;                          // STAGES x TK x RS
-
-  const Range rg = slot_range(cache_len, b, cap, per_split, TK);
-  const int nv = D / 8;  // 16-byte vectors per row
-
-  // Q (zeros past G and past D, by cp.async in the first tile's group), and
-  // the ring's pad columns, which the tile loads never write: P V reads
-  // them, and they must not be NaN.
-  const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kh * G) * D;
-  for (int i = tid; i < ROWS * (DP / 8); i += NTH) {
-    const int r = i / (DP / 8), c = (i - r * (DP / 8)) * 8;
-    const bool ok = r < G && c < D;
-    hopper::cp_async16(Qs + r * RS + c, ok ? qb + (size_t)r * D + c : qb, ok);
-  }
-  if (D < DP) {
-    const int pv = (DP - D) / 8;
-    for (int i = tid; i < 2 * STAGES * TK * pv; i += NTH) {
-      const int r = i / pv, c = D + (i - r * pv) * 8;
-      *reinterpret_cast<int4*>(Ks + r * RS + c) = make_int4(0, 0, 0, 0);
-    }
-  }
-
-  const size_t pos_stride = (size_t)KH * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * cap * KH + kh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * cap * KH + kh) * D;
-  auto load_tile = [&](int t, int st) {
-    const int s0 = rg.lo + t * TK;
-    __nv_bfloat16* kd = Ks + st * TILE;
-    __nv_bfloat16* vd = Vs + st * TILE;
-    for (int i = tid; i < TK * nv; i += NTH) {
-      const int j = i / nv, c = (i - j * nv) * 8;
-      const bool ok = s0 + j < rg.hi;  // zeros past the range: never another row's slots
-      const size_t off = ok ? (size_t)(s0 + j) * pos_stride + c : 0;
-      hopper::cp_async16(kd + j * RS + c, kb + off, ok);
-      hopper::cp_async16(vd + j * RS + c, vb + off, ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < rg.n_tiles) load_tile(s, s);
-    hopper::cp_async_commit();
-  }
-
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int kw0 = wk * KW;  // this warp's slots within each tile
-
-  for (int t = 0; t < rg.n_tiles; ++t) {
-    if (t + STAGES - 1 < rg.n_tiles) load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    hopper::cp_async_commit();  // possibly empty, so that the wait below names tile t
-    hopper::cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    const __nv_bfloat16* kt = Ks + (t % STAGES) * TILE + kw0 * RS;
-    const __nv_bfloat16* vt = Vs + (t % STAGES) * TILE + kw0 * RS;
-
-    // S (16 x KW) = Q K^T; a tile that ends past the range skips the
-    // 16-slot blocks past it (warp-uniform; their scores are masked below),
-    // and a full tile runs without those branches.
-    const int base = rg.lo + t * TK + kw0;
-    auto tile = [&](auto full) {
-      constexpr bool FULL = decltype(full)::value;
-      float s[NJ][4];
-#pragma unroll
-      for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nj][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4];
-        hopper::ldsm_x4(a[0], a[1], a[2], a[3],
-                        Qs + (wm * 16 + lr + 8 * (lm & 1)) * RS + kk * 16 + 8 * (lm >> 1));
-#pragma unroll
-        for (int nj = 0; nj < NJ; nj += 2) {
-          if constexpr (!FULL) {
-            if (base + nj * 8 >= rg.hi) break;
-          }
-          uint32_t b0, b1, b2, b3;
-          hopper::ldsm_x4(b0, b1, b2, b3, kt + (nj * 8 + lr + 8 * (lm >> 1)) * RS + kk * 16 + 8 * (lm & 1));
-          hopper::mma_bf16(s[nj], a, b0, b1);
-          hopper::mma_bf16(s[nj + 1], a, b2, b3);
-        }
-      }
-
-      // Mask the slots past the range, scale into the exp2 domain, and update
-      // the online softmax of this thread's two rows.
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float mt = -INFINITY;
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float x = base + nj * 8 + 2 * t4 + e < rg.hi ? s[nj][2 * hf + e] * qscale : -INFINITY;
-            s[nj][2 * hf + e] = x;
-            mt = fmaxf(mt, x);
-          }
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float mn = fmaxf(m[hf], mt);
-        const float ms = mn == -INFINITY ? 0.f : mn;  // no slot seen yet: p = 0 below
-        const float alpha = exp2f(m[hf] - ms);         // 0 while m is -inf
-        float ps = 0.f;
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = exp2f(s[nj][2 * hf + e] - ms);
-            s[nj][2 * hf + e] = p;
-            ps += p;
-          }
-        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-        l[hf] = l[hf] * alpha + ps;
-        m[hf] = mn;
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          o[nd][2 * hf] *= alpha;
-          o[nd][2 * hf + 1] *= alpha;
-        }
-      }
-
-      // O (16 x DP) += P V, P from the score accumulators
-#pragma unroll
-      for (int kk = 0; kk < KW / 16; ++kk) {
-        if constexpr (!FULL) {
-          if (base + kk * 16 >= rg.hi) break;  // p is 0 there
-        }
-        const uint32_t a[4] = {hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int nd = 0; nd < ND; nd += 2) {
-          uint32_t b0, b1, b2, b3;
-          hopper::ldsm_x4_trans(b0, b1, b2, b3, vt + (kk * 16 + lr + 8 * (lm & 1)) * RS + nd * 8 + 8 * (lm >> 1));
-          hopper::mma_bf16(o[nd], a, b0, b1);
-          hopper::mma_bf16(o[nd + 1], a, b2, b3);
-        }
-      }
-    };
-    if (base + KW <= rg.hi)
-      tile(std::true_type{});
-    else
-      tile(std::false_type{});
-    __syncthreads();  // the stage is consumed before the next load overwrites it
-  }
-  hopper::cp_async_wait<0>();  // only empty groups remain; the ring becomes Po
-  __syncthreads();
-
-  // Each warp's state, then the merge over the WK warps of each row.
-  float* Po = reinterpret_cast<float*>(body);  // WK x ROWS x (DP), unnormalised
-  float* Pm = Po + (size_t)WK * ROWS * DP;     // WK x ROWS
-  float* Pl = Pm + WK * ROWS;                  // WK x ROWS
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = wm * 16 + g + 8 * hf;
-    float* po = Po + (size_t)(wk * ROWS + r) * DP;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<float2*>(po + nd * 8 + 2 * t4) = make_float2(o[nd][2 * hf], o[nd][2 * hf + 1]);
-    if (t4 == 0) {
-      Pm[wk * ROWS + r] = m[hf];
-      Pl[wk * ROWS + r] = l[hf];
-    }
-  }
-  __syncthreads();
-  finish_rows<__nv_bfloat16>(Po, Pm, Pl, WK, ROWS, DP, G, H, D, b, kh, out, part_m, part_l,
-                             part_acc);
-}
-
-// The fp32 body's layout: F32_WARPS warps, query rows warp, warp + 4, ...
-// (RPW of them per warp), lanes across the head dim (DP / 32 elements each),
-// a two-stage ring of F32_TK slots.
-template <int DP, int RPW>
-struct F32Cfg {
-  static constexpr int STAGES = 2;
-  static constexpr int ROWS = F32_WARPS * RPW;
-  static constexpr int TILE = F32_TK * DP;
-  static constexpr size_t RING = sizeof(float) * 2 * STAGES * TILE;
-  static constexpr size_t PARTS = sizeof(float) * (size_t)ROWS * (DP + 2);
-  static constexpr size_t Q = sizeof(float) * ROWS * DP;
-  static constexpr size_t SMEM = (RING > PARTS ? RING : PARTS) + Q;
-};
-
-template <int DP, int RPW>
-__global__ void __launch_bounds__(F32_WARPS * 32) decode_split_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int32_t* __restrict__ cache_len, float* __restrict__ out, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int cap, int H, int KH, int D,
-    int per_split, float qscale) {
-  using C = F32Cfg<DP, RPW>;
-  constexpr int STAGES = C::STAGES, ROWS = C::ROWS, TILE = C::TILE, DPL = DP / 32;
-  constexpr int NTH = F32_WARPS * 32;
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // ROWS x DP
-  unsigned char* body = smem_raw + C::Q;
-  float* Ks = reinterpret_cast<float*>(body);      // STAGES x F32_TK x DP
-  float* Vs = Ks + STAGES * TILE;
-
-  const Range rg = slot_range(cache_len, b, cap, per_split, F32_TK);
-  const int nv = D / 4;
-  const float* qb = q + ((size_t)b * H + (size_t)kh * G) * D;
-  for (int i = tid; i < ROWS * (DP / 4); i += NTH) {  // in the first tile's group
-    const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
-    const bool ok = r < G && c < D;
-    hopper::cp_async16(Qs + r * DP + c, ok ? qb + (size_t)r * D + c : qb, ok);
-  }
-  if (D < DP) {
-    const int pv = (DP - D) / 4;
-    for (int i = tid; i < 2 * STAGES * F32_TK * pv; i += NTH) {
-      const int r = i / pv, c = D + (i - r * pv) * 4;
-      *reinterpret_cast<float4*>(Ks + r * DP + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  const size_t pos_stride = (size_t)KH * D;
-  const float* kb = k + ((size_t)b * cap * KH + kh) * D;
-  const float* vb = v + ((size_t)b * cap * KH + kh) * D;
-  auto load_tile = [&](int t, int st) {
-    const int s0 = rg.lo + t * F32_TK;
-    float* kd = Ks + st * TILE;
-    float* vd = Vs + st * TILE;
-    for (int i = tid; i < F32_TK * nv; i += NTH) {
-      const int j = i / nv, c = (i - j * nv) * 4;
-      const bool ok = s0 + j < rg.hi;
-      const size_t off = ok ? (size_t)(s0 + j) * pos_stride + c : 0;
-      hopper::cp_async16(kd + j * DP + c, kb + off, ok);
-      hopper::cp_async16(vd + j * DP + c, vb + off, ok);
-    }
-  };
-  if (rg.n_tiles > 0) load_tile(0, 0);
-  hopper::cp_async_commit();
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-  }
-  for (int t = 0; t < rg.n_tiles; ++t) {
-    if (t + 1 < rg.n_tiles) load_tile(t + 1, (t + 1) % STAGES);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<1>();
-    __syncthreads();
-    const float* kt = Ks + (t % STAGES) * TILE;
-    const float* vt = Vs + (t % STAGES) * TILE;
-    // Scores: lane j ends up holding slot j's score of each row; each dot
-    // product is spread over the lanes and summed by shuffles.
-    float sc[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) sc[r] = -INFINITY;
-    // Every row of the template is scored, those past G on zero queries:
-    // a branch per row would keep the compiler from interleaving the rows'
-    // shuffle chains.
-#pragma unroll 2
-    for (int j = 0; j < F32_TK; ++j) {
-      float kf[DPL];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) kf[e] = kt[j * DP + lane + 32 * e];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float* qr = Qs + (warp + F32_WARPS * r) * DP + lane;
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) d = fmaf(qr[32 * e], kf[e], d);
-        d = warp_sum(d) * qscale;  // into the exp2 domain
-        if (lane == j) sc[r] = d;
-      }
-    }
-    const bool seen = rg.lo + t * F32_TK + lane < rg.hi;
-    float p[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float x = seen ? sc[r] : -INFINITY;
-      const float mn = fmaxf(m[r], warp_max(x));
-      const float ms = mn == -INFINITY ? 0.f : mn;
-      const float alpha = exp2f(m[r] - ms);
-      p[r] = exp2f(x - ms);
-      l[r] = l[r] * alpha + warp_sum(p[r]);
-      m[r] = mn;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
-    }
-    for (int j = 0; j < F32_TK; ++j) {
-      float vf[DPL];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) vf[e] = vt[j * DP + lane + 32 * e];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[r][e] = fmaf(pj, vf[e], acc[r][e]);
-      }
-    }
-    __syncthreads();
-  }
-  hopper::cp_async_wait<0>();
-  __syncthreads();
-
-  float* Po = reinterpret_cast<float*>(body);  // ROWS x DP
-  float* Pm = Po + (size_t)ROWS * DP;
-  float* Pl = Pm + ROWS;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = warp + F32_WARPS * r;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) Po[row * DP + lane + 32 * e] = acc[r][e];
-    if (lane == 0) {
-      Pm[row] = m[r];
-      Pl[row] = l[r];
-    }
-  }
-  __syncthreads();
-  finish_rows<float>(Po, Pm, Pl, 1, ROWS, DP, G, H, D, b, kh, out, part_m, part_l, part_acc);
-}
-
-// out[row] = sum_s acc_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s;
-// 0 when no split saw a slot.  One CTA per (batch row, head).  Split s of
-// row r is at r * rstride + s * sstride (acc: times D); m_s is read times
-// in_scale into the exp2 domain.  With out == nullptr the row's combined m
-// (natural log domain), l and unnormalised acc go to out_m, out_l, out_acc.
-constexpr float LN2 = 0.6931471805599453f;
-template <typename T>
-__global__ void __launch_bounds__(128) decode_combine_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, T* __restrict__ out, float* __restrict__ out_m,
-    float* __restrict__ out_l, float* __restrict__ out_acc, int splits, int D,
-    size_t rstride, size_t sstride, float in_scale) {
-  extern __shared__ float wts[];  // splits
-  __shared__ float red[4];
-  const size_t row = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* pm = part_m + row * rstride;
-  const float* pl = part_l + row * rstride;
-  float M = -INFINITY;
-  for (int s = tid; s < splits; s += 128) M = fmaxf(M, pm[s * sstride] * in_scale);
-  M = warp_max(M);
-  if (lane == 0) red[warp] = M;
-  __syncthreads();
-  M = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  __syncthreads();
-  float L = 0.f;
-  for (int s = tid; s < splits; s += 128) {
-    const float w = M == -INFINITY ? 0.f : exp2f(pm[s * sstride] * in_scale - M);
-    wts[s] = w;
-    L += pl[s * sstride] * w;
-  }
-  L = warp_sum(L);
-  if (lane == 0) red[warp] = L;
-  __syncthreads();
-  L = red[0] + red[1] + red[2] + red[3];
-  const float* pa = part_acc + row * rstride * D;
-  if (out == nullptr) {
-    for (int d = tid; d < D; d += 128) {
-      float o = 0.f;
-      for (int s = 0; s < splits; ++s) o = fmaf(pa[s * sstride * D + d], wts[s], o);
-      out_acc[row * D + d] = o;
-    }
-    if (tid == 0) {
-      out_m[row] = M * LN2;
-      out_l[row] = L;
-    }
-    return;
-  }
-  const float inv = L > 0.f ? 1.f / L : 0.f;
-  for (int d = tid; d < D; d += 128) {
-    float o = 0.f;
-    for (int s = 0; s < splits; ++s) o = fmaf(pa[s * sstride * D + d], wts[s], o);
-    out[row * D + d] = from_float<T>(o * inv);
-  }
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 template <int DP, int KW, int NW>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const int32_t* lens, void* out,
                        float* pm, float* pl, float* pa, int B, int H, int KH, int T_, int D,
                        int splits, int per_split, cudaStream_t stream) {
   using C = MmaCfg<DP, KW, NW>;
-  auto kernel = decode_split_mma_kernel<DP, KW, NW>;
+  auto kernel = decode_split_mma_kernel<DP, KW, NW, false>;
   cudaError_t e = set_smem(kernel, C::SMEM);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(splits, KH, B), NW * 32, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lens, static_cast<__nv_bfloat16*>(out), pm, pl, pa,
-      T_, H, KH, D, per_split, LOG2E / sqrtf((float)D));
+      nullptr, T_, H, KH, D, per_split, LOG2E / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -879,10 +351,10 @@ cudaError_t launch_f32_rows(int G, const void* q, const void* k, const void* v,
 }
 
 // The split body: (splits, KH, B) CTAs, then the combine when splits > 1,
-// or (om != nullptr, the partials) always, into om, ol and oa.
+// or (rec != nullptr, the partials) always, into the record rec.
 cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* lens, void* out,
-                   float* pm, float* pl, float* pa, float* om, float* ol, float* oa, int B, int H,
-                   int KH, int T_, int D, int dtype, int splits, int per_split, cudaStream_t s) {
+                   float* pm, float* pl, float* pa, float* rec, int B, int H, int KH, int T_,
+                   int D, int dtype, int splits, int per_split, cudaStream_t s) {
   const int G = H / KH;
   const int dp = D <= 64 ? 64 : (D <= 128 ? 128 : (D <= 192 ? 192 : 256));
   cudaError_t e;
@@ -900,15 +372,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* l
     }
   }
 #undef DEC_SPLIT_CASE
-  if (e != cudaSuccess || (splits == 1 && om == nullptr)) return e;
+  if (e != cudaSuccess || (splits == 1 && rec == nullptr)) return e;
   const size_t smem = sizeof(float) * splits;
+  // split s of row r: m and l at r * splits + s, acc at (r * splits + s) * D
+  const size_t mr = splits, ms = 1, ar = (size_t)splits * D, as = D;
   if (dtype == 1) {
     decode_combine_kernel<__nv_bfloat16><<<B * H, 128, smem, s>>>(
-        pm, pl, pa, om ? nullptr : static_cast<__nv_bfloat16*>(out), om, ol, oa, splits, D,
-        splits, 1, 1.f);
+        pm, pl, pa, rec ? nullptr : static_cast<__nv_bfloat16*>(out), rec, splits, D, mr, ms, ar,
+        as, 1.f);
   } else {
     decode_combine_kernel<float><<<B * H, 128, smem, s>>>(
-        pm, pl, pa, om ? nullptr : static_cast<float*>(out), om, ol, oa, splits, D, splits, 1,
+        pm, pl, pa, rec ? nullptr : static_cast<float*>(out), rec, splits, D, mr, ms, ar, as,
         1.f);
   }
   return cudaGetLastError();
@@ -950,7 +424,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
       return (int)cudaErrorInvalidValue;
     return (int)split::launch(q, k, v, lens, out, static_cast<float*>(part_m),
                               static_cast<float*>(part_l), static_cast<float*>(part_acc), nullptr,
-                              nullptr, nullptr, B, H, KH, T_, D, dtype, splits, per_split, s);
+                              B, H, KH, T_, D, dtype, splits, per_split, s);
   }
   const int n_chunks = (G + MAX_ROWS - 1) / MAX_ROWS;
   const int rows_per_cta = (G + n_chunks - 1) / n_chunks;
@@ -965,50 +439,51 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   return (int)e;
 }
 
-// The partials of one rank's slice of a cache split along T: q, k, v and
-// cache_len as decode_attention_launch takes them for the split body (its
-// limits), part_m/part_l (B, H, splits) and part_acc (B, H, splits, D) fp32
-// scratch; out_m/out_l (B, H) and out_acc (B, H, D) fp32 receive the
-// slice's m (natural log domain of q.k / sqrt(D)), l and unnormalised acc.
+// The partials of one rank's slice of a cache split along T on the split
+// body: q, k, v and cache_len as decode_attention_launch takes them for
+// the split body (its limits), `splits` CTAs of `per_split` slots into the
+// fp32 scratch part_m/part_l (B, H, splits) and part_acc (B, H, splits, D),
+// then the block combine in its partials mode, which writes the slice's
+// record rec (B, H, D + 4) fp32: the unnormalised acc (D), m (natural log
+// domain of q.k / sqrt(D)), l and two zero pads.  Returns a cudaError_t
+// code, 0 on success.
 extern "C" int decode_attention_partials_launch(
     const void* q, const void* k, const void* v, const void* cache_len, void* part_m,
-    void* part_l, void* part_acc, void* out_m, void* out_l, void* out_acc, int B, int H, int KH,
-    int T_, int D, int dtype, int splits, int per_split, void* stream) {
+    void* part_l, void* part_acc, void* rec, int B, int H, int KH, int T_, int D, int dtype,
+    int splits, int per_split, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   if (B < 0 || KH <= 0 || H % KH != 0 || T_ < 0 || D <= 0 || D > 256 || D % 2 != 0 ||
       (D * itemsize) % 16 != 0 || (dtype != 0 && dtype != 1) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || H / KH > (dtype == 1 ? 128 : 64) || splits < 1 ||
-      per_split < 1 || per_split % split::TK != 0 || (long long)splits * per_split < T_ ||
-      part_m == nullptr || part_l == nullptr || part_acc == nullptr || out_m == nullptr ||
-      out_l == nullptr || out_acc == nullptr)
+      !aligned16(k) || !aligned16(v) || !aligned16(rec) || H / KH > (dtype == 1 ? 128 : 64) ||
+      splits < 1 || per_split < 1 || per_split % split::TK != 0 ||
+      (long long)splits * per_split < T_ || part_m == nullptr || part_l == nullptr ||
+      part_acc == nullptr)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   return (int)split::launch(q, k, v, static_cast<const int32_t*>(cache_len), nullptr,
                             static_cast<float*>(part_m), static_cast<float*>(part_l),
-                            static_cast<float*>(part_acc), static_cast<float*>(out_m),
-                            static_cast<float*>(out_l), static_cast<float*>(out_acc), B, H, KH,
+                            static_cast<float*>(part_acc), static_cast<float*>(rec), B, H, KH,
                             T_, D, dtype, splits, per_split, static_cast<cudaStream_t>(stream));
 }
 
-// The combine of n partials: m and l (n, rows), acc (n, rows, D), fp32, m
-// in the natural log domain; out (rows, D) in dtype (0 = fp32, 1 = bf16).
-extern "C" int decode_combine_launch(const void* m, const void* l, const void* acc, void* out,
-                                     int n, int rows, int D, int dtype, void* stream) {
-  if (n < 1 || rows < 0 || D <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+// The block combine of n slices' records into the output: rec holds slice
+// s at rec + s * sstride floats, each (rows, D + 4) fp32 as the partials
+// write it; out (rows, D) in dtype (0 = fp32, 1 = bf16).
+extern "C" int decode_combine_launch(const void* rec, void* out, int n, int rows, int D,
+                                     long long sstride, int dtype, void* stream) {
+  if (n < 1 || rows < 0 || D <= 0 || sstride < 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pm = static_cast<const float*>(m);
-  const float* pl = static_cast<const float*>(l);
-  const float* pa = static_cast<const float*>(acc);
+  const float* r = static_cast<const float*>(rec);
+  const size_t rs = (size_t)D + 4, ss = (size_t)sstride;
   const size_t smem = sizeof(float) * n;
-  if (dtype == 1) {
+  if (dtype == 1)
     split::decode_combine_kernel<__nv_bfloat16><<<rows, 128, smem, s>>>(
-        pm, pl, pa, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr, n, D, 1,
-        (size_t)rows, LOG2E);
-  } else {
-    split::decode_combine_kernel<float><<<rows, 128, smem, s>>>(
-        pm, pl, pa, static_cast<float*>(out), nullptr, nullptr, nullptr, n, D, 1, (size_t)rows,
+        r + D, r + D + 1, r, static_cast<__nv_bfloat16*>(out), nullptr, n, D, rs, ss, rs, ss,
         LOG2E);
-  }
+  else
+    split::decode_combine_kernel<float><<<rows, 128, smem, s>>>(
+        r + D, r + D + 1, r, static_cast<float*>(out), nullptr, n, D, rs, ss, rs, ss, LOG2E);
   return (int)cudaGetLastError();
 }

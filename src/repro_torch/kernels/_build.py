@@ -96,6 +96,19 @@ def build_all() -> Dict[str, Path]:
         return dict(zip(names, pool.map(build, names)))
 
 
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device: "torch.device") -> int:
+    """The SM count of a CUDA device, read once."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
 def aligned(x: "torch.Tensor") -> "torch.Tensor":
     """``x`` itself where it starts on a 16-byte boundary, else a fresh
     copy of it (the caching allocator's blocks start on 512-byte

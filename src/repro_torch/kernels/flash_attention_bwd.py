@@ -44,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.ref import _gqa_expand, _visible
 
 #: Kernel calls since import (or since the caller last reset it).
@@ -213,17 +214,6 @@ def _entry():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     return fn
-
-
-_sms: Dict[int, int] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device, read once."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sms:
-        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sms[index]
 
 
 def flash_attention_bwd(

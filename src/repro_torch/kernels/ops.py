@@ -80,9 +80,9 @@ def decode_attention_partials(
     cache_len: torch.Tensor,
     *,
     impl: str = "auto",
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One slice of a cache split along T → fp32 (m, l, acc); every
-    ``ref*`` impl is the plain version."""
+) -> torch.Tensor:
+    """One slice of a cache split along T → its fp32 record (B, H, D + 4)
+    of (acc, m, l); every ``ref*`` impl is the plain version."""
     if impl in ("ref", "ref_grouped", "ref_chunked", "ref_sequential"):
         return _da.decode_attention_partials_plain(q, k_cache, v_cache, cache_len)
     if impl in ("kernel", "auto"):
@@ -91,18 +91,16 @@ def decode_attention_partials(
 
 
 def combine_partials(
-    m: torch.Tensor,
-    l: torch.Tensor,
-    acc: torch.Tensor,
+    rec: torch.Tensor,
     dtype: torch.dtype,
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """n slices' (m, l, acc) stacked on dim 0 → the output in ``dtype``."""
+    """n slices' records stacked on dim 0 → the output in ``dtype``."""
     if impl in ("ref", "ref_grouped", "ref_chunked", "ref_sequential"):
-        return _da.combine_partials_plain(m, l, acc, dtype)
+        return _da.combine_partials_plain(rec, dtype)
     if impl in ("kernel", "auto"):
-        return _da.combine_partials(m, l, acc, dtype)
+        return _da.combine_partials(rec, dtype)
     raise _unknown(impl)
 
 

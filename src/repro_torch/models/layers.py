@@ -219,16 +219,16 @@ def t_split_decode_attention(
     """Decode attention of q (B, H, D) over a cache split along T over
     ``model``: ``k_cache``/``v_cache`` (B, T_loc, KH, D) are this rank's
     slots from ``slot_offset``, of which clamp(cache_len − offset, 0,
-    T_loc) are valid.  This rank's (m, l, acc) (``decode_attention_partials``)
-    are gathered over ``model`` in rank order, and every rank combines
-    them alike (``combine_partials``): (B, H, D) in q's dtype, the same
-    bits on every rank."""
+    T_loc) are valid.  This rank's record of (acc, m, l)
+    (``decode_attention_partials``, (B, H, D + 4) fp32) is gathered over
+    ``model`` in rank order as it is, and every rank combines the records
+    alike (``combine_partials``): (B, H, D) in q's dtype, the same bits on
+    every rank.  On the card a layer launches one partials kernel, the
+    gather and one combine kernel."""
     t_loc = k_cache.shape[1]
     local_len = (cache_len - slot_offset).clamp(0, t_loc).to(torch.int32)
-    m, l, acc = kops.decode_attention_partials(q, k_cache, v_cache, local_len, impl=impl)
-    parts = sharding.model_gather(torch.cat([m[..., None], l[..., None], acc], dim=-1)[None],
-                                  mesh, 0)
-    return kops.combine_partials(parts[..., 0], parts[..., 1], parts[..., 2:], q.dtype, impl=impl)
+    rec = kops.decode_attention_partials(q, k_cache, v_cache, local_len, impl=impl)
+    return kops.combine_partials(sharding.model_gather(rec[None], mesh, 0), q.dtype, impl=impl)
 
 
 def _attend_cache(x, p, k_cache, v_cache, cache_len, rope_q, *, n_heads, n_kv_heads, head_dim,

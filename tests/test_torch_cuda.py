@@ -488,8 +488,9 @@ def test_decode_split_body_matches_single_body_and_plain(card, g, d, dtype):
     lengths cover an empty row, one slot, both sides of a split's edge,
     the edge itself and the whole cache."""
     b, kh, t = 4, 2, 700
-    assert da.splits_for(b, kh, t) == 11 and da.body_for(dtype, d, g, 11) == "split"
-    per = da.slots_per_split(t, da.splits_for(b, kh, t))
+    sms = da.sm_count(card)
+    assert da.splits_for(b, kh, t, sms) == 11 and da.body_for(dtype, d, g, 11) == "split"
+    per = da.slots_per_split(t, da.splits_for(b, kh, t, sms))
     gen = torch.Generator(device=card).manual_seed(g * d)
     q = torch.randn(b, g * kh, d, generator=gen, device=card, dtype=dtype)
     k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
@@ -528,7 +529,7 @@ def test_decode_split_body_at_the_edges(card, b, h, kh, d, t, dtype):
     k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
     v = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
     n = torch.randint(0, t + 1, (b,), generator=gen, device=card, dtype=torch.int32)
-    found = da.bodies_for(dtype, d, h // kh, da.splits_for(b, kh, t))
+    found = da.bodies_for(dtype, d, h // kh, da.splits_for(b, kh, t, da.sm_count(card)))
     for body in [None] + [x for x in found[1:] if x == "split"]:
         got = da.decode_attention(q, k, v, n, body=body).float()
         torch.cuda.synchronize()
@@ -580,14 +581,29 @@ def test_ssd_chunked_body_matches_serial_body_and_plain(card, b, t, h, p, n, chu
     cc = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
     init = torch.randn(b, h, p, n, generator=g, device=card) if with_state else None
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    assert ssd.body_for(dtype, p, n, min(chunk, t), b * h, sms) == "chunked"
+    length = min(chunk, t)
+    nc = -(-t // length)
+    per_sm = ssd.fused_blocks_per_sm(card, length, p, n, 1) if dtype == torch.bfloat16 else 0
+    assert ssd.body_for(dtype, p, n, length, b * h, sms, nc, per_sm) == (
+        "fused" if dtype == torch.bfloat16 and b * h * nc <= sms * per_sm else "chunked")
     before = (ssd.launches, ssd.launches_by_body.get("chunked", 0),
               ssd.launches_by_body.get("serial", 0))
-    y, fs = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init)
+    y, fs = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init, body="chunked")
     yo, fso = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init, body="serial")
     torch.cuda.synchronize()
     assert (ssd.launches, ssd.launches_by_body["chunked"], ssd.launches_by_body["serial"]) == (
         before[0] + 2, before[1] + 1, before[2] + 1)
+    if dtype == torch.bfloat16 and b * h * nc <= sms * per_sm:  # fused: chunked's bits
+        before = ssd.launches_by_body.get("fused", 0)
+        yf, fsf = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init, body="fused")
+        torch.cuda.synchronize()
+        assert ssd.launches_by_body["fused"] == before + 1
+        assert torch.equal(yf, y) and torch.equal(fsf, fs)
+    elif dtype == torch.bfloat16:  # a grid beyond one wave: refused, no launch
+        before = ssd.launches
+        with pytest.raises(ValueError, match="one wave"):
+            ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, initial_state=init, body="fused")
+        assert ssd.launches == before
     ye, fse = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk, initial_state=init)
     assert y.dtype == dtype and fs.dtype == torch.float32
     torch.testing.assert_close(y.float(), ye.float(), **SSD_TOL[dtype])
@@ -1250,12 +1266,14 @@ def test_ssd_function_launches_forward_and_backward(card):
         card, 2, 300, 4, 64, 128, 128, True, True, torch.bfloat16, seed=11)
     leaves = [z.clone().requires_grad_(True) for z in (x, dt, a, bb, cc, init)]
     f0, b0, m0 = ssd.launches, sb.launches, sb.launches_by_body.get("mma", 0)
+    forward = dict(ssd.launches_by_body)
     y, state = ssd.ssd_scan(*leaves[:5], chunk=128, initial_state=leaves[5])
     torch.autograd.backward([y, state], [dy, dstate])
     torch.cuda.synchronize()
     assert ssd.launches == f0 + 1 and sb.launches == b0 + 1
     assert sb.launches_by_body["mma"] == m0 + 1  # bf16's backward runs on mma
-    assert ssd.launches_by_body["chunked"] >= 1
+    ran = {k for k, v in ssd.launches_by_body.items() if v != forward.get(k, 0)}
+    assert ran <= {"chunked", "fused"} and len(ran) == 1  # a body that keeps the states
     want = sb.ssd_scan_bwd_plain(x, dt, a, bb, cc, init, states, dy, dstate, chunk=128)
     for leaf, w in zip(leaves, want):
         assert ssd_grad_close(leaf.grad, w, leaf.dtype)
@@ -1461,7 +1479,7 @@ def test_decode_takes_an_offset_view_on_card(card, dtype):
     k = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
     v = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
     lens = torch.tensor([300, 123], dtype=torch.int32, device=card)
-    body = da.body_for(dtype, d, h // kh, da.splits_for(b, kh, t))
+    body = da.body_for(dtype, d, h // kh, da.splits_for(b, kh, t, da.sm_count(card)))
     before = da.launches_by_body.get(body, 0)
     got = da.decode_attention(offset_on_card(q), offset_on_card(k), v, lens)
     want = da.decode_attention(q, k, v, lens)
@@ -1479,52 +1497,69 @@ def test_decode_takes_an_offset_view_on_card(card, dtype):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (dtype, partials body, combine body): every body of each dtype, the new
+# ones (cluster, warp) and the ones they replace (split, block)
+PARTIALS_BODIES = [(dt, pb, cb) for dt in (torch.float32, torch.bfloat16)
+                   for pb in da.partials_bodies_for(dt, 128, 4) for cb in ("warp", "block")]
+
+
+@pytest.mark.parametrize("dtype,pbody,cbody", PARTIALS_BODIES,
+                         ids=[f"{str(c[0])[6:]}-{c[1]}-{c[2]}" for c in PARTIALS_BODIES])
 @pytest.mark.parametrize("b,h,kh,d,t,ns", [
     (2, 32, 8, 128, 4096, (1, 2, 4, 16)),   # NeMo's heads
     (2, 48, 1, 128, 4160, (2, 16)),         # granite's MQA; T_loc 260 and 2,080: partial tiles
     (2, 16, 16, 64, 1500, (2, 4)),          # whisper's 1,500 encoder frames
     (2, 16, 16, 192, 320, (4,)),            # MLA's hd + rope dim, T_loc 80
+    (1, 128, 1, 64, 2048, (16,)),           # 128 query rows a KV head (bf16's most)
 ])
 def test_decode_partials_and_combine_match_the_whole_kernel_on_card(card, b, h, kh, d, t, ns,
-                                                                     dtype):
+                                                                     dtype, pbody, cbody):
     """A cache cut along T into n slices, as a (1, n) mesh's ranks hold it:
-    each slice through ``decode_attention_partials`` (its local length),
-    then ``combine_partials`` in slice order, against the whole kernel
-    and the plain path; the kernel's partials against the plain
-    partials' combine (m in the natural log domain); a row with five slots
-    (every slice but the first empty for it) and one with none; in the
-    second length case the second half of the cache is empty, so the last
-    slice holds no slot of any row: m = -inf, l = 0 and acc = 0."""
+    each slice through ``decode_attention_partials`` (its local length) on
+    ``pbody``, the records stacked, then ``combine_partials`` on ``cbody``
+    in slice order, against the whole kernel and the plain path; the
+    kernel's records against the plain records' combine (m in the natural
+    log domain); a row with five slots (every slice but the first empty for
+    it) and one with none; in the second length case the second half of
+    the cache is empty, so the last slice holds no slot of any row: its
+    record is m = -inf, l = 0, acc = 0 with zero pads.  One launch a slice
+    and one combine, counted by body."""
     gen = torch.Generator(device=card).manual_seed(t + h + d)
     q = torch.randn(b, h, d, generator=gen, device=card, dtype=dtype)
     k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
     v = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=dtype)
-    for lens in ([t, 5], [t // 2 - 3, 0]):
+    if h // kh > da.SPLIT_MAX_ROWS[dtype]:  # past what the split body takes: refused
+        with pytest.raises(ValueError, match="does not take"):
+            da.decode_attention_partials(q, k, v, torch.full((b,), t, dtype=torch.int32,
+                                                             device=card), body=pbody)
+        return
+    for lens in ([t, 5][:b], [t // 2 - 3, 0][:b]):
         n_t = torch.tensor(lens, dtype=torch.int32, device=card)
         whole = da.decode_attention(q, k, v, n_t).float()
         plain = da.decode_attention_plain(q, k, v, n_t).float()
         for n in ns:
             t_loc = t // n
-            before = (da.partials_launches, da.combine_launches)
-            parts = [da.decode_attention_partials(
+            before = (da.partials_by_body.get(pbody, 0), da.combine_by_body.get(cbody, 0))
+            rec = torch.stack([da.decode_attention_partials(
                 q, k[:, r * t_loc:(r + 1) * t_loc].contiguous(),
                 v[:, r * t_loc:(r + 1) * t_loc].contiguous(),
-                (n_t - r * t_loc).clamp(0, t_loc).to(torch.int32)) for r in range(n)]
-            m, l, acc = (torch.stack(x) for x in zip(*parts))
-            got = da.combine_partials(m, l, acc, dtype)
+                (n_t - r * t_loc).clamp(0, t_loc).to(torch.int32), body=pbody) for r in range(n)])
+            got = da.combine_partials(rec, dtype, body=cbody)
             torch.cuda.synchronize()
-            assert (da.partials_launches, da.combine_launches) == (before[0] + n, before[1] + 1)
-            assert got.dtype == dtype
+            assert (da.partials_by_body[pbody], da.combine_by_body[cbody]) == (
+                before[0] + n, before[1] + 1)
+            assert rec.shape == (n, b, h, d + 4) and got.dtype == dtype
             got = got.float()
             assert decode_close(got, whole, dtype), (n, float((got - whole).abs().max()))
             assert decode_close(got, plain, dtype), (n, float((got - plain).abs().max()))
-            by_plain = da.combine_partials_plain(m, l, acc, torch.float32)
+            by_plain = da.combine_partials_plain(rec, torch.float32)
             assert decode_close(by_plain, plain, dtype)
-            if lens[1] == 0:
+            assert not rec[..., d + 2:].any()
+            if b > 1 and lens[1] == 0:
                 assert not got[1].any()
-                if n > 1:
-                    assert bool(torch.isinf(m[-1]).all()) and not l[-1].any() and not acc[-1].any()
+            if len(lens) > 1 and lens[1] == 0 and n > 1:
+                m, l, acc = da.unpack_partials(rec[-1])
+                assert bool(torch.isinf(m).all()) and not l.any() and not acc.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1535,14 +1570,20 @@ def test_decode_partials_take_an_offset_view_on_card(card, dtype):
     k = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
     v = torch.randn(b, t, kh, d, device=card, generator=g).to(dtype)
     lens = torch.tensor([300, 123], dtype=torch.int32, device=card)
-    got = da.decode_attention_partials(offset_on_card(q), offset_on_card(k), v, lens)
-    want = da.decode_attention_partials(q, k, v, lens)
-    torch.cuda.synchronize()
-    for x, y in zip(got, want):
-        assert torch.equal(x, y)
-    parts = [x[None].expand((3,) + x.shape) for x in want]  # strided: copied before the launch
-    assert torch.equal(da.combine_partials(*parts, dtype),
-                       da.combine_partials(*(x.contiguous() for x in parts), dtype))
+    for body in da.partials_bodies_for(dtype, d, h // kh):
+        got = da.decode_attention_partials(offset_on_card(q), offset_on_card(k), v, lens,
+                                           body=body)
+        want = da.decode_attention_partials(q, k, v, lens, body=body)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), body
+    parts = want[None].expand((3,) + want.shape)  # read where it lies: a stride-0 slice dim
+    for body in ("warp", "block"):
+        assert torch.equal(da.combine_partials(parts, dtype, body=body),
+                           da.combine_partials(parts.contiguous(), dtype, body=body))
+    # a slice off a 16-byte boundary is copied before the warp body's launch
+    off = torch.empty(3 * want.numel() + 1, device=card)[1:].view((3,) + want.shape)
+    off.copy_(parts)
+    assert torch.equal(da.combine_partials(off, dtype), da.combine_partials(parts, dtype))
     torch.cuda.synchronize()
 
 
@@ -1551,9 +1592,45 @@ def test_decode_partials_raise_where_the_split_body_cannot_take_the_shape(card):
     k = torch.randn(1, 100, 1, 64, device=card)
     with pytest.raises(ValueError, match="split body"):
         da.decode_attention_partials(q, k, k, torch.tensor([100], dtype=torch.int32, device=card))
-    with pytest.raises(TypeError, match="fp32 partials"):
-        m = torch.zeros(2, 1, 4, device=card, dtype=torch.bfloat16)
-        da.combine_partials(m, m, m[..., None], torch.float32)
+    with pytest.raises(ValueError, match="cluster"):  # fp32 has no cluster body
+        da.decode_attention_partials(q[:, :8], k, k,
+                                     torch.tensor([100], dtype=torch.int32, device=card),
+                                     body="cluster")
+    with pytest.raises(TypeError, match="fp32 records"):
+        rec = torch.zeros(2, 1, 4, 68, device=card, dtype=torch.bfloat16)
+        da.combine_partials(rec, torch.float32)
+    with pytest.raises(ValueError, match="warp"):
+        da.combine_partials(torch.zeros(2, 1, 4, 6 + 4, device=card), torch.float32, body="warp")
+
+
+@pytest.mark.parametrize("model,b,h,kh,d", [("nemo", 2, 32, 8, 128), ("granite", 2, 48, 1, 128)])
+def test_the_cluster_record_repeats_bit_for_bit_on_card(card, model, b, h, kh, d):
+    """One rank's slice at n = 16 (T_loc = 2,048) through the cluster body
+    twice, and ten times more back to back: the same record bit for bit
+    (the merge runs in split order); its cluster is a size the card holds
+    (``cluster_fits``), and a size past 16 is refused."""
+    gen = torch.Generator(device=card).manual_seed(h)
+    t = 2048
+    q = torch.randn(b, h, d, generator=gen, device=card, dtype=torch.bfloat16)
+    k = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=torch.bfloat16)
+    v = torch.randn(b, t, kh, d, generator=gen, device=card, dtype=torch.bfloat16)
+    lens = torch.tensor([t, 1000], dtype=torch.int32, device=card)
+    fits = da.cluster_fits(card, h // kh, d)
+    size = da.cluster_splits(b, kh, t, da.sm_count(card), fits)
+    assert size in (1, 2, 4, 8, 16) and fits[size] >= 1
+    want = da.decode_attention_partials(q, k, v, lens, body="cluster")
+    for _ in range(11):
+        got = da.decode_attention_partials(q, k, v, lens, body="cluster")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = da.decode_attention_partials_plain(q, k, v, lens)
+    assert torch.allclose(got[..., :d + 2], plain[..., :d + 2], rtol=2e-2, atol=2e-2)
+    rec = torch.empty_like(want)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = da._entry("decode_partials_cluster_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), rec.data_ptr(), b, h, kh, t,
+        d, 32, da.slots_per_split(t, 32), stream)
+    assert refused(rc)  # 32 CTAs: past any cluster
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1583,43 +1660,179 @@ def test_ssd_takes_an_offset_view_on_card(card, dtype):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,p,n", [(48, 64, 128), (112, 64, 64)], ids=["mamba2", "zamba2"])
-def test_ssd_on_head_slices_matches_the_whole_kernel_on_card(card, h, p, n, dtype):
-    """Phase 2c's inputs (B = 2, T = 2,048, chunk 128; mamba2's and
-    zamba2's heads) cut into 2, 4 and 16 slices of heads, as the ranks of
-    a (1, n) mesh compute them: each slice's x, dt, a, B and C through
-    ``ssd_scan``, the y and final states side by side, against the whole
-    kernel and the plain path at phase 2c's tolerance."""
-    g = torch.Generator(device=card).manual_seed(h)
-    b, t, chunk = 2, 2048, 128
+# (dtype, body): every body that takes a rank's heads in each dtype
+HEAD_BODIES = [(torch.float32, "chunked"), (torch.bfloat16, "chunked"),
+               (torch.bfloat16, "fused")]
+
+
+def head_inputs(card, h, p, n, dtype, seed, b=2, t=2048):
+    g = torch.Generator(device=card).manual_seed(seed)
     x = (torch.randn(b, t, h, p, generator=g, device=card) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=g, device=card))
     a = -torch.exp(torch.randn(h, generator=g, device=card) * 0.3)
     bb = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
     cc = (torch.randn(b, t, h, n, generator=g, device=card) * 0.5).to(dtype)
-    whole = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("dtype,body", HEAD_BODIES,
+                         ids=[f"{str(d)[6:]}-{b}" for d, b in HEAD_BODIES])
+@pytest.mark.parametrize("h,p,n", [(48, 64, 128), (112, 64, 64)], ids=["mamba2", "zamba2"])
+def test_ssd_on_head_slices_matches_the_whole_kernel_on_card(card, h, p, n, dtype, body):
+    """Phase 2c's inputs (B = 2, T = 2,048, chunk 128; mamba2's and
+    zamba2's heads) cut into 2, 4 and 16 slices of heads, as the ranks of
+    a (1, n) mesh compute them: each slice's x, dt, a, B and C through
+    ``ssd_scan`` on ``body``, the y and final states side by side, against
+    the whole call on the chunked body and the plain path at phase 2c's
+    tolerance, and in bf16 bit for bit the whole chunked call.  The fused
+    body takes a slice only where its grid fits one wave (n = 16 here) and
+    refuses the others without a launch."""
+    x, dt, a, bb, cc = head_inputs(card, h, p, n, dtype, seed=h)
+    chunk = 128
+    whole = ssd.ssd_scan(x, dt, a, bb, cc, chunk=chunk, body="chunked")
     plain = ssd.ssd_scan_plain(x, dt, a, bb, cc, chunk=chunk)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    per_sm = ssd.fused_blocks_per_sm(card, chunk, p, n, 1)
     for k in (2, 4, 16):
         cuts = [slice(i * h // k, (i + 1) * h // k) for i in range(k)]
-        before = ssd.launches
+        if body == "fused" and 2 * (h // k) * 16 > sms * per_sm:
+            before = ssd.launches
+            with pytest.raises(ValueError, match="one wave"):
+                ssd.ssd_scan(*(z[:, :, cuts[0]].contiguous() for z in (x, dt)), a[cuts[0]],
+                             *(z[:, :, cuts[0]].contiguous() for z in (bb, cc)), chunk=chunk,
+                             body=body)
+            assert ssd.launches == before and k < 16
+            continue
+        before = ssd.launches_by_body.get(body, 0)
         parts = [ssd.ssd_scan(x[:, :, s].contiguous(), dt[:, :, s].contiguous(), a[s],
-                              bb[:, :, s].contiguous(), cc[:, :, s].contiguous(), chunk=chunk)
+                              bb[:, :, s].contiguous(), cc[:, :, s].contiguous(), chunk=chunk,
+                              body=body)
                  for s in cuts]
         torch.cuda.synchronize()
-        assert ssd.launches == before + k
+        assert ssd.launches_by_body[body] == before + k
         y, state = torch.cat([y for y, _ in parts], dim=2), torch.cat([s for _, s in parts], dim=1)
         for want_y, want_state in (whole, plain):
             torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
             torch.testing.assert_close(state, want_state, **SSD_TOL[torch.float32])
+        if dtype == torch.bfloat16:
+            assert torch.equal(y, whole[0]) and torch.equal(state, whole[1]), k
+
+
+@pytest.mark.parametrize("h,p,n", [(3, 64, 128), (7, 64, 64)], ids=["mamba2", "zamba2"])
+def test_ssd_fused_under_grad_keeps_the_chunked_bodys_states_and_gradients(card, h, p, n):
+    """One rank's heads (mamba2's 3, zamba2's 7 at |model| = 16) in bf16
+    under grad, from an initial state: the fused body keeps the fp32
+    states entering each chunk bit for bit the chunked body's, and the
+    forward and every gradient of ``SsdScan`` on it are the chunked
+    body's bit for bit; ``ssd_scan`` picks fused here, one launch forward
+    and one backward."""
+    x, dt, a, bb, cc = head_inputs(card, h, p, n, torch.bfloat16, seed=5 + h)
+    init = torch.randn(2, h, p, n, generator=torch.Generator(device=card).manual_seed(h),
+                       device=card)
+    kept = {body: ssd._launch(x, dt, a, bb, cc, 128, init, body, True) for body in
+            ("chunked", "fused")}
+    for got, want in zip(kept["fused"], kept["chunked"]):
+        assert torch.equal(got, want)
+    dy = torch.randn_like(x.float()).to(torch.bfloat16)
+    dstate = torch.randn_like(init)
+    grads, outs = {}, {}
+    for body in ("chunked", "fused"):
+        leaves = [z.clone().requires_grad_(True) for z in (x, dt, a, bb, cc, init)]
+        before = (ssd.launches_by_body.get(body, 0), sb.launches)
+        y, state = ssd.SsdScan.apply(*leaves[:5], leaves[5], 128, body)
+        torch.autograd.backward([y, state], [dy, dstate])
+        torch.cuda.synchronize()
+        assert (ssd.launches_by_body[body], sb.launches) == (before[0] + 1, before[1] + 1)
+        outs[body], grads[body] = (y, state), [z.grad for z in leaves]
+    assert all(torch.equal(u, w) for u, w in zip(outs["fused"], outs["chunked"]))
+    assert all(torch.equal(u, w) for u, w in zip(grads["fused"], grads["chunked"]))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert ssd.body_for(torch.bfloat16, p, n, 128, 2 * h, sms, 16,
+                        ssd.fused_blocks_per_sm(card, 128, p, n, 1)) == "fused"
+
+
+def test_ssd_fused_repeats_bit_for_bit_back_to_back_and_in_a_graph(card):
+    """The fused body keeps nothing on the card from one call to the next:
+    100 calls back to back, alternating two shapes, each give the first
+    call's bits, and so do two replays of a CUDA graph that captured a
+    call on a side stream (a cooperative launch in the graph)."""
+    x, dt, a, bb, cc = head_inputs(card, 3, 64, 128, torch.bfloat16, seed=77)
+    short = tuple(z[:, :700].contiguous() if z.dim() > 1 else z for z in (x, dt, a, bb, cc))
+    want = ssd.ssd_scan(x, dt, a, bb, cc, chunk=128, body="fused")
+    want_short = ssd.ssd_scan(*short, chunk=128, body="fused")
+    for i in range(100):
+        got = ssd.ssd_scan(*((x, dt, a, bb, cc) if i % 2 == 0 else short), chunk=128,
+                           body="fused")
+        if i >= 98:
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, w) for u, w in zip(got, want if i % 2 == 0 else want_short))
+    static = [z.clone() for z in (x, dt, a, bb, cc)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ssd.ssd_scan(*static, chunk=128, body="fused")  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, state = ssd.ssd_scan(*static, chunk=128, body="fused")
+    for _ in range(2):
+        y.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want[0]) and torch.equal(state, want[1])
+
+
+def test_ssd_fused_runs_while_another_stream_holds_the_sms(card):
+    """A fused call queued while another stream's matmuls hold every SM
+    (as a rank's collectives or a second process may) waits for room and
+    runs whole: the cooperative launch never starts part of its grid.
+    Ten calls give the idle card's bits."""
+    x, dt, a, bb, cc = head_inputs(card, 7, 64, 64, torch.bfloat16, seed=78)
+    want = ssd.ssd_scan(x, dt, a, bb, cc, chunk=128, body="fused")
+    m = torch.randn(4096, 4096, device=card, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = []
+    with torch.cuda.stream(side):
+        for _ in range(40):  # tens of milliseconds of matmuls on every SM
+            m = (m @ m).clamp_(-1, 1)
+    for _ in range(10):
+        outs.append(ssd.ssd_scan(x, dt, a, bb, cc, chunk=128, body="fused"))
+    torch.cuda.synchronize()
+    for y, state in outs:
+        assert torch.equal(y, want[0]) and torch.equal(state, want[1])
+
+
+def test_ssd_fused_refuses_a_grid_beyond_one_wave_on_card(card):
+    """The wrapper refuses a named ``fused`` on a grid past one wave (a
+    ValueError, no launch), and the C entry's cooperative launch refuses it
+    too (cudaErrorCooperativeLaunchTooLarge), rather than start a grid
+    whose CTAs would wait on CTAs that cannot run."""
+    x, dt, a, bb, cc = head_inputs(card, 48, 64, 128, torch.bfloat16, seed=79)
+    before = ssd.launches
+    with pytest.raises(ValueError, match="one wave"):
+        ssd.ssd_scan(x, dt, a, bb, cc, chunk=128, body="fused")
+    assert ssd.launches == before
+    b, t, h, p = x.shape
+    nc = t // 128
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, 128), dtype=torch.float32, device=card)
+    own = torch.empty((b, nc, h, p, 128), dtype=torch.float32, device=card)
+    decays = torch.empty((b, nc, h), dtype=torch.float32, device=card)
+    rc = ssd._fused_entry()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bb.data_ptr(),
+                            cc.data_ptr(), None, y.data_ptr(), state.data_ptr(), own.data_ptr(),
+                            decays.data_ptr(), None, b, t, h, p, 128, 128, 1,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 720  # cudaErrorCooperativeLaunchTooLarge
+    torch.cuda.synchronize()  # the context is sound
 
 
 def test_mamba2_over_the_one_rank_nccl_mesh_is_the_mesh_less_step_on_card(card):
     """The reduced mamba2 in bf16 over ``make_debug_mesh``'s (1, 1) NCCL
     mesh, where its layers take the head-split path with every head and
     no collective over ``model``: eight serve steps (B = 4) and a prefill
-    (B = 2, S = 256, every SSD launch on chunked), logits bit for bit the
-    mesh-less steps'."""
+    (B = 2, S = 256, every SSD launch on the body ``ssd_scan`` picks for
+    the whole heads), logits bit for bit the mesh-less steps'."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -1647,7 +1860,12 @@ def test_mamba2_over_the_one_rank_nccl_mesh_is_the_mesh_less_step_on_card(card):
         before = dict(ssd.launches_by_body)
         got = make_prefill_step(cfg, mesh=mesh)(stored, {"tokens": tokens}).full_tensor()
         torch.cuda.synchronize()
-        assert ssd.launches_by_body.get("chunked", 0) - before.get("chunked", 0) == cfg.n_layers
+        chunk = min(cfg.ssm_chunk, 256)
+        body = ssd.body_for(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state, chunk,
+                            2 * cfg.n_ssm_heads, da.sm_count(card), -(-256 // chunk),
+                            ssd.fused_blocks_per_sm(card, chunk, cfg.ssm_head_dim,
+                                                    cfg.ssm_state, 1))
+        assert ssd.launches_by_body.get(body, 0) - before.get(body, 0) == cfg.n_layers
         assert sum(ssd.launches_by_body.values()) - sum(before.values()) == cfg.n_layers
         assert torch.equal(got, want)
     finally:

@@ -222,6 +222,17 @@ def test_the_ranks_own_checks_pass(ranks):
     assert summary["ok"]
 
 
+@pytest.mark.parametrize("tag,calls", [("2x1", (0, 0)), ("1x2", (2, 2))])
+def test_t_split_serve_step_calls_one_partials_and_one_combine_a_layer(ranks, tag, calls):
+    """A serve step of the 2-layer dense model whose cache ``model`` splits
+    along T (1, 2) makes one ``decode_attention_partials`` and one
+    ``combine_partials`` call a layer on every rank (the record gathered as
+    it is); on (2, 1) the whole decode runs and neither is called."""
+    outs, _ = ranks
+    for r in range(2):
+        assert tuple(outs[r][f"partials_calls_{tag}"]) == calls, r
+
+
 def test_sst_allgather_over_two_ranks(ranks):
     outs, _ = ranks
     rows = np.stack([worker.sst_row(r) for r in range(2)])

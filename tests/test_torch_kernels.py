@@ -628,7 +628,7 @@ def test_library_name_follows_every_shared_header(tmp_path, monkeypatch):
     ],
 )
 def test_splits_for(b, kh, t, splits, slots):
-    assert da.splits_for(b, kh, t) == splits
+    assert da.splits_for(b, kh, t, 132) == splits  # an H100 SXM's SMs
     assert da.slots_per_split(t, splits) == slots
     assert slots % da.SPLIT_TILE == 0 and splits * slots >= t
     assert t == 0 or (splits - 1) * slots < t  # every split holds a valid slot

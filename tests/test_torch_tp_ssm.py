@@ -18,6 +18,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from test_torch_tp import _Collectives, no_group  # noqa: E402,F401
 
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.specs import abstract_world  # noqa: E402
 from repro_torch.models import ModelConfig, abstract_params, sharding  # noqa: E402
@@ -157,3 +158,61 @@ def test_heads_that_model_does_not_divide_run_whole(no_group):
     assert flops_2 == flops
     over_model = [size for kind, ranks, size in seen if kind == "all-gather" and ranks == (0, 1)]
     assert over_model.count(WHOLE.d_inner * WHOLE.d_model) == WHOLE.n_layers, over_model
+
+
+# (H of the call, CTAs an SM of the fused body, SMs, the body wanted): one
+# rank's heads at |model| = 16 (mamba2's 3, zamba2's 7) and the whole
+# calls, B = 2, T = 2,048 in chunks of 128 (16 chunks)
+FUSED_CHOICE = [
+    ("mamba2 rank", 3, 1, 132, "fused"),     # 96 CTAs: one wave at one an SM
+    ("mamba2 rank", 3, 1, 66, "chunked"),    # half the SMs: two waves
+    ("mamba2 rank", 3, 2, 66, "fused"),      # ... unless two fit an SM
+    ("zamba2 rank", 7, 2, 132, "fused"),     # 224 CTAs at two an SM
+    ("zamba2 rank", 7, 1, 132, "chunked"),
+    ("zamba2 rank", 7, 2, 100, "chunked"),
+    ("mamba2 whole", 48, 2, 132, "chunked"),  # 1,536 CTAs
+    ("zamba2 whole", 112, 2, 132, "chunked"),  # 3,584 CTAs
+    ("not known", 3, 0, 132, "chunked"),     # no occupancy read: not preferred
+]
+
+
+@pytest.mark.parametrize("what,h,per_sm,sms,want", FUSED_CHOICE,
+                         ids=[f"{c[0]}-{c[3]}sms-{c[2]}" for c in FUSED_CHOICE])
+def test_fused_is_preferred_where_a_ranks_grid_fits_one_wave(what, h, per_sm, sms, want):
+    """bf16 takes the fused body only where B·H·chunks CTAs fit one wave at
+    its CTAs an SM on the card's SMs, and prefers it there, the chunked
+    body second; elsewhere the chunked body, and fused is not named; fp32
+    never takes the fused body."""
+    b, p, n, chunk, chunks = 2, 64, 128, 128, 16
+    found = ssd.bodies_for(torch.bfloat16, p, n, chunk, b * h, sms, chunks, per_sm)
+    assert found == (("fused", "chunked", "serial") if want == "fused" else ("chunked", "serial"))
+    assert ssd.body_for(torch.bfloat16, p, n, chunk, b * h, sms, chunks, per_sm) == want
+    assert "fused" not in ssd.bodies_for(torch.float32, p, n, chunk, b * h, sms, chunks, per_sm)
+    assert ssd.bodies_for(torch.bfloat16, p, n, 256, b * h, sms, chunks, per_sm) == ("serial",)
+
+
+@pytest.mark.parametrize("b,t,want", [(1, 256, "fused"), (1, 512, "chunked"),
+                                       (2, 2048, "chunked")])
+def test_a_short_one_card_call_fits_one_wave(b, t, want):
+    """The choice reads the grid, not the mesh: mamba2's 48 heads on one
+    card at B = 1, T = 256 are 96 CTAs, one wave at one an SM, and take the
+    fused body (its bits are the chunked body's); at T = 512, and at
+    phase 3b's B = 2, T = 2,048, the whole call stays on chunked."""
+    chunks = -(-t // 128)
+    assert ssd.body_for(torch.bfloat16, 64, 128, 128, b * 48, 132, chunks, 1) == want
+
+
+@pytest.mark.parametrize("p,ctas,sms,per_sm,want", [
+    (64, 96, 132, {2: 2, 4: 2}, 2),    # mamba2's rank: 192 CTAs at two an SM
+    (64, 96, 132, {2: 1, 4: 2}, 1),    # one an SM: 192 do not fit
+    (64, 224, 132, {2: 2}, 1),         # zamba2's rank: 448 do not fit
+    (32, 48, 132, {2: 2}, 2),          # 16 columns each
+    (16, 48, 132, {2: 4}, 1),          # 8 columns are no whole 16-column tile
+    (64, 0, 132, {}, 1),
+])
+def test_the_fused_split_fills_one_wave(p, ctas, sms, per_sm, want):
+    """``fused_split``: the most CTAs a chunk, up to ``FUSED_MAX_SPLIT``,
+    whose shares of P are whole 16-column tiles and whose grid fits one
+    wave at the CTAs an SM of that split."""
+    assert ssd.FUSED_MAX_SPLIT == 2
+    assert ssd.fused_split(p, ctas, sms, per_sm) == want

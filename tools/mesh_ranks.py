@@ -12,7 +12,9 @@ steps tensor parallel over ``model``:
   norm and every param within ``REL`` of the mesh-less step's;
 * four greedy ``make_serve_step`` tokens (the serve layout, the cache
   under ``cache_pspecs``, split along T over ``model``): equal to the
-  mesh-less step's;
+  mesh-less step's; then one more step whose calls of the partials path
+  are counted: one partials and one combine a layer where ``model``
+  splits the cache, none elsewhere;
 * ``make_prefill_step``'s logits within ``REL``;
 
 then, on (1, W), one MoE layer of the ``ep`` dispatch at a capacity that
@@ -214,6 +216,36 @@ def on_mesh(mesh, dev, want, checks: Dict[str, bool], out: Dict[str, np.ndarray]
         toks.append(tok.cpu().numpy())
     out[f"serve_tokens_{tag}"] = np.stack(toks)
     checks[f"serve tokens {tag}"] = bool((out[f"serve_tokens_{tag}"] == toks_want).all())
+    # one more step, counting the partials path's kernel calls: a layer over
+    # a cache split along T (|model| > 1) calls one partials and one combine
+    calls = partials_calls(lambda: serve(served, cache, tok))
+    out[f"partials_calls_{tag}"] = np.array(calls)
+    split_t = sharding.mesh_sizes(mesh)["model"] > 1
+    checks[f"partials a layer {tag}"] = calls == ((cfg.n_layers,) * 2 if split_t else (0, 0))
+
+
+def partials_calls(step) -> tuple:
+    """(partials, combine) calls of the kernel ops that ``step()`` makes."""
+    from repro_torch.kernels import ops
+
+    count = [0, 0]
+    names = ("decode_attention_partials", "combine_partials")
+    saved = [getattr(ops, name) for name in names]
+
+    def counted(i):
+        def call(*args, **kwargs):
+            count[i] += 1
+            return saved[i](*args, **kwargs)
+        return call
+
+    try:
+        for i, name in enumerate(names):
+            setattr(ops, name, counted(i))
+        step()
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(ops, name, fn)
+    return tuple(count)
 
 
 def ep_against_sorted(mesh, dev, checks: Dict[str, bool]) -> None:
