@@ -15,14 +15,22 @@ measured.  The cluster's four options are the reference's: ``gossip``
 ``prefetch`` (intent-driven speculative model fetches through each
 worker's fetch pipe, ``PrefetchPlane``), ``trace`` (a ``FlightRecorder``
 on the virtual clock) and ``health`` (a ``HealthMonitor`` whose digests
-ride the SST rows).
+ride the SST rows).  A fifth, ``spans``, marks the engine's work in
+PyTorch's profiler timeline on the wall clock (``torch.profiler.record_function``,
+names under ``compass.``: each task's ``run_task``, and inside it the
+``capture`` of a new graph, the ``zero_cache``, one ``replay`` a step and
+the copy ``to_host``), where the profiler puts them on the clock of the
+card's records; on a card the engine also times each task's replays with
+one pair of CUDA events (``ExecutionEngine.task_times``).  Off, the served
+path makes neither call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import ContextManager, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +63,28 @@ KERNELS = {"decode_attention": _da, "flash_attention": _fa, "ssd_scan": _ssd,
            "moe_gmm": _gmm}
 #: (model id, batch, cache capacity): what a graph and a cache are kept by.
 StepKey = Tuple[int, int, int]
+#: The prefix of every profiler range the served path opens.
+SPAN = "compass."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(on: bool, name: str) -> ContextManager:
+    """The profiler range ``compass.<name>`` where ``on``; where not, a
+    context that does nothing."""
+    return torch.profiler.record_function(SPAN + name) if on else _NO_SPAN
+
+
+class TaskTime(NamedTuple):
+    """One task's replays on the card, timed by a CUDA event before its
+    first replay and one after its last: every replay of a key runs the
+    same graph over the same positions."""
+
+    key: StepKey
+    replays: int
+    #: Device seconds between the two events, gaps between replays included.
+    device_s: float
+    #: ``time.perf_counter()`` once the task's synchronise returned.
+    host_s: float
 
 
 @dataclasses.dataclass
@@ -152,6 +182,7 @@ class ExecutionEngine:
         *,
         device: Device = "cuda",
         impl: str = "auto",
+        spans: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         for mid, h in models.items():
@@ -171,6 +202,11 @@ class ExecutionEngine:
         self.graphs: Dict[StepKey, DecodeGraph] = {}
         self.captures = 0
         self._stream: Optional["torch.cuda.Stream"] = None
+        self._spans = spans
+        #: With ``spans`` on a card: one entry a task since the counts were
+        #: last reset.
+        self.task_times: List[TaskTime] = []
+        self._events: Optional[Tuple["torch.cuda.Event", "torch.cuda.Event"]] = None
 
     # -- graphs and caches ---------------------------------------------------------
     def _cache(self, key: StepKey) -> Cache:
@@ -181,11 +217,8 @@ class ExecutionEngine:
         return self.caches[key]
 
     def _graph(self, key: StepKey, cache: Cache) -> DecodeGraph:
-        """The graph of ``key``, captured over ``cache`` at first use.  The
-        warm-up step writes into ``cache``: the caller zeroes it after."""
-        g = self.graphs.get(key)
-        if g is not None:
-            return g
+        """Capture the graph of ``key`` over ``cache``.  The warm-up step
+        writes into ``cache``: the caller zeroes it after."""
         hosted = self.models[key[0]]
         tokens = torch.zeros(key[1], dtype=torch.long, device=self.device)
 
@@ -243,9 +276,10 @@ class ExecutionEngine:
         return out
 
     def reset_counts(self) -> None:
-        """Set every graph's replay count to 0."""
+        """Set every graph's replay count to 0, and drop the task times."""
         for g in self.graphs.values():
             g.replays = 0
+        self.task_times.clear()
 
     def close(self) -> None:
         """Drop every graph and cache, and with them their device memory."""
@@ -260,34 +294,56 @@ class ExecutionEngine:
         (generated token ids (B, decode_tokens) int32, wall seconds)."""
         hosted = self.models[mid]
         t0 = time.perf_counter()
+        on = self._spans
         b, s = prompt.shape
-        key = (mid, b, s + self.decode_tokens + 1)
-        cache = self._cache(key)
-        toks = torch.as_tensor(prompt, device=self.device)
-        if self.device.type == "cuda":
-            g = self._graph(key, cache)
+        with span(on, "run_task"):
+            key = (mid, b, s + self.decode_tokens + 1)
+            cache = self._cache(key)
+            toks = torch.as_tensor(prompt, device=self.device)
+            cuda = self.device.type == "cuda"
+            if cuda:
+                g = self.graphs.get(key)
+                if g is None:
+                    with span(on, "capture"):
+                        g = self._graph(key, cache)
 
-            def step(tokens: torch.Tensor) -> torch.Tensor:
-                g.tokens.copy_(tokens)
-                g.replay()
-                return g.next
-        else:
-            def step(tokens: torch.Tensor) -> torch.Tensor:
-                logits, _ = decode_step(hosted.params, cache, tokens, hosted.cfg,
-                                        impl=self.impl, moe_dispatch="scan")
-                return torch.argmax(logits, dim=-1)
-        for t in cache.values():  # the last task's, or the capture's warm-up step
-            t.zero_()
-        out = []
-        # teacher-forced prefill through the decode path (seeds the cache)
-        for i in range(s):
-            nxt = step(toks[:, i])
-        for _ in range(self.decode_tokens):
-            out.append(nxt.clone())
-            nxt = step(nxt)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        tokens = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+                def step(tokens: torch.Tensor) -> torch.Tensor:
+                    g.tokens.copy_(tokens)
+                    g.replay()
+                    return g.next
+            else:
+                def step(tokens: torch.Tensor) -> torch.Tensor:
+                    logits, _ = decode_step(hosted.params, cache, tokens, hosted.cfg,
+                                            impl=self.impl, moe_dispatch="scan")
+                    return torch.argmax(logits, dim=-1)
+            with span(on, "zero_cache"):
+                for t in cache.values():  # the last task's, or the capture's warm-up step
+                    t.zero_()
+            timed = on and cuda
+            if timed:
+                if self._events is None:
+                    self._events = (torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True))
+                self._events[0].record()
+            out = []
+            # teacher-forced prefill through the decode path (seeds the cache)
+            for i in range(s):
+                with span(on, "replay"):
+                    nxt = step(toks[:, i])
+            for _ in range(self.decode_tokens):
+                with span(on, "replay"):
+                    out.append(nxt.clone())
+                    nxt = step(nxt)
+            if timed:
+                self._events[1].record()
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            if timed:
+                self.task_times.append(TaskTime(
+                    key, s + self.decode_tokens,
+                    self._events[0].elapsed_time(self._events[1]) / 1e3, time.perf_counter()))
+            with span(on, "to_host"):
+                tokens = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
         return tokens, time.perf_counter() - t0
 
 
@@ -315,6 +371,7 @@ class ServingCluster:
         prefetch: Optional[PrefetchConfig] = None,
         trace: Union[bool, TraceConfig] = False,
         health: Union[bool, HealthConfig] = False,
+        spans: bool = False,
         *,
         device: Device = "cuda",
         impl: str = "auto",
@@ -367,7 +424,7 @@ class ServingCluster:
             for w in cluster.workers()
         ]
         self.engine = ExecutionEngine(
-            self.hosted, decode_tokens, device=dev, impl=impl
+            self.hosted, decode_tokens, device=dev, impl=impl, spans=spans
         )
         self._vclock = [0.0] * cluster.n_workers  # per-worker virtual time
         # Predictive prefetch plane (core/prefetch.py) on the virtual

@@ -7,6 +7,8 @@ import no JAX, so they run as they are on a machine with a card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -735,6 +737,66 @@ def test_replayed_launches_are_the_cards(card):
                and ("decode_split" in e.key or "decode_attention_kernel" in e.key))
     assert seen == engine.replayed_launches["decode_attention"] == (6 + 4) * cfg.n_layers
     assert engine.replayed_by_body["decode_attention"] == {"split": (6 + 4) * cfg.n_layers}
+
+
+def test_spans_and_task_times_on_the_card(card):
+    """With ``spans`` on, a graph key new to the engine shows one
+    ``compass.capture``, each ``compass.replay`` holds the one
+    ``cudaGraphLaunch`` whose correlation id its kernels carry, and each
+    task leaves one ``TaskTime`` and records two CUDA events; off, a task
+    of a captured key records no range and no CUDA event; the tokens are
+    the same either way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import ExecutionEngine, HostedModel
+
+    cfg = ARCHS["mamba2-780m"].reduced(dtype="bfloat16")
+    params = tm.init_params(cfg, torch.Generator(device=card).manual_seed(3), card)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=(2, s)).astype(np.int32) for s in (6, 6, 9)]
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def profiled(engine, batch):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tokens = [engine.run_task(0, p)[0] for p in batch]
+        torch.cuda.synchronize()
+        events = list(prof.profiler.kineto_results.events())
+        names = collections.Counter(e.name() for e in events if e.device_type() != cuda)
+        ranges = {k: v for k, v in names.items() if k.startswith("compass.")}
+        recorded = sum(v for k, v in names.items() if k.startswith("cudaEventRecord"))
+        return tokens, events, ranges, recorded
+
+    runs = {}
+    for spans in (False, True):
+        engine = ExecutionEngine({0: HostedModel(0, cfg, params, card)}, decode_tokens=4,
+                                 device=card, spans=spans)
+        runs[spans] = (engine, profiled(engine, prompts), profiled(engine, prompts[:1]))
+    for spans, (engine, (tokens, events, ranges, _), (_, _, again, recorded)) in runs.items():
+        if not spans:
+            assert ranges == again == {} and recorded == 0 and engine.task_times == []
+            continue
+        steps = sum(p.shape[1] + 4 for p in prompts)
+        assert ranges == {"compass.run_task": 3, "compass.capture": 2, "compass.zero_cache": 3,
+                          "compass.replay": steps, "compass.to_host": 3}
+        assert "compass.capture" not in again and recorded == 2
+        times = engine.task_times
+        assert [t.key for t in times] == [(0, 2, 11), (0, 2, 11), (0, 2, 14), (0, 2, 11)]
+        assert [t.replays for t in times] == [10, 10, 13, 10]
+        assert all(t.device_s > 0 for t in times)
+        assert all(a.host_s < b.host_s for a, b in zip(times, times[1:]))
+        replays = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                   if e.name() == "compass.replay" and e.device_type() != cuda]
+        launches = [e for e in events if e.name().startswith("cudaGraphLaunch")]
+        assert len(launches) == steps
+        for e in launches:
+            assert sum(a <= e.start_ns() < b for a, b in replays) == 1
+        kernels = collections.Counter(e.correlation_id() for e in events
+                                      if e.device_type() == cuda)
+        assert all(kernels[e.correlation_id()] > 0 for e in launches)
+        engine.reset_counts()
+        assert engine.task_times == [] and engine.replays == 0
+    for a, b in zip(runs[False][1][0], runs[True][1][0]):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("name", sorted(GRAPH_CFGS))
