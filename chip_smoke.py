@@ -24,7 +24,8 @@ any phase fails.  Phases:
    Qwen3-MoE's and DeepSeek-V2's prefill and decode).  At the main shapes
    the new body and the body it replaced are timed in turns (new, old,
    old, new) in the same run: decode's split against single (2), flash's
-   and the grouped matmul's wgmma against mma.sync (2b, 2d), the SSD
+   and the grouped matmul's wgmma against mma.sync (2b, 2d; at Qwen3's
+   served decode, B = 4, its decode body against wgmma), the SSD
    scan's chunked against serial (2c); then (2e) the flash backward
    kernel against ``flash_attention_bwd_plain`` at the training shapes
    (NeMo's B = 2, S = 2048; granite's MQA; whisper's 1,500-frame encoder;
@@ -87,9 +88,10 @@ any phase fails.  Phases:
    loss, one MoE layer and the whole
    model held kernel path against plain path (with the tokens whose expert
    set differs between the two counted per layer), one serving task
-   (``ExecutionEngine.run_task``, scan dispatch, through a graph; then
-   graph against eager in turns, tokens equal) and sorted against scan
-   decode from one cache;
+   (``ExecutionEngine.run_task``, the sorted dispatch a card serves with,
+   the grouped matmul on its decode body, through a graph; then graph
+   against eager in turns, tokens equal) and sorted against scan decode
+   from one cache;
 3d. the same for DeepSeek-V2 (MLA, shared experts) at full width with its
    depth cut to 4 layers;
 3e. zamba2-7b (hybrid) at full width and depth: ``make_prefill_step`` at
@@ -896,7 +898,7 @@ def gmm_vs_plain():
     qwen, ds = ARCHS["qwen3-moe-30b-a3b"], ARCHS["deepseek-v2-236b"]
     cases = []  # (name, rows, d_in, d_out, sizes, timed)
     for model, cfg, b, s in (("qwen3 prefill", qwen, PREFILL_B, PREFILL_S),
-                             ("qwen3 sorted decode", qwen, 2, 1),
+                             ("qwen3 sorted decode", qwen, 4, 1),
                              ("deepseek prefill", ds, PREFILL_B, PREFILL_S)):
         sizes = routed_sizes(gen, b * s, cfg.d_model, cfg.n_experts, cfg.top_k)
         d, f = cfg.d_model, cfg.d_ff_expert
@@ -920,7 +922,7 @@ def gmm_vs_plain():
             tdt = getattr(torch, dtype)
             x = torch.randn(t, d_in, generator=gen, device=dev, dtype=tdt)
             w = (torch.randn(e, d_in, d_out, generator=gen, device=dev) * 0.02).to(tdt)
-            body = gmm.body_for(tdt, d_in, d_out, n_experts=e)
+            body = gmm.body_for(tdt, d_in, d_out, n_experts=e, rows=t)
             got = gmm.moe_gmm(x, w, sizes).float()
             torch.cuda.synchronize()
             want = gmm.moe_gmm_plain(x, w, sizes).float()
@@ -941,10 +943,11 @@ def gmm_vs_plain():
                        bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=None)
             if timed:
                 reps = 25 if t * d_in * d_out < 2**34 else 10
-                if dtype == "bfloat16":  # the wgmma body against the mma body, in turns
+                if dtype == "bfloat16":  # against the body it replaced, in turns
+                    row["old_body"] = "wgmma" if body == "decode" else "mma"
                     row["kernel_ms"], row["old_body_ms"], row["turns_ms"] = in_turns(
                         lambda: gmm.moe_gmm(x, w, sizes),
-                        lambda: gmm.moe_gmm(x, w, sizes, body="mma"), flush, reps)
+                        lambda: gmm.moe_gmm(x, w, sizes, body=row["old_body"]), flush, reps)
                 else:
                     row["kernel_ms"] = cuda_time_ms(lambda: gmm.moe_gmm(x, w, sizes), flush,
                                                     reps=reps)
@@ -964,8 +967,8 @@ def gmm_vs_plain():
                 lib_txt = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
                            else f"- ({row['library_note']})")
                 old = row["old_body_ms"]
-                old_txt = (f" mma body={old:.4f} ms ({flops / old / 1e9:.1f} TFLOP/s)"
-                           if old is not None else "")
+                old_txt = (f" {row['old_body']} body={old:.4f} ms ({flops / old / 1e9:.1f} "
+                           f"TFLOP/s)" if old is not None else "")
                 times = (f"kernel={row['kernel_ms']:.4f} ms{old_txt} plain={row['plain_ms']:.4f} ms "
                          f"library={lib_txt} {row['kernel_tflops']:.1f} TFLOP/s "
                          f"{row['kernel_tb_per_s']:.2f} TB/s")
@@ -1669,7 +1672,7 @@ def graph_rows(engine):
 def eager_loop(engine, mid, prompt):
     """``engine``'s task without its graphs: the loop ``run_task`` ran
     before the engine captured its decode step (a fresh cache, eager
-    ``decode_step`` calls with the engine's impl and the scan dispatch).
+    ``decode_step`` calls with the engine's impl and MoE dispatch).
     Returns (tokens (B, decode_tokens) int32, wall seconds, the last
     step's logits)."""
     import numpy as np
@@ -1679,7 +1682,7 @@ def eager_loop(engine, mid, prompt):
     hosted = engine.models[mid]
     t0 = time.perf_counter()
     b, s = prompt.shape
-    kw = dict(impl=engine.impl, moe_dispatch="scan")
+    kw = dict(impl=engine.impl, moe_dispatch=engine.moe_dispatch)
     with torch.inference_mode():
         cache = init_cache(hosted.cfg, b, s + engine.decode_tokens + 1, device=engine.device)
         toks = torch.as_tensor(prompt, device=engine.device)
@@ -2488,7 +2491,7 @@ def moe_full_width(name, layers=None, reason=None):
     out["kernel_vs_plain"] = cmp
     del rk, rp, kernel_last, plain_last
 
-    # 3. one serving task, as the reference serves it (scan dispatch),
+    # 3. one serving task, as a card serves it (the sorted dispatch),
     # through a graph, then graph against eager
     hosted = HostedModel(0, cfg, params, dev)
     engine = track(ExecutionEngine({0: hosted}, decode_tokens=6, device=dev))
@@ -2522,7 +2525,7 @@ def moe_full_width(name, layers=None, reason=None):
     if dec["sorted"]["launches"]["moe_gmm"] != 3 * n * dec_steps:
         raise AssertionError(f"{name}: sorted decode launched moe_gmm "
                              f"{dec['sorted']['launches']['moe_gmm']} times")
-    if dec["sorted"]["by_body"]["moe_gmm"] != {"wgmma": 3 * n * dec_steps}:
+    if dec["sorted"]["by_body"]["moe_gmm"] != {"decode": 3 * n * dec_steps}:
         raise AssertionError(f"{name}: sorted decode ran moe_gmm on "
                              f"{dec['sorted']['by_body']['moe_gmm']}")
     dec_flips = flips(dec["sorted"]["rec"], dec["scan"]["rec"])
@@ -2678,8 +2681,10 @@ def serve_task(cfg, params, prompt, want_decode):
 def graphed_task(engine, prompt, want_decode, moe=False):
     """The first task of model 0 on ``engine``, which captures its step:
     the launches held to ``want_decode`` decode launches in the replays
-    and one step's in the warm-up (every one on the split body), no other
-    kernel; the tokens, the wall time, the graph's capture."""
+    and one step's in the warm-up (every one on the split body) and, for an
+    MoE model (``moe``), three grouped-matmul launches for each decode
+    launch, every one on the decode body; no other kernel; the tokens, the
+    wall time, the graph's capture."""
     from repro_torch.kernels import decode_attention as da
 
     cfg = engine.models[0].cfg
@@ -2690,12 +2695,14 @@ def graphed_task(engine, prompt, want_decode, moe=False):
     warm = da.launches
     (graph,) = graph_rows(engine)
     print(f"{cfg.name} serving task (B=2, {prompt.shape[1]}-token prompt, 6 tokens"
-          f"{', scan' if moe else ''}): {wall:.3f} s with the capture, {wall / steps * 1e3:.2f} "
+          f"{', routed' if moe else ''}): {wall:.3f} s with the capture, {wall / steps * 1e3:.2f} "
           f"ms per decode step; launches {launches} ({warm} decode in the warm-up); by body "
           f"{by_body}", flush=True)
-    want = dict(decode_attention=want_decode + want_decode // steps, flash_attention=0,
-                ssd_scan=0, moe_gmm=0)
-    if launches != want or by_body != on_bodies(want, decode_attention="split") \
+    decodes = want_decode + want_decode // steps
+    want = dict(decode_attention=decodes, flash_attention=0, ssd_scan=0,
+                moe_gmm=3 * decodes if moe else 0)
+    if launches != want or by_body != on_bodies(want, decode_attention="split",
+                                                moe_gmm="decode") \
             or warm != want_decode // steps:
         raise AssertionError(f"{cfg.name}: serving launches {launches} ({by_body}; warm-up "
                              f"{warm}), expected {want}")

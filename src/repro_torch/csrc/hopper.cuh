@@ -225,6 +225,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // The wgmma products, their operand lists spelled out (m64nNk16, bf16 in,
 // fp32 accumulate; the immediate scale-a and scale-b are 1).  TB (TA): B
 // (A) is MN-major where set, K-major where not; A from registers is K-major.
+// d (64 x 8, fp32) (+)= A (64 x 16, shared) * B (16 x 8, shared).
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, %8, %7;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
 // d (64 x 64, fp32) (+)= A (64 x 16, shared) * B (16 x 64, shared).
 template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {

@@ -15,7 +15,9 @@
 // 2048 -> 768 in bf16) the function must read x (134 MB) and every
 // non-empty expert's weights (403 MB) once and write the output (50 MB):
 // 175 us at 3.35 TB/s, against 103 GFLOP, 104 us on the tensor cores.  At
-// sorted decode (16 rows over up to 16 experts) it is the weights alone.
+// decode it is the routed experts' weights alone: Qwen3-MoE served at B = 4
+// sends 32 token replicas to ~29 of its 128 experts, 91.5 MB a launch at
+// 2048 -> 768 or 768 -> 2048 (27.3 us), against 0.1 GFLOP.
 //
 // What the design does about it: the Pallas wrapper scatters the rows into
 // groups padded to its row block and gathers them back (moe_gmm.py:69-78,
@@ -25,7 +27,7 @@
 // with warp shuffles.  Rows of a tile past its group's end are read,
 // multiplied and never written; empty groups own no tile.  The output is
 // written in the sorted row order, in place: no scatter, no gather, no read
-// of the sizes on the host.  Four bodies, chosen by the caller
+// of the sizes on the host.  Five bodies, chosen by the caller
 // (kernels/moe_gmm.py::body_for):
 //
 // * wgmma (bf16; d_in and d_out whole 16-byte vectors; x, w, out 16-byte
@@ -41,7 +43,29 @@
 //   and two consumer warpgroups, each computing 64 rows of the 128 x 128
 //   output tile with wgmma m64n128k16 from shared memory (w N-major: the
 //   transpose bit).  A consumer warpgroup whose 64 rows all lie past its
-//   group's end skips the products (decode's one-row groups).
+//   group's end skips the products.
+// * decode (bf16, the same widths and alignment; at most 64 rows, and not
+//   for the input gradient): the few-rows body.  At decode a group holds a
+//   few rows and the weights are all the bytes, so the wgmma body's 128 x
+//   128 tiles fit it badly: a tile streams 512 KB of one expert through one
+//   ring for 1-4 useful rows, and ~29 experts x 6 column tiles make two
+//   rounds of 132 SMs where 1.3 would do.  Here A and B swap: an expert's
+//   output columns fill wgmma's 64-row M side and the group's rows a narrow
+//   N of 8 (m64n8k16), so the weights stream through the tensor cores once.
+//   A CTA owns one non-empty group and 128 output columns (two 64-wide
+//   boxes a stage, so each weight row is read 256 contiguous bytes at a
+//   time: at 2048 -> 768, one box of 128 bytes a stage was 10 % slower),
+//   or a few such slices where the groups x slices would pass two CTAs an
+//   SM (a slice a CTA, with no slices looped, was 5 % slower at 768 ->
+//   2048); empty groups own none.  A producer warp keeps a ring of 80 KB
+//   of weights (five stages) and 8-row x boxes (from L2) filled by TMA; one
+//   consumer warpgroup issues the products, a slice in flight while the
+//   next issues, and writes each output element once, rounded once.  A
+//   group of more than 8 rows is walked in 8-row chunks, each a pass over
+//   its weights (decode at up to 8 tokens never has one).  At Qwen3's
+//   served decode it reads the routed weights at ~2.4 TB/s (36-38 us
+//   against 26.3, L2 flushed clean; rings of 48-96 KB and 1-3 CTAs an SM
+//   read the same), the wgmma body at ~2.0 (42-48 us).
 // * mma (bf16, the same widths and alignment): a 64 x 128 output tile per
 //   CTA of 4 warps, each warp 32 x 64, from mma.sync m16n8k16 fed by
 //   ldmatrix from shared tiles whose rows are padded by 16 bytes, 32-deep
@@ -94,9 +118,9 @@
 //     mma_elem the same with element loads (any widths); fp32 on the CUDA
 //     cores.
 //
-// What it does not do yet: a variant for a few rows per expert (decode
-// multiplies a whole 64-row half tile for one row), a TMA store of the
-// forward's output tile, or dw's split over rows for a skewed routing.
+// What it does not do yet: gate and up in one launch (decode reads x twice
+// and pays two launches), a TMA store of the forward's output tile, or dw's
+// split over rows for a skewed routing.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC -I csrc; bound through a plain C entry point.
@@ -990,6 +1014,169 @@ cudaError_t launch_wgrad(const void* x, const void* dy, const int* gs, void* dw,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma for a few rows (decode): A and B swapped
+// ---------------------------------------------------------------------------
+// out[rows of e]^T (64 columns x 8 rows) = w[e][:, n0:n0+64]^T . x[rows of e]^T:
+// 64 output columns are wgmma's M (A: w's slice, d_out contiguous, so
+// MN-major), a group's rows its N = 8 (B: x's rows, K-major).  The grid is
+// (a slot per group that can be non-empty, a group of `per` consecutive
+// column slices of BN): locate_tile finds the slot's group, empty groups
+// own no slot and a slot past the last non-empty group exits.  A producer
+// warp keeps a ring of 64-deep slices filled by TMA (w's MT boxes of 64 x
+// 64, and the group's 8 rows of x, 1 KB, from L2); one consumer warpgroup
+// issues MT m64n8k16 products a k-step and keeps a slice's products in
+// flight while the next one issues.  A group of more than 8 rows (T is at
+// most ROWS) is walked in 8-row chunks, each a pass over its weights: at
+// decode's batch sizes a group holds at most one row a token, so one pass.
+// Each output element is written by one thread of one CTA, rounded once.
+namespace dec {
+
+constexpr int ROWS = 64;               // most rows (T) the body takes
+constexpr int CH = 8;                  // rows a chunk: wgmma's N
+constexpr int MT = 2;                  // 64-column tiles a slice (wgmma M blocks)
+constexpr int BN = 64 * MT;            // output columns a slice
+constexpr int BK = 64;                 // depth of a slice (one 128-byte swizzle row of x)
+constexpr int W_BOX = BK * 64 * 2;     // one 64 x 64 box of w
+constexpr int W_BYTES = MT * W_BOX;    // w's boxes of a slice
+constexpr int X_BYTES = CH * BK * 2;   // x's box of a slice
+constexpr int STAGE_BYTES = W_BYTES + X_BYTES;
+constexpr int RING = 80 * 1024;        // weight bytes in flight a CTA, two CTAs an SM
+constexpr int STAGES = RING / W_BYTES;
+constexpr int CTAS_PER_SM = 2;
+constexpr int THREADS = 160;           // consumer warpgroup 0 and producer warp 4
+
+size_t smem_bytes() { return 1024 + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t); }
+
+__global__ void __launch_bounds__(THREADS) gmm_decode_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out, int T, int E,
+    int d_in, int d_out, int per) {
+  extern __shared__ __align__(16) uint8_t dec_smem[];  // aligned here to 1024 bytes
+  uint8_t* smem = dec_smem + ((1024 - (hopper::smem_addr(dec_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);  // every consumer thread releases a slice
+    }
+    hopper::mbar_fence_init();
+  }
+  const Tile tile = locate_tile<ROWS>(group_sizes, E, T, blockIdx.x);  // syncs the CTA
+  if (tile.expert < 0) return;
+  const int rows = tile.row1 - tile.row0;
+  const int chunks = (rows + CH - 1) / CH;
+  const int first = blockIdx.y * per * BN;
+  const int last = min(d_out, first + per * BN);
+  const int nk = (d_in + BK - 1) / BK;
+
+  if (tid >= 128) {  // producer warp: one thread issues every load
+    if (tid == 128) {
+      hopper::tma_prefetch_map(&xmap);
+      hopper::tma_prefetch_map(&wmap);
+      int it = 0;
+      for (int n0 = first; n0 < last; n0 += BN)
+        for (int c = 0; c < chunks; ++c)
+          for (int kb = 0; kb < nk; ++kb, ++it) {
+            const int s = it % STAGES;
+            hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            uint8_t* st = smem + s * STAGE_BYTES;
+            hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+              hopper::tma_load_3d(st + m * W_BOX, &wmap, &full[s], n0 + 64 * m, kb * BK,
+                                  tile.expert);
+            hopper::tma_load_2d(st + W_BYTES, &xmap, &full[s], kb * BK, tile.row0 + c * CH);
+          }
+    }
+    return;
+  }
+  // consumer warpgroup: this thread's output columns n0 + 64 m + col and
+  // n0 + 64 m + col + 8, rows 2 (lane % 4) and 2 (lane % 4) + 1 of a chunk
+  const int lane = tid & 31;
+  const int col = (tid >> 5) * 16 + (lane >> 2), row = (lane & 3) * 2;
+  int it = 0;
+  for (int n0 = first; n0 < last; n0 += BN)
+    for (int c = 0; c < chunks; ++c) {
+      float acc[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+      int held = -1;  // the stage whose products are still in flight
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint8_t* st = smem + s * STAGE_BYTES;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) hopper::fence_regs(acc[m]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t db = hopper::desc_sw128(st + W_BYTES + kk * 32, 16, 1024);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            hopper::wgmma_m64n8k16_ss<0, 1>(
+                acc[m], hopper::desc_sw128(st + m * W_BOX + kk * 16 * 128, W_BOX, 1024), db, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the last slice's products are done: release its stage
+#pragma unroll
+        for (int m = 0; m < MT; ++m) hopper::fence_regs(acc[m]);
+        if (held >= 0) hopper::mbar_arrive(&empty[held]);
+        held = s;
+      }
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) hopper::fence_regs(acc[m]);
+      if (held >= 0) hopper::mbar_arrive(&empty[held]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = c * CH + row + (i & 1), n = n0 + 64 * m + col + 8 * (i >> 1);
+          if (r < rows && n < d_out)
+            out[(size_t)(tile.row0 + r) * d_out + n] = __float2bfloat16(acc[m][i]);
+        }
+    }
+}
+
+cudaError_t launch(const void* x, const void* w, const int* gs, void* out, int T, int E, int d_in,
+                   int d_out, cudaStream_t stream) {
+  if (d_in == 0) return cudaMemsetAsync(out, 0, (size_t)T * d_out * 2, stream);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {(cuuint64_t)d_in, (cuuint64_t)T};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)d_in * 2};
+  const cuuint32_t xbox[2] = {BK, CH};
+  const cuuint64_t wdims[3] = {(cuuint64_t)d_out, (cuuint64_t)d_in, (cuuint64_t)E};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)d_out * 2, (cuuint64_t)d_in * d_out * 2};
+  const cuuint32_t wbox[3] = {64, BK, 1};
+  cudaError_t e = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstrides, xbox);
+  if (e == cudaSuccess) e = hopper::encode_bf16_map(&wmap, w, 3, wdims, wstrides, wbox);
+  if (e != cudaSuccess) return e;
+  const size_t smem = smem_bytes();
+  e = cudaFuncSetAttribute(gmm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const int sms = hopper::sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  // a slot for every group that can be non-empty (at most min(T, E)); each
+  // CTA takes `per` column slices, so that the grid is about one wave
+  const int slots = T < E ? T : E, slices = (d_out + BN - 1) / BN;
+  const long long target = (long long)CTAS_PER_SM * sms;
+  long long want = ((long long)slots * slices + target - 1) / target;
+  const int per = (int)(want < 1 ? 1 : want > slices ? slices : want);
+  const dim3 grid((unsigned)slots, (slices + per - 1) / per);
+  gmm_decode_kernel<<<grid, THREADS, smem, stream>>>(xmap, wmap, gs,
+                                                     static_cast<__nv_bfloat16*>(out), T, E,
+                                                     d_in, d_out, per);
+  return cudaGetLastError();
+}
+
+}  // namespace dec
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
@@ -1001,9 +1188,9 @@ extern "C" size_t moe_gmm_wgmma_smem_bytes(int E) { return wg::smem_bytes(E); }
 // as each block's transpose (the input gradient dy . w[e]^T: x is dy, out
 // is dx), out (T, d_out): contiguous, of one dtype (0 = fp32, 1 = bf16);
 // group_sizes (E,) int32 on the device, read only by the kernel.  body: 0 =
-// fp32, 1 = mma_elem, 2 = mma, 3 = wgmma (see the note at the top); a body
-// that cannot take these inputs is refused.  Returns a cudaError_t code, 0
-// on success.
+// fp32, 1 = mma_elem, 2 = mma, 3 = wgmma, 4 = decode (see the note at the
+// top); a body that cannot take these inputs is refused.  Returns a
+// cudaError_t code, 0 on success.
 extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_sizes, void* out,
                               int T, int E, int d_in, int d_out, int dtype, int body, int trans_w,
                               void* stream) {
@@ -1015,6 +1202,7 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_si
                 : body == 1 ? dtype == 1
                 : body == 2 ? dtype == 1 && vec
                 : body == 3 ? dtype == 1 && vec && E <= wg::MAX_EXPERTS
+                : body == 4 ? dtype == 1 && vec && T <= dec::ROWS && !trans_w
                 : false;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (T == 0 || d_out == 0) return 0;
@@ -1022,6 +1210,7 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_si
   const int* gs = static_cast<const int*>(group_sizes);
   const bool tw = trans_w != 0;
   if (body == 3) return (int)wg::launch(x, w, gs, out, T, E, d_in, d_out, tw, s);
+  if (body == 4) return (int)dec::launch(x, w, gs, out, T, E, d_in, d_out, s);
   const int bm = dtype == 0 ? F_BM : BM, bn = dtype == 0 ? F_BN : BN;
   // the static grid: every row tile a group can need, and no more than T
   const long long row_tiles = (T + bm - 1) / bm + (long long)E;

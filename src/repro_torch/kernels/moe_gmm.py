@@ -10,11 +10,14 @@ itself, so a call never waits for the card.  At Qwen3-MoE's prefill it is
 bound by bytes (x, the non-empty experts' weights, and the output, each
 moved once); see the note at the top of the CUDA source.
 
-The kernel has four bodies (see the CUDA source): ``wgmma`` (bf16 on
-Hopper's warpgroup products fed by TMA), ``mma`` (bf16 on mma.sync),
-``mma_elem`` (bf16 with element loads, for ragged widths) and ``fp32``.
-:func:`body_for` picks one from the dtype, the widths, the alignment and
-the expert count; a caller may name one with ``body=`` to time or test it.
+The kernel has five bodies (see the CUDA source): ``wgmma`` (bf16 on
+Hopper's warpgroup products fed by TMA), ``decode`` (the same for a few
+rows: the weights on wgmma's M side, a group's rows on its N), ``mma``
+(bf16 on mma.sync), ``mma_elem`` (bf16 with element loads, for ragged
+widths) and ``fp32``.  :func:`body_for` picks one from the dtype, the
+widths, the alignment, the expert count and the rows (``decode`` at up to
+``DECODE_MAX_ROWS``, never for the input gradient); a caller may name one
+with ``body=`` to time or test it.
 
 ``moe_gmm`` launches the kernel for CUDA tensors and counts each launch in
 the module-level ``launches`` and, by body, in ``launches_by_body``; for CPU
@@ -46,32 +49,39 @@ launches_by_body: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The C entry's number of each body.
-BODIES = {"fp32": 0, "mma_elem": 1, "mma": 2, "wgmma": 3}
+BODIES = {"fp32": 0, "mma_elem": 1, "mma": 2, "wgmma": 3, "decode": 4}
 #: Rows past this would overflow the kernel's 32-bit row sums.
 MAX_ROWS = 1 << 25
 #: The wgmma body keeps three int32 tables per expert in shared memory.
 WGMMA_MAX_EXPERTS = 1024
+#: The decode body takes at most one row tile of x: decode's token replicas
+#: (B · top_k), not prefill's or training's.
+DECODE_MAX_ROWS = 64
 
 
 def bodies_for(dtype: torch.dtype, d_in: int, d_out: int, aligned: bool,
-               n_experts: int) -> Tuple[str, ...]:
+               n_experts: int, rows: Optional[int] = None,
+               trans_w: bool = False) -> Tuple[str, ...]:
     """The bodies that take these inputs, the preferred one first.
-    ``aligned``: x, w and the output start on 16-byte boundaries."""
+    ``aligned``: x, w and the output start on 16-byte boundaries; ``rows``:
+    x's (None where the caller does not say, and then no ``decode``);
+    ``trans_w``: w read as each block's transpose (the input gradient)."""
     if dtype == torch.float32:
         return ("fp32",)
     if dtype != torch.bfloat16:
         return ()
     if not (d_in % 8 == 0 and d_out % 8 == 0 and aligned):  # whole 16-byte vectors
         return ("mma_elem",)
-    if n_experts > WGMMA_MAX_EXPERTS:
-        return ("mma", "mma_elem")
-    return ("wgmma", "mma", "mma_elem")
+    found = ("mma", "mma_elem") if n_experts > WGMMA_MAX_EXPERTS else ("wgmma", "mma", "mma_elem")
+    if rows is not None and rows <= DECODE_MAX_ROWS and not trans_w:
+        return ("decode",) + found
+    return found
 
 
 def body_for(dtype: torch.dtype, d_in: int, d_out: int, aligned: bool = True,
-             n_experts: int = 1) -> str:
+             n_experts: int = 1, rows: Optional[int] = None, trans_w: bool = False) -> str:
     """The body a call with these inputs runs when it names none."""
-    found = bodies_for(dtype, d_in, d_out, aligned, n_experts)
+    found = bodies_for(dtype, d_in, d_out, aligned, n_experts, rows, trans_w)
     if not found:
         raise TypeError(f"kernel takes fp32 or bf16; got {dtype}")
     return found[0]
@@ -132,12 +142,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, body: Op
     d_out = w.shape[1 if trans_w else 2]
     out = x.new_empty((t, d_out))
     aligned = all(z.data_ptr() % 16 == 0 for z in (x, w, out))
-    found = bodies_for(x.dtype, d_in, d_out, aligned, e)
+    found = bodies_for(x.dtype, d_in, d_out, aligned, e, t, trans_w)
     if body is None:
         body = found[0]
     elif body not in found:
-        raise ValueError(f"the {body!r} body does not take {x.dtype} {d_in}->{d_out} over {e} "
-                         f"experts{'' if aligned else ' (unaligned)'}; bodies that do: {found}")
+        raise ValueError(f"the {body!r} body does not take {t} rows of {x.dtype} {d_in}->{d_out} "
+                         f"over {e} experts{'' if aligned else ' (unaligned)'}"
+                         f"{', w transposed' if trans_w else ''}; bodies that do: {found}")
     if out.numel() == 0:  # nothing to compute: no launch
         return out, None
     fn = _entry()

@@ -638,9 +638,10 @@ def decode_step(
     goes through ``kops.decode_attention`` and the sorted MoE dispatch
     through ``kops.moe_gmm`` with ``impl`` ("auto": the hand-written kernels
     for CUDA tensors, their plain twins for CPU tensors); ``moe_dispatch``
-    is "sorted" (the reference's default), "scan" (what serving uses) or
-    "ep".  With a ``mesh`` (a ``DeviceMesh``), ``tokens`` and ``cache`` are
-    this rank's rows, ``params`` may be a ``Gathered`` view, and the layers
+    is "sorted" (the reference's default; what serving uses on a card),
+    "scan" (what serving uses on the CPU) or "ep".  With a ``mesh`` (a
+    ``DeviceMesh``), ``tokens`` and ``cache`` are this rank's rows,
+    ``params`` may be a ``Gathered`` view, and the layers
     are tensor parallel over ``model``; ``slot_offsets`` maps each
     attention cache leaf that is split along T over ``model`` (``k``,
     ``v``, ``shared_k/v``, ``cross_k/v``, ``ckv``, ``krope``) to this

@@ -5,10 +5,13 @@ The reference's three dispatch strategies:
 
 * ``scan`` — every expert on every token, masked by the combined gate.
   Memory-light and dropless; its FLOPs scale with ``n_experts``.  The
-  serving engine decodes with it, as the reference's does.
+  serving engine decodes with it on the CPU, as the reference's does.
 * ``sorted`` — sort the token replicas by expert id, run the grouped
   matmul (``kops.moe_gmm``: the hand-written kernel on a card), and
-  combine.  FLOPs scale with ``top_k``.  Dropless.
+  combine.  FLOPs scale with ``top_k``, and a card reads only the routed
+  experts' weights.  Dropless.  Nothing in it reads a value on the host,
+  so a CUDA graph can hold it: the serving engine decodes with it on a
+  card.
 * ``ep`` — expert-parallel over a mesh's ``model`` axis, the reference's
   ``shard_map`` body written out per rank: each rank takes its tokens
   (its rows of the batch over the data axes) and its own ``E / |model|``
@@ -122,7 +125,9 @@ def _moe_sorted(xt, p, gates, idx, *, impl: str) -> torch.Tensor:
     """Sort the T·K token replicas by expert (stably, as ``jnp.argsort``),
     run the three grouped matmuls, and combine each token's K weighted
     outputs as a (T, K, D) sum over K: a fixed order, where ``index_add_``'s
-    atomics on a card would add in a different order from run to run."""
+    atomics on a card would add in a different order from run to run.  Each
+    replica's output goes back to its (token, choice) slot by ``index_copy``
+    (no read of the order on the host, so a graph can capture it)."""
     t, d = xt.shape
     k = idx.shape[-1]
     n_e = p["router"].shape[-1]
@@ -133,8 +138,7 @@ def _moe_sorted(xt, p, gates, idx, *, impl: str) -> torch.Tensor:
     h = kops.moe_gmm(x_sorted, p["wg"], group_sizes, impl=impl)
     u = kops.moe_gmm(x_sorted, p["wu"], group_sizes, impl=impl)
     out_sorted = kops.moe_gmm(F.silu(h) * u, p["wd"], group_sizes, impl=impl)
-    out = torch.empty_like(out_sorted)
-    out[order] = out_sorted                                   # back to token order
+    out = out_sorted.new_empty(out_sorted.shape).index_copy(0, order, out_sorted)
     out = out * gates.reshape(-1)[:, None].to(out.dtype)
     return out.reshape(t, k, d).sum(dim=1)
 

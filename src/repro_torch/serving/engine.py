@@ -159,8 +159,11 @@ class ExecutionEngine:
     counterpart of the reference's ``jax.jit`` of ``decode_step``
     (``ExecutionEngine._get_step``), and kept, as the jit cache keeps its
     compilations, by model, batch and cache capacity.  A graph holds one
-    ``decode_step`` (``moe_dispatch="scan"``, as the reference serves MoE)
-    and its argmax.  It is captured at first use, after one eager warm-up
+    ``decode_step`` and its argmax.  MoE layers decode with the ``sorted``
+    dispatch on a card, so that a step reads only the routed experts'
+    weights (the grouped-matmul kernel), and with ``scan`` on the CPU, as
+    the reference serves MoE (``moe_dispatch``).  A graph is captured at
+    first use, after one eager warm-up
     step on the capture stream that builds and loads every kernel it runs
     (those launches are real and counted by the wrappers as such), under
     ``torch.cuda.set_sync_debug_mode("error")``, so nothing on the step
@@ -198,6 +201,8 @@ class ExecutionEngine:
         self.models = models
         self.decode_tokens = decode_tokens
         self.impl = impl
+        #: The MoE dispatch of every decode step, by the device.
+        self.moe_dispatch = "sorted" if self.device.type == "cuda" else "scan"
         self.caches: Dict[StepKey, Cache] = {}
         self.graphs: Dict[StepKey, DecodeGraph] = {}
         self.captures = 0
@@ -224,7 +229,7 @@ class ExecutionEngine:
 
         def step():
             logits, _ = decode_step(hosted.params, cache, tokens, hosted.cfg, impl=self.impl,
-                                    moe_dispatch="scan")
+                                    moe_dispatch=self.moe_dispatch)
             return logits, torch.argmax(logits, dim=-1)
 
         if self._stream is None:
@@ -314,7 +319,7 @@ class ExecutionEngine:
             else:
                 def step(tokens: torch.Tensor) -> torch.Tensor:
                     logits, _ = decode_step(hosted.params, cache, tokens, hosted.cfg,
-                                            impl=self.impl, moe_dispatch="scan")
+                                            impl=self.impl, moe_dispatch=self.moe_dispatch)
                     return torch.argmax(logits, dim=-1)
             with span(on, "zero_cache"):
                 for t in cache.values():  # the last task's, or the capture's warm-up step

@@ -454,7 +454,8 @@ def test_gmm_wgmma_body_matches_mma_body_and_plain(card, t, d_in, d_out, sizes):
     gs = torch.tensor(sizes, dtype=torch.int32, device=card)
     assert gmm.body_for(x.dtype, d_in, d_out, n_experts=e) == "wgmma"
     before = (gmm.launches_by_body.get("wgmma", 0), gmm.launches_by_body.get("mma", 0))
-    new = gmm.moe_gmm(x, w, gs).float()
+    new = gmm.moe_gmm(x, w, gs, body="wgmma").float()  # T <= 64 prefers "decode"
+
     old = gmm.moe_gmm(x, w, gs, body="mma").float()
     torch.cuda.synchronize()
     assert (gmm.launches_by_body["wgmma"], gmm.launches_by_body["mma"]) == (before[0] + 1,
@@ -463,6 +464,71 @@ def test_gmm_wgmma_body_matches_mma_body_and_plain(card, t, d_in, d_out, sizes):
     tol = GMM_TOL[torch.bfloat16]
     torch.testing.assert_close(new, want, atol=tol, rtol=tol)
     torch.testing.assert_close(new, old, atol=tol, rtol=tol)
+
+
+def decode_sizes(g, tokens, e=128, k=8):
+    """Group sizes of ``tokens`` tokens that each pick ``k`` distinct experts
+    of ``e`` at random, as a decode step's router does."""
+    picks = torch.rand(tokens, e, generator=g, device=g.device).topk(k, dim=-1).indices
+    return torch.bincount(picks.reshape(-1), minlength=e).tolist()
+
+
+@pytest.mark.parametrize(
+    "t,d_in,d_out,sizes",
+    [
+        (32, 2048, 768, "decode"),        # Qwen3-MoE at B = 4: 32 replicas, top 8 of 128
+        (32, 768, 2048, "decode"),
+        (64, 2048, 768, "decode"),        # B = 8: the most rows the body takes
+        (1, 2048, 768, [0, 1, 0]),        # one row
+        (4, 256, 128, [4]),               # one expert, every row in it
+        (64, 512, 384, [64]),             # one group of 64 rows: eight 8-row chunks
+        (40, 512, 384, [10, 0, 30]),      # groups across the 8-row chunks' edges
+        (12, 64, 16, [4, 5, 0]),          # rows past the sizes' sum: the last expert's
+        (17, 1000, 776, [5, 0, 3, 9]),    # partial depth and column slices
+    ],
+)
+def test_gmm_decode_body_matches_plain_and_wgmma(card, t, d_in, d_out, sizes):
+    """The few-rows body, which ``body_for`` picks at up to 64 rows, against
+    the plain version and the wgmma body at the same tolerance, and bit for
+    bit on a repeat (each output element is one thread's fixed-order sum)."""
+    g = torch.Generator(device=card).manual_seed(t + d_in)
+    if sizes == "decode":
+        sizes = decode_sizes(g, t // 8)
+    e = len(sizes)
+    x = torch.randn(t, d_in, generator=g, device=card).to(torch.bfloat16)
+    w = (torch.randn(e, d_in, d_out, generator=g, device=card) / d_in ** 0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    assert gmm.body_for(x.dtype, d_in, d_out, n_experts=e, rows=t) == "decode"
+    before = gmm.launches_by_body.get("decode", 0)
+    got = gmm.moe_gmm(x, w, gs)
+    again = gmm.moe_gmm(x, w, gs)
+    old = gmm.moe_gmm(x, w, gs, body="wgmma").float()
+    torch.cuda.synchronize()
+    assert gmm.launches_by_body["decode"] == before + 2
+    assert torch.equal(got, again)
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), gmm.moe_gmm_plain(x, w, gs).float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(got.float(), old, atol=tol, rtol=tol)
+
+
+def test_named_decode_body_raises_where_it_cannot_take_the_shape(card):
+    """Past 64 rows, for the input gradient, and at widths that are no whole
+    16-byte vectors the decode body is refused by name, and nothing runs."""
+    gs = torch.tensor([30, 35], dtype=torch.int32, device=card)
+    w = torch.zeros(2, 64, 32, device=card, dtype=torch.bfloat16)
+    before = (gmm.launches, gb.dx_launches)
+    with pytest.raises(ValueError, match="decode"):
+        gmm.moe_gmm(torch.zeros(65, 64, device=card, dtype=torch.bfloat16), w, gs,
+                    body="decode")
+    with pytest.raises(ValueError, match="decode"):
+        gb.moe_gmm_dx(torch.zeros(8, 32, device=card, dtype=torch.bfloat16), w,
+                      torch.tensor([3, 5], dtype=torch.int32, device=card), body="decode")
+    with pytest.raises(ValueError, match="decode"):
+        gmm.moe_gmm(torch.zeros(8, 999, device=card, dtype=torch.bfloat16),
+                    torch.zeros(2, 999, 777, device=card, dtype=torch.bfloat16),
+                    torch.tensor([3, 5], dtype=torch.int32, device=card), body="decode")
+    assert (gmm.launches, gb.dx_launches) == before
 
 
 def test_named_wgmma_body_raises_where_it_cannot_take_the_shape(card):
@@ -682,16 +748,17 @@ def graph_engine(card, name, dtype, decode_tokens=4):
 
 
 def eager_task(cfg, params, prompt, decode_tokens, card):
-    """The engine's loop without a graph: a fresh cache, eager steps."""
+    """The engine's loop without a graph: a fresh cache, eager steps with
+    the dispatch a card's engine decodes MoE with (``sorted``)."""
     b, s = prompt.shape
     cache = tm.init_cache(cfg, b, s + decode_tokens + 1, device=card)
     toks = torch.as_tensor(prompt, device=card)
     for i in range(s):
-        logits, cache = tm.decode_step(params, cache, toks[:, i], cfg, moe_dispatch="scan")
+        logits, cache = tm.decode_step(params, cache, toks[:, i], cfg, moe_dispatch="sorted")
     nxt, out = torch.argmax(logits, dim=-1), []
     for _ in range(decode_tokens):
         out.append(nxt)
-        logits, cache = tm.decode_step(params, cache, nxt, cfg, moe_dispatch="scan")
+        logits, cache = tm.decode_step(params, cache, nxt, cfg, moe_dispatch="sorted")
         nxt = torch.argmax(logits, dim=-1)
     return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
 
@@ -702,6 +769,7 @@ def test_graphed_run_task_gives_the_eager_tokens(card, name, dtype):
     """A task replayed from the engine's graph gives the eager loop's
     tokens, and a second task of the same shape replays the same graph."""
     cfg, params, engine = graph_engine(card, name, dtype)
+    assert engine.moe_dispatch == "sorted"
     rng = np.random.default_rng(2)
     prompt = rng.integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
     got, _ = engine.run_task(0, prompt)
@@ -799,28 +867,91 @@ def test_spans_and_task_times_on_the_card(card):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("name", sorted(GRAPH_CFGS))
-def test_decode_step_captures_under_sync_debug_error(card, name):
+MOE_GRAPH_CFGS = [n for n in sorted(GRAPH_CFGS) if ARCHS[n].arch_type == "moe"]
+
+
+@pytest.mark.parametrize("name,dispatch", [(n, "scan") for n in sorted(GRAPH_CFGS)]
+                         + [(n, "sorted") for n in MOE_GRAPH_CFGS])
+def test_decode_step_captures_under_sync_debug_error(card, name, dispatch):
     """Nothing on a captured decode step waits for the card: with
-    PyTorch's sync debug mode set to raise, the capture goes through."""
+    PyTorch's sync debug mode set to raise, the capture goes through; for
+    the MoE models with either dispatch, the routed one (``sorted``: the
+    sort, the grouped matmul, the copy back to each token's slots) too."""
     cfg, params, _ = graph_engine(card, name, "bfloat16")
     cache = tm.init_cache(cfg, 2, 12, device=card)
     tokens = torch.ones(2, dtype=torch.long, device=card)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        tm.decode_step(params, cache, tokens, cfg, moe_dispatch="scan")  # builds and loads
+        tm.decode_step(params, cache, tokens, cfg, moe_dispatch=dispatch)  # builds and loads
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            logits, _ = tm.decode_step(params, cache, tokens, cfg, moe_dispatch="scan")
+            logits, _ = tm.decode_step(params, cache, tokens, cfg, moe_dispatch=dispatch)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     graph.replay()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_graphed_qwen3_moe_step_reads_the_routed_experts(card):
+    """Qwen3-MoE's MoE layer at its real widths (d_model 2048, 128
+    experts, top 8, d_ff_expert 768), 2 layers, B = 4: the engine's graph
+    launches the grouped matmul three times a layer, all on the decode
+    body, and 16 replays give the ``scan`` dispatch's logits on the same
+    parameters, teacher-forced on the same tokens.
+
+    Tolerance: the routed path rounds each expert's output, its gate
+    product and the sum of a token's 8 outputs to bf16, where ``scan`` sums
+    in fp32 and rounds once; that moves each MoE output by a few bf16 ulps,
+    so the logits are held to 2e-2 of their largest (the port's bf16
+    kernel tolerance).  The argmax is held equal wherever scan's two
+    largest logits lie further apart than twice the row's largest
+    difference, which no such difference can flip; that must be most
+    positions."""
+    import dataclasses
+
+    from repro_torch.serving import ExecutionEngine, HostedModel
+
+    cfg = dataclasses.replace(ARCHS["qwen3-moe-30b-a3b"], n_layers=2, dtype="bfloat16")
+    params = tm.init_params(cfg, torch.Generator(device=card).manual_seed(7), card)
+    engine = ExecutionEngine({0: HostedModel(0, cfg, params, card)}, decode_tokens=8,
+                             device=card)
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab, size=(4, 8)).astype(np.int32)
+    out, _ = engine.run_task(0, prompt)  # captures, then 16 replays
+    key, per_step = (0, 4, 17), 3 * cfg.n_layers
+    g = engine.graphs[key]
+    assert g.launches["moe_gmm"] == per_step and g.by_body["moe_gmm"] == {"decode": per_step}
+    assert engine.replayed_by_body["moe_gmm"] == {"decode": 16 * per_step}
+    inputs = torch.as_tensor(np.concatenate([prompt, out], axis=1), device=card)
+    routed, scan = [], []
+    with torch.inference_mode():
+        for t in engine.caches[key].values():
+            t.zero_()
+        cache = tm.init_cache(cfg, 4, 17, device=card)
+        for i in range(16):
+            g.tokens.copy_(inputs[:, i])
+            g.replay()
+            routed.append(g.logits.float().clone())
+            logits, cache = tm.decode_step(params, cache, inputs[:, i], cfg,
+                                           moe_dispatch="scan")
+            scan.append(logits.float())
+    torch.cuda.synchronize()
+    assert engine.replayed_by_body["moe_gmm"] == {"decode": 32 * per_step}
+    routed, scan = torch.stack(routed), torch.stack(scan)  # (16, 4, vocab)
+    # the replays repeat the task's own steps bit for bit: its tokens are their argmax
+    np.testing.assert_array_equal(routed[7:15].argmax(-1).T.cpu().numpy(), out)
+    diff = (routed - scan).abs()
+    scale = float(scan.abs().max())
+    assert float(diff.max()) <= 2e-2 * scale, (float(diff.max()), scale)
+    top = scan.topk(2, dim=-1).values
+    sure = (top[..., 0] - top[..., 1]) > 2 * diff.amax(-1)
+    assert float(sure.float().mean()) >= 0.75, float(sure.float().mean())
+    assert torch.equal(routed.argmax(-1)[sure], scan.argmax(-1)[sure])
+    engine.close()
 
 
 # ---------------------------------------------------------------------------

@@ -208,6 +208,62 @@ def test_moe_dispatches_agree_and_ep_names_its_roadmap_item():
         tmoe.moe_ffn(tx, tp, top_k=2, dispatch="dense")
 
 
+def _decode_routing(case, t, e, k, seed=6):
+    """(gates (T, K), idx (T, K)) of a decode step's T tokens over E experts."""
+    rs = np.random.default_rng(seed)
+    if case == "same_eight":      # every row picks the same K experts
+        idx = np.tile(rs.choice(e, k, replace=False), (t, 1))
+    elif case == "one_shared":    # one expert in every row, the others each row's own
+        rest = rs.choice(np.arange(1, e), t * (k - 1), replace=False).reshape(t, k - 1)
+        idx = np.concatenate([np.zeros((t, 1), np.int64), rest], axis=1)
+    else:                         # spread: no two rows share an expert
+        idx = rs.choice(e, t * k, replace=False).reshape(t, k)
+    gates = rs.random((t, k)).astype(np.float32) + 0.1
+    return torch.from_numpy(gates / gates.sum(-1, keepdims=True)), torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("routing", ["router", "same_eight", "one_shared", "spread"])
+def test_moe_sorted_matches_scan_at_decode_shapes(routing):
+    """The routed dispatch that a card decodes with against ``scan`` in
+    fp32, at a decode step's shapes (T = 4 tokens, top 8 of 128 experts):
+    every expert a token did not choose adds exactly 0 to ``scan``'s sum,
+    so the two agree up to the order of the sums."""
+    t, d, e, f, k = 4, 32, 128, 16, 8
+    _, p = _ffn_params(d, e, f, 0)
+    (x,) = [torch.from_numpy(a) for a in draw(7, (t, d))]
+    if routing == "router":
+        gates, idx, _ = tmoe.route(x, p["router"], k)
+    else:
+        gates, idx = _decode_routing(routing, t, e, k)
+    scan = tmoe._moe_scan(x, p, gates, idx)
+    for impl in ("auto", "ref"):
+        close(tmoe._moe_sorted(x, p, gates, idx, impl=impl), scan.numpy())
+
+
+@pytest.mark.parametrize(
+    "rows,trans_w,experts,dtype,widths,bodies",
+    [
+        (32, False, 128, torch.bfloat16, (2048, 768), ("decode", "wgmma", "mma", "mma_elem")),
+        (32, False, 128, torch.bfloat16, (768, 2048), ("decode", "wgmma", "mma", "mma_elem")),
+        (64, False, 128, torch.bfloat16, (2048, 768), ("decode", "wgmma", "mma", "mma_elem")),
+        (65, False, 128, torch.bfloat16, (2048, 768), ("wgmma", "mma", "mma_elem")),
+        (32768, False, 128, torch.bfloat16, (2048, 768), ("wgmma", "mma", "mma_elem")),
+        (None, False, 128, torch.bfloat16, (2048, 768), ("wgmma", "mma", "mma_elem")),
+        (32, True, 128, torch.bfloat16, (768, 2048), ("wgmma", "mma", "mma_elem")),  # dx
+        (24, False, 1025, torch.bfloat16, (2048, 768), ("decode", "mma", "mma_elem")),
+        (32, False, 128, torch.bfloat16, (999, 777), ("mma_elem",)),
+        (32, False, 128, torch.float32, (2048, 768), ("fp32",)),
+    ],
+)
+def test_gmm_decode_body_is_picked_by_rows(rows, trans_w, experts, dtype, widths, bodies):
+    """``decode`` is preferred where x has at most one row tile of rows
+    (decode's token replicas), never for the input gradient, and ``wgmma``
+    keeps prefill's and training's sizes."""
+    d_in, d_out = widths
+    assert gmm.bodies_for(dtype, d_in, d_out, True, experts, rows, trans_w) == bodies
+    assert gmm.body_for(dtype, d_in, d_out, True, experts, rows, trans_w) == bodies[0]
+
+
 # ---------------------------------------------------------------------------
 # MLA
 # ---------------------------------------------------------------------------
@@ -337,6 +393,7 @@ def test_engine_tokens_match_reference_engine():
     prompt = tokens(cfg, s=10, seed=4)
     want, _ = RefEngine({0: RefHosted(0, rcfg, jp)}, decode_tokens=5).run_task(0, prompt)
     engine = ExecutionEngine({0: HostedModel(0, cfg, tp, "cpu")}, decode_tokens=5, device="cpu")
+    assert engine.moe_dispatch == "scan"  # the card's engine decodes with "sorted"
     got, _ = engine.run_task(0, prompt)
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got.shape == (2, 5)

@@ -14,6 +14,8 @@ it stands, on one card.
         --variant "no_cs=kk < NP / 16; ++kk) {  // C S_in^T=>kk < 0; ++kk) {"
     python3 tools/kernel_variants.py decode_partials --cluster 8
     python3 tools/kernel_variants.py ssd_scan_rank --pdl
+    python3 tools/kernel_variants.py moe_gmm_decode --clean-flush \
+        --variant "mt4=constexpr int MT = 2;=>constexpr int MT = 4;"
 
 Each ``--variant NAME=OLD=>NEW`` replaces the text OLD, which must occur
 exactly once, by NEW in ``src/repro_torch/csrc/<kernel>.cu``
@@ -24,10 +26,15 @@ body's kernels are printed), checked against the kernel's plain PyTorch
 version at each shape (decode attention by ``chip_smoke.py``'s phase-2
 check, the flash backward's dq, dk and dv by phase 2e's), and timed
 through the body the main path runs (flash attention, its backward and
-the grouped matmul: wgmma; decode attention: split; the SSD scan:
+the grouped matmul: wgmma, the grouped matmul at decode (``moe_gmm_decode``):
+decode; decode attention: split; the SSD scan:
 chunked) at the shapes of the main path, in turns (base,
 variants, variants reversed, base), each time the median of 20 calls
-between CUDA events with the L2 cache flushed before each call.
+between CUDA events with the L2 cache flushed before each call (by a
+write of 128 MB, or with ``--clean-flush`` by a read, which leaves no
+line for the timed call to write back).  ``moe_gmm_decode`` times the
+grouped matmul's decode body at Qwen3-MoE's served decode (B = 4: 32
+token replicas, each token's 8 experts distinct).
 ``--ctas-per-sm`` sets the CTAs an SM decode attention's split count aims
 for (``decode_attention.CTAS_PER_SM``), for every variant alike.  ``ssd_scan_fused`` times the SSD scan's
 fused body and ``decode_partials`` the cluster body of the partials of
@@ -73,6 +80,9 @@ GMM_SHAPES = [("qwen3 2048->768", 4096, 128, 8, 2048, 768),
               ("deepseek 5120->1536", 4096, 160, 6, 5120, 1536),
               ("deepseek 1536->5120", 4096, 160, 6, 1536, 5120),
               ("qwen3 decode 2048->768", 2, 128, 8, 2048, 768)]
+# (name, tokens, experts, top_k, d_in, d_out): Qwen3-MoE's served decode (B = 4)
+GMM_DECODE_SHAPES = [("qwen3 decode B=4 2048->768", 4, 128, 8, 2048, 768),
+                     ("qwen3 decode B=4 768->2048", 4, 128, 8, 768, 2048)]
 # (name, B, H, KH, D, T): NeMo's and granite's serving and long caches, DeepSeek-V2's MLA
 DECODE_SHAPES = [("nemo T=13", 2, 32, 8, 128, 13), ("granite T=13", 2, 48, 1, 128, 13),
                  ("nemo T=4096", 2, 32, 8, 128, 4096), ("granite T=4096", 2, 48, 1, 128, 4096),
@@ -93,22 +103,22 @@ SSD_RANK_SHAPES = [("mamba2 3 heads", 2, 2048, 3, 64, 128, 128),
 PARTIALS_SHAPES = [("nemo T_loc=2048", 2, 32, 8, 128, 2048),
                    ("granite T_loc=2048", 2, 48, 1, 128, 2048)]
 # the kernels of the body each kernel is timed through, as ptxas names them
-TIMED = {"flash_attention": ("wgmma",), "moe_gmm": ("wgmma",),
+TIMED = {"flash_attention": ("wgmma",), "moe_gmm": ("wgmma",), "moe_gmm_decode": ("gmm_decode",),
          "flash_attention_bwd": ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_split_sum"),
          "decode_attention": ("decode_split", "decode_combine"),
          "ssd_scan": ("ssd_chunk", "ssd_state_pass"), "ssd_scan_fused": ("ssd_fused",),
          "ssd_scan_rank": ("ssd_chunk", "ssd_state_pass"), "decode_partials": ("decode_split",)}
 # the source and the C entry of a kernel that are not ``<kernel>.cu`` and
 # ``<kernel>_launch``
-SOURCE = {"ssd_scan_fused": "ssd_scan", "ssd_scan_rank": "ssd_scan"}
+SOURCE = {"ssd_scan_fused": "ssd_scan", "ssd_scan_rank": "ssd_scan", "moe_gmm_decode": "moe_gmm"}
 ENTRY = {"decode_partials": "decode_partials_cluster_launch",
-         "ssd_scan_rank": "ssd_scan_launch"}
+         "ssd_scan_rank": "ssd_scan_launch", "moe_gmm_decode": "moe_gmm_launch"}
 # the C entry's integer arguments after its pointers
-NINTS = {"flash_attention": 12, "moe_gmm": 6, "decode_attention": 9, "ssd_scan": 9,
-         "flash_attention_bwd": 13, "ssd_scan_fused": 7, "ssd_scan_rank": 9,
+NINTS = {"flash_attention": 12, "moe_gmm": 7, "moe_gmm_decode": 7, "decode_attention": 9,
+         "ssd_scan": 9, "flash_attention_bwd": 13, "ssd_scan_fused": 7, "ssd_scan_rank": 9,
          "decode_partials": 7}
-NPTRS = {"flash_attention": 5, "moe_gmm": 4, "decode_attention": 8, "ssd_scan": 11,
-         "flash_attention_bwd": 11, "ssd_scan_fused": 11, "ssd_scan_rank": 11,
+NPTRS = {"flash_attention": 5, "moe_gmm": 4, "moe_gmm_decode": 4, "decode_attention": 8,
+         "ssd_scan": 11, "flash_attention_bwd": 11, "ssd_scan_fused": 11, "ssd_scan_rank": 11,
          "decode_partials": 5}
 
 
@@ -196,14 +206,17 @@ def build(kernel: str, name: str, text: str) -> tuple:
     return name, lib, notes
 
 
-def median_ms(fn, flush, reps=20):
+def median_ms(fn, flush, reps=20, clean=False):
     import torch
 
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int32).amax()
+        else:
+            flush.zero_()
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -373,9 +386,13 @@ def cases(kernel: str, gen, opts):
     else:
         from repro_torch.kernels import moe_gmm as gmm
 
-        for name, tokens, e, top_k, d_in, d_out in GMM_SHAPES:
-            idx = torch.randint(0, e, (tokens * top_k,), generator=gen, device=dev)
-            sizes = torch.bincount(idx, minlength=e).to(torch.int32)
+        decode = kernel == "moe_gmm_decode"
+        for name, tokens, e, top_k, d_in, d_out in GMM_DECODE_SHAPES if decode else GMM_SHAPES:
+            if decode:  # each token's experts distinct, as a router's top-k
+                idx = torch.rand(tokens, e, generator=gen, device=dev).topk(top_k).indices
+            else:
+                idx = torch.randint(0, e, (tokens * top_k,), generator=gen, device=dev)
+            sizes = torch.bincount(idx.reshape(-1), minlength=e).to(torch.int32)
             t = tokens * top_k
             x = torch.randn(t, d_in, generator=gen, device=dev, dtype=torch.bfloat16)
             w = (torch.randn(e, d_in, d_out, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
@@ -384,7 +401,7 @@ def cases(kernel: str, gen, opts):
             def launch(fn, out, x=x, w=w, sizes=sizes):
                 return fn(x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
                           x.shape[0], w.shape[0], w.shape[1], w.shape[2], 1,
-                          gmm.BODIES["wgmma"], stream())
+                          gmm.BODIES["decode" if decode else "wgmma"], 0, stream())
             yield name, x.new_empty((t, d_out)), want, launch
 
 
@@ -401,6 +418,8 @@ def main() -> None:
                     help="decode_partials: CTAs a cluster")
     ap.add_argument("--unchecked", action="store_true",
                     help="time without holding each variant to the plain version")
+    ap.add_argument("--clean-flush", action="store_true",
+                    help="flush L2 by reading 128 MB instead of writing it")
     args = ap.parse_args()
     import torch
 
@@ -475,7 +494,8 @@ def main() -> None:
                 ok = torch.allclose(out.float(), want, atol=TOL, rtol=TOL)
             if not ok and not args.unchecked:
                 raise AssertionError(f"{n} at {shape}: max err {err} outside {TOL}")
-            times[n].append(median_ms(lambda: launch(entries[n], out), flush) * 1e3)
+            times[n].append(median_ms(lambda: launch(entries[n], out), flush,
+                                      clean=args.clean_flush) * 1e3)
         print(f"{shape}: " + ", ".join(f"{n} {' / '.join(f'{t:.1f}' for t in ts)} us"
                                        for n, ts in times.items() if ts), flush=True)
 
