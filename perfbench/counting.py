@@ -25,6 +25,8 @@ from __future__ import annotations
 
 from typing import Mapping, Optional, Sequence, Tuple
 
+from perfbench import families
+
 #: NVIDIA H100 SXM, data sheet: HBM3 bytes/s, dense bf16 tensor-core
 #: FLOP/s, float32 FLOP/s off the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -65,6 +67,9 @@ def expert_weights(m: Mapping) -> int:
 
 def step_flops(m: Mapping, b: int, pos: int) -> float:
     """Operations of one decode step of ``b`` rows at position ``pos``."""
+    family = families.of(m)
+    if family is not None:
+        return family.step_flops(m, b, pos)
     d, v, n = m["d_model"], m["vocab"], m["n_layers"]
     fam = m["arch_type"]
     head = 2 * d * v
@@ -85,6 +90,9 @@ def step_bytes(m: Mapping, b: int, pos: int, experts: Optional[Sequence[int]] = 
     """Bytes of one decode step of ``b`` rows at position ``pos``; an MoE
     model needs ``experts``, the distinct experts its rows are routed to
     in each layer."""
+    family = families.of(m)
+    if family is not None:
+        return family.step_bytes(m, b, pos, experts)
     d, v, n = m["d_model"], m["vocab"], m["n_layers"]
     it = ITEMSIZE[m["dtype"]]
     fam = m["arch_type"]

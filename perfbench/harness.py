@@ -4,7 +4,9 @@ Everything a cell is made of is found by name: its configuration in
 ``configs/<config>.json`` (the hosted models' sizes, the pipelines, the
 emulated cluster), its traffic in ``traffic/<traffic>.json`` (one general
 generator reads it), the limits of its check in ``checks/<cell>.json``,
-and each metric's reader in ``metrics/<metric>.py``.
+each metric's reader in ``metrics/<metric>.py``, and the weights' layout,
+plain reference and step counts of a model whose sizes name a
+``family`` in ``families/<family>.py``.
 
 A run: the weights are drawn on the device from the seed; the program's
 ``ServingCluster`` is built over them; one warm-up request of every
@@ -32,6 +34,8 @@ from types import ModuleType
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+
+from perfbench import families
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -479,6 +483,10 @@ def routed_experts(dep: Deployment, tasks: Sequence[Task]) -> None:
     from perfbench import reference
 
     for mid, sizes in dep.sizes.items():
+        family = families.of(sizes)
+        if family is not None:
+            family_experts(dep, mid, family, tasks)
+            continue
         if sizes["arch_type"] != "moe":
             continue
         mine = [t for t in tasks if t.model_id == mid and well_formed(t)]
@@ -496,6 +504,25 @@ def routed_experts(dep: Deployment, tasks: Sequence[Task]) -> None:
                     counts.append(hit.sum(-1))
                 t.experts = torch.stack(counts).cpu().numpy().astype(np.int64)
                 r += t.rows
+
+
+def family_experts(dep: Deployment, mid: int, family: ModuleType,
+                   tasks: Sequence[Task]) -> None:
+    """``routed_experts`` of a model whose family file reads its routes."""
+    import torch
+
+    from perfbench import reference
+
+    sizes = dep.sizes[mid]
+    mine = [t for t in tasks if t.model_id == mid and well_formed(t)]
+    for block, tokens, _, _ in batches(mine):
+        tok = torch.as_tensor(tokens, device=dep.device)
+        none = torch.zeros(tokens.shape, dtype=torch.bool, device=dep.device)
+        _, routes = reference.forward(sizes, dep.weights[mid].views, tok, none, routing=True)
+        r = 0
+        for t in block:
+            t.experts = family.experts_read(sizes, routes, slice(r, r + t.rows), t.steps)
+            r += t.rows
 
 
 def well_formed(t: Task) -> bool:

@@ -31,6 +31,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from perfbench import families
+
 FP8_MAX = 448.0
 
 
@@ -157,6 +159,9 @@ def forward(
     true, in row-major order, of the model with sizes ``m`` and leaves
     ``w`` (dotted paths) over ``tokens`` (N, L) from position 0; with
     ``routing``, an MoE model's expert ids (N, L, k) a layer too."""
+    family = families.of(m)
+    if family is not None:
+        return family.forward(m, w, tokens, want, fp8=fp8, routing=routing)
     fam, eps = m["arch_type"], m.get("norm_eps", 1e-5)
     h = w["embed"][_clamped(tokens, m["vocab"])].float()
     routes: Optional[List[torch.Tensor]] = [] if routing else None

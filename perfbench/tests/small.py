@@ -4,10 +4,18 @@ model's sizes cut as the program's ``ModelConfig.reduced`` cuts them."""
 from __future__ import annotations
 
 import copy
+import json
+import shutil
+from pathlib import Path
 from typing import Dict, Mapping
+
+from perfbench import families
 
 
 def reduced(sizes: Mapping, dtype: str = "float32") -> Dict:
+    family = families.of(sizes)
+    if family is not None:
+        return family.reduced(sizes, dtype)
     s = dict(sizes)
     d = min(s["d_model"], 256)
     heads = min(s.get("n_heads", 0), 4)
@@ -43,3 +51,26 @@ def small_traffic(tr: Mapping) -> Dict:
 def small_limits(cfg: Mapping, gap: float = 1e-3) -> Dict:
     return {"sample_requests": 4, "least_sampled_tokens": 1,
             "logit_gap": {m["config"]["name"]: gap for m in cfg["models"]}}
+
+
+#: The tests' family file: ``moe`` with one always-on shared expert.
+FAMILY_FILE = Path(__file__).with_name("moe_shared_family.py")
+
+
+def add_family(bench: Path, source: Mapping) -> Dict:
+    """Into ``bench``, a copy of the benchmark's files: ``FAMILY_FILE`` as
+    ``families/moe_shared.py``, and ``configs/qwen3shared.json``, the
+    configuration ``source`` (qwen3moe's) with its MoE model renamed
+    ``qwen3-moe-shared`` and naming that family, and the check
+    ``checks/qwen3shared.chat.json``.  Returns the configuration."""
+    shutil.copy(FAMILY_FILE, bench / "families" / "moe_shared.py")
+    cfg = copy.deepcopy(dict(source))
+    cfg["name"] = "qwen3shared"
+    moe = next(m["config"] for m in cfg["models"] if m["config"]["arch_type"] == "moe")
+    old = moe["name"]
+    moe.update(name="qwen3-moe-shared", family="moe_shared", n_shared_experts=1)
+    (bench / "configs" / "qwen3shared.json").write_text(json.dumps(cfg))
+    lim = json.loads((bench / "checks" / "qwen3moe.chat.json").read_text())
+    lim["logit_gap"]["qwen3-moe-shared"] = lim["logit_gap"].pop(old)
+    (bench / "checks" / "qwen3shared.chat.json").write_text(json.dumps(lim))
+    return cfg

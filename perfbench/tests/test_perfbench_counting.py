@@ -58,3 +58,42 @@ def test_position_moves_attention_only():
     assert counting.step_flops(SSM, 1, 0) == counting.step_flops(SSM, 1, 100)
     d = counting.step_flops(DENSE, 1, 10) - counting.step_flops(DENSE, 1, 9)
     assert d == 2 * 4 * 4 * 2
+
+
+#: The built-in families' counts at the served sizes, pinned to what the
+#: counts read before family files existed: (rows, position, operations,
+#: bytes), an MoE model's bytes at ``pinned_experts``.
+PINNED = {
+    "mamba2-780m": [(1, 0, 1653891072.0, 1713032400.0), (4, 17, 6615564288.0, 2172078912.0),
+                    (4, 237, 6615564288.0, 2172078912.0)],
+    "mistral-nemo-12b": [(1, 0, 23153213440.0, 23153987584.0),
+                         (4, 17, 92657418240.0, 23166928896.0),
+                         (4, 237, 93234135040.0, 23311108096.0)],
+    "granite-20b": [(1, 0, 13325598720.0, 13325733888.0), (4, 17, 53322448896.0, 13326520320.0),
+                    (4, 237, 53581971456.0, 13331927040.0)],
+    "qwen3-moe-30b-a3b": [(1, 0, 6084100096.0, 5231723264.0),
+                          (4, 17, 24389877760.0, 16111557632.0),
+                          (4, 237, 25081937920.0, 16198065152.0)],
+}
+
+
+def served_sizes():
+    from perfbench import harness as hb
+
+    return {m["config"]["name"]: m["config"] for e in hb.spec()["configs"]
+            for m in hb.config(e["name"])["models"]}
+
+
+def pinned_experts(m, b):
+    """Distinct experts a layer: b · top k less 0-4 by layer, at most all."""
+    return [min(m["n_experts"], b * m["top_k"] - i % 5) for i in range(m["n_layers"])]
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_built_in_counts_are_pinned(name):
+    m = served_sizes()[name]
+    assert "family" not in m
+    for b, pos, flops, nbytes in PINNED[name]:
+        experts = pinned_experts(m, b) if m["arch_type"] == "moe" else None
+        assert counting.step_flops(m, b, pos) == flops
+        assert counting.step_bytes(m, b, pos, experts) == nbytes

@@ -10,7 +10,10 @@ import shutil
 
 import pytest
 
+from perfbench import counting, families
 from perfbench import harness as hb
+from perfbench.tests import small
+from perfbench.weights import layout
 
 BENCH = hb.spec()
 
@@ -119,10 +122,11 @@ def test_config_sizes_are_the_programs(entry):
 
 
 def test_new_files_found_without_edits(tmp_path, monkeypatch):
-    """A configuration, a traffic mix, a check and a metric added as new
-    files are found by name."""
+    """A configuration, a traffic mix, a check, a metric and a model
+    family added as new files are found by name."""
     bench = tmp_path / "perfbench"
     shutil.copytree(hb.BENCH, bench, ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shared = small.add_family(bench, hb.config("qwen3moe"))
     cfg = hb.config("trio")
     cfg["name"] = "trio_b"
     (bench / "configs" / "trio_b.json").write_text(json.dumps(cfg))
@@ -133,7 +137,18 @@ def test_new_files_found_without_edits(tmp_path, monkeypatch):
         'UNIT = "requests"\nLAYER = "client"\nMOVES = "request_p95_s"\n\n\n'
         'def read(run):\n    return len(run.requests) or None\n')
     monkeypatch.setattr(hb, "BENCH", bench)
+    monkeypatch.setattr(families, "DIR", bench / "families")
     assert hb.config("trio_b")["name"] == "trio_b"
+    assert hb.config("qwen3shared") == shared
+    sizes = shared["models"][1]["config"]
+    fam = families.of(sizes)
+    assert fam is families.load("moe_shared") and fam.__file__ == str(
+        bench / "families" / "moe_shared.py")
+    assert families.of(hb.config("qwen3moe")["models"][1]["config"]) is None
+    assert "layers.moe.shared_wg" in layout(sizes)
+    assert counting.step_flops(sizes, 4, 9) == fam.step_flops(sizes, 4, 9)
+    assert hb.checks("qwen3shared.chat")["logit_gap"]["qwen3-moe-shared"] == hb.checks(
+        "qwen3moe.chat")["logit_gap"]["qwen3-moe-30b-a3b"]
     assert hb.traffic("long")["prompt_lengths"] == [128]
     assert hb.checks("trio_b.long")["sample_requests"] >= 2
     run = hb.Run({}, [hb.Request(0, "describe", 128, 1.0, True)], 1.0, 1.0)

@@ -13,8 +13,15 @@ from perfbench import harness as hb
 
 FILES = sorted(p for p in hb.BENCH.rglob("*.py") if "tests" not in p.parts)
 BANNED = {"jax", "jaxlib", "flax", "repro", "benchmarks"}
-#: The yardstick: frozen code that takes nothing of the program.
+#: The yardstick: frozen code that takes nothing of the program, and
+#: every family file (``families/*.py``).
 FROZEN = {"reference.py", "counting.py", "weights.py", "trace.py"}
+#: The tests' family file, held to the rule a family file is held to.
+TEST_FAMILY = hb.BENCH / "tests" / "moe_shared_family.py"
+
+
+def frozen(path: Path) -> bool:
+    return path.name in FROZEN or path.parent.name in ("metrics", "families")
 
 
 def imports(source: str):
@@ -29,15 +36,36 @@ def imports(source: str):
 def test_files_found():
     assert {p.name for p in FILES} >= FROZEN | {"run.py", "harness.py", "calibrate.py"}
     assert len([p for p in FILES if p.parent.name == "metrics"]) >= 10
+    assert hb.BENCH / "families" / "__init__.py" in FILES
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(hb.ROOT)))
+@pytest.mark.parametrize("path", FILES + [TEST_FAMILY],
+                         ids=lambda p: str(p.relative_to(hb.ROOT)))
 def test_no_banned_imports(path):
     src = path.read_text()
     assert [m for m in imports(src) if m.split(".")[0] in BANNED] == []
     assert "benchmarks/" not in src and "BENCH_trajectory" not in src
-    if path.name in FROZEN or path.parent.name == "metrics":
+    if frozen(path) or path == TEST_FAMILY:
         assert [m for m in imports(src) if m.split(".")[0] == "repro_torch"] == []
+
+
+@pytest.mark.parametrize("source,bad", [
+    ("from perfbench import reference, counting", False),
+    ("import torch, numpy", False),
+    ("from repro_torch.models.model import param_spec", True),
+    ("import repro_torch", True),
+    ("from repro.models import forward", True),
+    ("import jax.numpy as jnp", True),
+])
+def test_a_family_file_that_imports_the_program_is_refused(tmp_path, source, bad):
+    """The rule ``test_no_banned_imports`` holds a family file to, on a new
+    file under ``families/``."""
+    path = tmp_path / "families" / "new_family.py"
+    path.parent.mkdir()
+    path.write_text(source + "\n")
+    assert frozen(path)
+    names = {m.split(".")[0] for m in imports(path.read_text())}
+    assert bool(names & (BANNED | {"repro_torch"})) is bad
 
 
 @pytest.mark.parametrize("src,bad", [
@@ -65,7 +93,7 @@ def test_what_a_run_imports_holds_no_banned_module():
     code = (
         "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]\n"
         "import perfbench.run, perfbench.calibrate\n"
-        "from perfbench import harness, reference, counting, weights, trace\n"
+        "from perfbench import harness, reference, counting, weights, trace, families\n"
         "import repro_torch.serving, repro_torch.kernels._build, repro_torch.core\n"
         "for e in harness.spec()['end_to_end'] + harness.spec()['per_layer']:\n"
         "    harness.metric(e['name'])\n"

@@ -12,7 +12,9 @@ from perfbench.tests import small
 from perfbench.weights import Weights, layout, model_seed
 
 CELLS = [w["name"] for w in hb.spec()["workloads"]]
-FAMILIES = ["mamba2-780m", "mistral-nemo-12b", "granite-20b", "qwen3-moe-30b-a3b"]
+#: Every model of every configuration ``BENCHMARK.json`` names.
+FAMILIES = list(dict.fromkeys(m["config"]["name"] for entry in hb.spec()["configs"]
+                              for m in hb.config(entry["name"])["models"]))
 
 
 def sizes_of(name):
@@ -130,3 +132,89 @@ def test_routed_experts_count_distinct_experts():
         assert t.experts.shape == (sizes["n_layers"], t.steps)
         assert (t.experts >= sizes["top_k"]).all() and (
             t.experts <= min(sizes["n_experts"], t.rows * sizes["top_k"])).all()
+
+
+#: The built-in families' small reference (float32, weights from seed
+#: 2**31 + 7, two rows of nine tokens, logits at positions 4-8), pinned to
+#: what it read before family files existed: the logits of the first three
+#: wanted positions at ids 0-4, the sum of every logit's size, the argmax
+#: of each position (its top two lie at least 0.4 % of the largest logit
+#: apart) and an MoE model's first layer's experts at the first row's
+#: first four positions.
+PINNED_LOGITS = {
+    "mamba2-780m": dict(
+        corner=[[0.0836009755730629, -0.06250635534524918, -0.03745005652308464,
+                 -0.18027035892009735, 0.1756591945886612],
+                [0.08696647733449936, 0.054065026342868805, 0.023065565153956413,
+                 0.02940111979842186, -0.3052063584327698],
+                [-0.04607953131198883, 0.21085737645626068, -0.004428524523973465,
+                 -0.2577306032180786, -0.29808393120765686]],
+        abs_sum=1287.6176875509555, argmax=[501, 445, 442, 305, 148, 330, 303, 84, 456, 50]),
+    "mistral-nemo-12b": dict(
+        corner=[[0.0397745780646801, -0.04382368549704552, -0.32725948095321655,
+                 0.22801899909973145, 0.24823038280010223],
+                [-0.1308722347021103, -0.0961969643831253, -0.5416735410690308,
+                 0.40650445222854614, 0.029360594227910042],
+                [-0.04144768789410591, -0.02940744161605835, -0.6134735345840454,
+                 0.2720074951648712, 0.029439210891723633]],
+        abs_sum=1276.8307796492372, argmax=[97, 445, 445, 490, 445, 188, 438, 438, 188, 18]),
+    "granite-20b": dict(
+        corner=[[0.21964670717716217, 0.05084078013896942, -0.11318165808916092,
+                 0.2587757110595703, -0.20652997493743896],
+                [0.17381349205970764, 0.2947893738746643, -0.1330227106809616,
+                 0.40534651279449463, -0.2023615688085556],
+                [0.1363821029663086, 0.24915070831775665, 0.01051553525030613,
+                 -0.04639117419719696, -0.14571437239646912]],
+        abs_sum=1297.4396761149183, argmax=[118, 118, 118, 6, 420, 341, 341, 341, 495, 341]),
+    "qwen3-moe-30b-a3b": dict(
+        corner=[[0.1916942298412323, 0.0029303806368261576, -0.5259941220283508,
+                 0.34342506527900696, 0.14160993695259094],
+                [0.1689407080411911, 0.05750521644949913, -0.5009427070617676,
+                 0.3823849558830261, -0.026758408173918724],
+                [0.06358039379119873, 0.031744588166475296, -0.6637229919433594,
+                 0.2927612066268921, 0.011611181311309338]],
+        abs_sum=1282.721103067206, argmax=[97, 445, 490, 434, 490, 438, 234, 417, 422, 422],
+        routes0=[[2, 1], [3, 2], [0, 3], [2, 3]]),
+}
+
+
+def small_logits(sizes):
+    """The small reference's logits and routes of ``sizes`` at
+    ``PINNED_LOGITS``'s inputs."""
+    w = Weights(sizes, "cpu").fill(2**31 + 7)
+    tok = torch.as_tensor(np.random.default_rng(5).integers(0, sizes["vocab"], size=(2, 9)))
+    want = torch.zeros(2, 9, dtype=torch.bool)
+    want[:, 4:] = True
+    return w, tok, want, reference.forward(sizes, w.views, tok, want, routing=True)
+
+
+@pytest.mark.parametrize("name", sorted(PINNED_LOGITS))
+def test_built_in_reference_is_pinned(name):
+    pin = PINNED_LOGITS[name]
+    _, _, _, (logits, routes) = small_logits(small.reduced(sizes_of(name)))
+    scale = float(logits.abs().max())
+    assert torch.allclose(logits[:3, :5], torch.tensor(pin["corner"]), rtol=0, atol=1e-5 * scale)
+    assert float(logits.double().abs().sum()) == pytest.approx(pin["abs_sum"], rel=1e-6)
+    assert logits.argmax(-1).tolist() == pin["argmax"]
+    if "routes0" in pin:
+        assert routes[0][0, :4].tolist() == pin["routes0"]
+    else:
+        assert routes == []
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_reference_is_the_programs_forward(name):
+    """The program's whole-sequence forward over the benchmark's weights
+    and the plain reference (through a family file where the sizes name
+    one) agree in float32 on the CPU."""
+    from repro_torch.models import ParamTree
+    from repro_torch.models.model import forward
+
+    sizes = small.reduced(sizes_of(name))
+    w, tok, want, (ref, _) = small_logits(sizes)
+    with torch.no_grad():
+        logits, _ = forward(ParamTree(w.tree()), {"tokens": tok}, hb.model_config(sizes),
+                            moe_dispatch="scan")
+    got = logits.float()[want]
+    assert torch.allclose(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))

@@ -21,6 +21,8 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from perfbench import families
+
 #: Leaf starts are rounded up to this many bytes.
 ALIGN_BYTES = 512
 #: Elements drawn in one call of ``normal_``.
@@ -33,6 +35,9 @@ Leaf = Tuple[Tuple[int, ...], str, str]  # shape, dtype name, init
 def layout(m: Mapping) -> Dict[str, Leaf]:
     """{dotted path: (shape, dtype, init)} of a model's sizes ``m``; init
     is "normal", "ones" or "zeros"."""
+    family = families.of(m)
+    if family is not None:
+        return family.layout(m)
     d, v, n = m["d_model"], m["vocab"], m["n_layers"]
     dt = m["dtype"]
     out: Dict[str, Leaf] = {
